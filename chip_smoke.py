@@ -5,21 +5,27 @@
 
 Phases, each of which raises on failure:
 
-1. Print the card's name and power limit, and build the hand-written
-   kernels (cybervision_tpu_torch/csrc/*.cu, nvcc for sm_90a).
+1. Print the card's name and power limit, build the hand-written
+   kernels (cybervision_tpu_torch/csrc/*.cu, nvcc for sm_90a), and print
+   each kernel's registers, spills and shared memory (ptxas -v).
 2. Hold every kernel against its plain PyTorch version on the card, at
    the shapes the 1024x1024 main path gives it, and time both:
      K1 ncc_sweep  — the refine sweep of the finest level in its "horiz"
                      (main path), "vert" and per-pixel forms; tolerances
                      of tests/test_pallas_ncc.py (under 0.5 % of valid
                      flags differ, corr within 1e-4, over 99.5 % of
-                     positions equal);
+                     positions equal); also "horiz" and "vert" at 999x777
+                     (no multiple of a tile) and at windows 8 and 128 on
+                     a 300x280 plane;
      K2 score      — 50,000 affine candidates against the match table at
                      8192 rows and at the main path's bucket; counts equal,
-                     sums within rtol 1e-5;
+                     sums within rtol 1e-5; also 50,001 candidates against
+                     the bucket with holes in the middle of its mask, and
+                     with no row valid;
      K3 gather     — (13, 4, 50,000) draws from the packed table at the
                      same two sizes; exact. torch.index_select is timed
-                     beside it as the library yardstick.
+                     beside it as the library yardstick, interleaved with
+                     the kernel (5 turns of 200 calls each, medians).
 3. Run the main path end to end through reconstruction.reconstruct: the
    synthetic 1024x1024 SEM pair, ReconstructionConfig(projection=AFFINE,
    mesh=VERTEX_COLORS), to a PLY in a temporary directory. One warm-up
@@ -27,8 +33,9 @@ Phases, each of which raises on failure:
    to 0 just before and read just after. Checks: every kernel launched,
    the PLY holds over 30 % of the pixels as vertices, and its depth tracks
    the planted disparity. Then one more warm run under torch.profiler:
-   the card's busy share of the run, and the ops by device time. Phases 1
-   to 3 run without a mesh: the single-card path.
+   the card's busy share of the run, the ops by device time, and each
+   kernel's device milliseconds in that run. Phases 1 to 3 run without
+   a mesh: the single-card path.
 4. The multi-device path over a mesh: every visible card when there are
    two or more, else four row shards on the one card (the sharded code
    runs for real either way: halo exchange, global row bounds, a launch
@@ -38,8 +45,9 @@ Phases, each of which raises on failure:
    the halo exchange. Then the main path end to end under the mesh (a
    warm-up and three timed runs, phase 3's gates, the launches per run
    checked against the plan: one K1 per shard on each sharded level,
-   one K2 and one K3 per shard per RANSAC round), and correlate_images
-   under the mesh for the F of an unsharded run, whose delta plane must
+   one K2 and one K3 per shard per RANSAC round), one more run under
+   the profiler for K1s's device milliseconds per run, and
+   correlate_images under the mesh for the F of an unsharded run, whose delta plane must
    equal the unsharded one.
 
 The last two lines of standard output are one JSON object per kernel
@@ -64,6 +72,13 @@ from scipy import ndimage
 SIZE = 1024
 BATCH = 50_000  # RansacConfig.check_interval: candidates per RANSAC round
 DRAW_ROUNDS = 13  # redraw rounds of _ransac_batch_core's sampling
+GATHER_TURNS = 5
+# Device kernels of each wrapper, as the profiler names them.
+KERNEL_NAMES = {
+    "ncc_sweep": ("sweep_tile_kernel", "sweep_pixel_kernel", "box_sums_kernel"),
+    "score_candidates": ("score_split_kernel", "score_reduce_kernel"),
+    "gather_packed": ("gather_packed_kernel",),
+}
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, and HBM3 bandwidth. Bounds are stated against these at 700 W.
 PEAK_F32_OPS = 67e12
@@ -73,6 +88,11 @@ SWEEP_FLIP_MAX = 0.005
 SWEEP_CORR_ATOL = 1e-4
 SWEEP_POS_EQ_MIN = 0.995
 SCORE_RTOL = 1e-5
+# K1's work per evaluated hypothesis in the separable form that the plain
+# version and the Pallas kernel use, _box11(img1 * warp): 1 product, 10
+# row sums, 10 column sums. The warp's box statistics are counted apart,
+# per stripe and pixel: 20 sums of w0, 20 of w0^2 and the square.
+SWEEP_OPS_PER_EVAL = 21.0
 
 
 def synth_sem_pair(h: int, w: int, seed: int = 0):
@@ -152,6 +172,33 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_report() -> None:
+    """Each kernel's registers, spills and static shared memory as ptxas
+    reports them: csrc/*.cu compiled again with kernels.NVCC_FLAGS and
+    -Xptxas -v, one nvcc per source, all started together."""
+    from cybervision_tpu_torch import kernels
+
+    with tempfile.TemporaryDirectory() as td:
+        procs = [
+            (src, subprocess.Popen(
+                [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                 src, "-o", os.path.join(td, os.path.basename(src) + ".o")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in kernels._sources()
+        ]
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc -Xptxas -v failed on {src}:\n{out}")
+            fn = None
+            for line in out.splitlines():
+                if "Compiling entry function" in line:
+                    fn = line.split("'")[1]
+                elif fn and ("Used" in line or "spill" in line):
+                    text = line.split(":", 1)[1] if line.startswith("ptxas") else line
+                    print(f"ptxas {os.path.basename(src)} {fn}: {text.strip()}")
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -185,10 +232,14 @@ def _finest_prev_state(disparity, device):
 
 
 def sweep_evaluations(fields: dict, axis, corridor_size, window, h2, w2,
-                      min_stdev) -> int:
+                      min_stdev) -> tuple[int, int]:
     """Hypotheses whose 11x11 product the sweep must compute: those that
     pass every mask tested before it (source band, candidate bounds,
-    corridor, p_ok, the warp's min_stdev) — the data-dependent work."""
+    corridor, p_ok, the warp's min_stdev) — the data-dependent work.
+    Also, for the static forms, the (stripe, offset, tile) triples that
+    the tiled kernel's block vote lets through (a tile computes the
+    product for all its pixels once one admits the hypothesis); 0 for
+    the per-pixel form."""
     import torch
 
     from cybervision_tpu_torch.ops import ncc_sweep as k1
@@ -201,7 +252,9 @@ def sweep_evaluations(fields: dict, axis, corridor_size, window, h2, w2,
     off0 = torch.floor(fields["coeff"] * fields["center"] + fields["add"])
     box = k1._box11(torch.stack([fields["w0"], fields["w0"] * fields["w0"]]))
     pok = fields["p_ok"] > 0.5
-    total = 0
+    th, tw = k1.TILES.get(axis, (1, 1))
+    pad = (0, -w % tw, 0, -h % th)
+    total = tiles = 0
     for oi in range(fields["w0"].shape[0]):
         avg = box[0, oi] / k1.KPC
         sd = torch.sqrt(torch.clamp(box[1, oi] / k1.KPC - avg * avg, min=0.0))
@@ -235,10 +288,15 @@ def sweep_evaluations(fields: dict, axis, corridor_size, window, h2, w2,
             if axis is None:
                 ok &= (vert_u > 0.5) == vert_b
             total += int(ok.sum())
-    return total
+            if axis is not None:
+                t = torch.nn.functional.pad(ok.float(), pad)
+                tiles += int((t.reshape(-1, th, t.shape[1] // tw, tw).amax((1, 3)) > 0).sum())
+    return total, tiles
 
 
-def check_sweep(fields: dict, axis, kw: dict, reps: int) -> dict:
+def check_sweep(fields: dict, axis, kw: dict, reps: int, label: str = "") -> dict:
+    """K1 against its plain version on the same fields; reps > 0 also
+    times both and states the bound."""
     import torch
 
     from cybervision_tpu_torch.ops import ncc_sweep as k1
@@ -247,6 +305,7 @@ def check_sweep(fields: dict, axis, kw: dict, reps: int) -> dict:
     ck, xk, yk = k1.ncc_sweep(*args, axis=axis, **kw)
     cp, xp, yp = k1.ncc_sweep_plain(*args, axis=axis, **kw)
     torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for a, b in ((ck, cp), (xk, xp), (yk, yp)))
     vk, vp = torch.isfinite(ck), torch.isfinite(cp)
     flip = float((vk != vp).float().mean())
     both = vk & vp
@@ -256,41 +315,50 @@ def check_sweep(fields: dict, axis, kw: dict, reps: int) -> dict:
         if bool(both.any()) else 1.0
     )
     valid_share = float(vp.float().mean())
-    name = axis or "per-pixel"
+    h, w = fields["avg1"].shape
+    name = f"{axis or 'per-pixel'}{label}"
     if not (flip < SWEEP_FLIP_MAX and err <= SWEEP_CORR_ATOL
             and pos_eq > SWEEP_POS_EQ_MIN):
         raise AssertionError(
             f"K1 {name}: valid flips {flip:.5f}, corr err {err:.3g},"
             f" positions equal {pos_eq:.5f}"
         )
+    if not reps:
+        print(f"K1 {name} at {h}x{w}, window {kw['window']}: valid"
+              f" {valid_share:.4f}, flips {flip:.6f}, max|dcorr| {err:.3g},"
+              f" positions equal {pos_eq:.6f}, bit-equal {exact}")
+        return {"err": err, "exact": exact, "valid_share": valid_share}
     ms = cuda_ms(lambda: k1.ncc_sweep(*args, axis=axis, **kw), reps)
     plain_ms = cuda_ms(lambda: k1.ncc_sweep_plain(*args, axis=axis, **kw), 1)
-    n_eval = sweep_evaluations(
+    n_eval, n_tiles = sweep_evaluations(
         fields, axis, kw["corridor_size"], kw["window"], kw["h2"], kw["w2"],
         kw["min_stdev"],
     )
-    h, w = fields["avg1"].shape
     n_o = fields["w0"].shape[0]
     # Inputs read once (the vert plane only by the per-pixel form), three
     # outputs written once.
     n_planes = 9 + (axis is None) + n_o + 3
     n_bytes = 4.0 * h * w * n_planes
-    # 121 products + 120 sums per evaluated hypothesis, and the warp's
-    # separable box sums (2 x 20 adds) plus its square, per warp pixel.
-    n_ops = 241.0 * n_eval + 41.0 * n_o * h * w
+    n_ops = SWEEP_OPS_PER_EVAL * n_eval + 41.0 * n_o * h * w
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     print(
         f"K1 {name}: valid {valid_share:.4f}, flips {flip:.6f},"
-        f" max|dcorr| {err:.3g}, positions equal {pos_eq:.6f};"
-        f" kernel {ms:.3f} ms, plain {plain_ms:.1f} ms,"
+        f" max|dcorr| {err:.3g}, positions equal {pos_eq:.6f}, bit-equal"
+        f" {exact}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms,"
         f" evaluated hypotheses {n_eval}, bound {b_ms:.4f} ms ({b_by})"
+        + (f"; tile votes passed {n_tiles}, i.e. {n_tiles * 4 * k1.TILE_THREADS}"
+           f" pixel-hypotheses computed ({n_tiles * 4 * k1.TILE_THREADS / n_eval:.2f}x"
+           f" the evaluated ones)" if n_tiles else "")
     )
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "valid_share": valid_share, "n_eval": n_eval,
-            "fields": fields, "axis": axis}
+    return {"err": err, "exact": exact, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "valid_share": valid_share,
+            "n_eval": n_eval, "fields": fields, "axis": axis}
 
 
-def phase_sweep(device) -> dict:
+def sweep_case(device, axis: str, h: int, w: int, window: int | None = None):
+    """K1's fields and arguments for the finest level of the synthetic SEM
+    pair at h x w: rows are its epipolar lines (horizontal shift), and the
+    transposed pair (w x h) has vertical ones."""
     import torch
 
     from cybervision_tpu_torch.config import CorrelationConfig, ProjectionMode
@@ -299,34 +367,36 @@ def phase_sweep(device) -> dict:
     cc = CorrelationConfig()
     aff = ProjectionMode.AFFINE
     cs = cc.corridor_size(aff)
+    a, b, d = synth_sem_pair(h, w)
+    f = np.array([[0, 0, 0], [0, 0, 1], [0, -1, 0]], np.float64)
+    if axis == "vert":
+        swap = np.array([[0, 1, 0], [1, 0, 0], [0, 0, 1]], np.float64)
+        a, b, d, f = a.T.copy(), b.T.copy(), d.T.copy(), swap @ f @ swap
+    hh, ww = a.shape
     kw = dict(
         threshold=cc.threshold(aff), min_stdev=cc.min_stdev(aff),
-        window=cc.corridor_window_fixed, corridor_size=cs, h2=SIZE, w2=SIZE,
+        window=window or cc.corridor_window_fixed, corridor_size=cs,
+        h2=hh, w2=ww,
     )
-    img1, img2, disparity = synth_sem_pair(SIZE, SIZE)
-    # Rows are the epipolar lines of the SEM pair (horizontal shift); the
-    # transposed pair has vertical ones.
-    f_h = np.array([[0, 0, 0], [0, 0, 1], [0, -1, 0]], np.float64)
-    swap = np.array([[0, 1, 0], [1, 0, 0], [0, 0, 1]], np.float64)
-    cases = {
-        "horiz": (img1, img2, disparity, f_h),
-        "vert": (img1.T.copy(), img2.T.copy(), disparity.T.copy(),
-                 swap @ f_h @ swap),
-    }
+    wtr, tmin = corr.split_trange(corr.warp_shift_range(f, 1.0, hh, ww, hh, ww))
+    if wtr is None or wtr[0] != axis:
+        raise AssertionError(f"K1 {axis}: warp bucket {wtr}")
+    fields = corr.sweep_inputs(
+        torch.as_tensor(a, device=device), torch.as_tensor(b, device=device),
+        _finest_prev_state(d, device),
+        torch.as_tensor(f, dtype=torch.float32, device=device),
+        1.0, kw["min_stdev"], cc.corridor_min_range(aff),
+        cc.corridor_extend_range(aff), cs, wtr, tmin, axis,
+    )
+    return fields, kw
+
+
+def phase_sweep(device) -> dict:
+    import torch
+
     out = {}
-    for axis, (a, b, d, f) in cases.items():
-        wtr, tmin = corr.split_trange(
-            corr.warp_shift_range(f, 1.0, SIZE, SIZE, SIZE, SIZE)
-        )
-        if wtr is None or wtr[0] != axis:
-            raise AssertionError(f"K1 {axis}: warp bucket {wtr}")
-        fields = corr.sweep_inputs(
-            torch.as_tensor(a, device=device), torch.as_tensor(b, device=device),
-            _finest_prev_state(d, device),
-            torch.as_tensor(f, dtype=torch.float32, device=device),
-            1.0, kw["min_stdev"], cc.corridor_min_range(aff),
-            cc.corridor_extend_range(aff), cs, wtr, tmin, axis,
-        )
+    for axis in ("horiz", "vert"):
+        fields, kw = sweep_case(device, axis, SIZE, SIZE)
         out[axis] = check_sweep(fields, axis, kw, reps=5)
         if out[axis]["valid_share"] < 0.3:
             raise AssertionError(f"K1 {axis}: only {out[axis]['valid_share']:.3f} valid")
@@ -340,6 +410,17 @@ def phase_sweep(device) -> dict:
             mixed = dict(fields, vert=torch.as_tensor(checker, device=device))
             out["per-pixel"] = check_sweep(mixed, None, kw, reps=3)
     return out
+
+
+def phase_sweep_awkward(device) -> list[dict]:
+    """The static forms off the tile grid (999x777) and at the window
+    buckets' ends (8 and 128, on a 300x280 plane): checked, not timed."""
+    res = []
+    for axis in ("horiz", "vert"):
+        for h, w, window in ((999, 777, None), (300, 280, 8), (300, 280, 128)):
+            fields, kw = sweep_case(device, axis, h, w, window)
+            res.append(check_sweep(fields, axis, kw, 0))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -364,7 +445,11 @@ def ransac_tables(matches: np.ndarray, m_bucket: int, device):
     return p1, p2, m_valid, packed, min(m, RansacConfig().top_inliers)
 
 
-def check_score(matches, m_bucket, device, gen) -> dict:
+def check_score(matches, m_bucket, device, gen, c=BATCH, mask="",
+                reps=5) -> dict:
+    """K2 against its plain version: counts equal, sums within rtol 1e-5.
+    mask "holes" clears rows in the middle of the valid ones, "none"
+    clears them all; reps > 0 also times both and states the bound."""
     import torch
 
     from cybervision_tpu_torch.config import ProjectionMode, RansacConfig
@@ -374,33 +459,46 @@ def check_score(matches, m_bucket, device, gen) -> dict:
     rc = RansacConfig()
     t = rc.params(ProjectionMode.AFFINE)[2]
     p1, p2, m_valid, _, top_limit = ransac_tables(matches, m_bucket, device)
-    idx = torch.randint(0, top_limit, (BATCH, 4), generator=gen, device=device)
+    idx = torch.randint(0, top_limit, (c, 4), generator=gen, device=device)
     ff, _ = solve_affine_batch(p1[idx], p2[idx], rc.rank_epsilon)
     ff = ff.contiguous()
+    if mask == "holes":
+        n = int(m_valid.sum())
+        m_valid = m_valid.clone()
+        m_valid[n // 5 : n // 5 + 700] = False
+        m_valid[n // 2 : n // 2 + 31] = False
+    elif mask == "none":
+        m_valid = torch.zeros_like(m_valid)
     ck, sk = k2.score_candidates(ff, p1, p2, m_valid, t)
     cp, sp = k2.score_candidates_plain(ff, p1, p2, m_valid, t)
     torch.cuda.synchronize()
+    label = f"K2 C={c} M={m_bucket}{' mask ' + mask if mask else ''}"
     if not torch.equal(ck, cp):
-        raise AssertionError(
-            f"K2 M={m_bucket}: {int((ck != cp).sum())} counts differ"
-        )
+        raise AssertionError(f"{label}: {int((ck != cp).sum())} counts differ")
     if not torch.allclose(sk, sp, rtol=SCORE_RTOL, atol=0.0):
-        raise AssertionError(f"K2 M={m_bucket}: error sums beyond rtol {SCORE_RTOL}")
+        raise AssertionError(f"{label}: error sums beyond rtol {SCORE_RTOL}")
+    if mask == "none" and (int(ck.abs().sum()) or float(sk.abs().sum())):
+        raise AssertionError(f"{label}: counts or sums not 0")
     err = float((sk - sp).abs().max())
-    ms = cuda_ms(lambda: k2.score_candidates(ff, p1, p2, m_valid, t), 5)
+    if not reps:
+        print(f"{label}: counts equal (max {int(ck.max())}), max|dsum| {err:.3g}")
+        return {"err": err}
+    ms = cuda_ms(lambda: k2.score_candidates(ff, p1, p2, m_valid, t), reps)
     plain_ms = cuda_ms(
         lambda: k2.score_candidates_plain(ff, p1, p2, m_valid, t), 1
     )
-    # Sampson error per (candidate, match): 5 linear forms (4 ops each),
-    # the bilinear form (4), its square (1), the denominator (7), the
-    # quotient (1), the threshold test and the masked sum (3).
-    n_ops = 36.0 * BATCH * m_bucket
-    n_bytes = BATCH * 9 * 4 + m_bucket * (4 * 4 + 1) + BATCH * 8
+    # Sampson error per (candidate, valid match): 5 linear forms (4 ops
+    # each), the bilinear form (4), its square (1), the denominator (7),
+    # the quotient (1), the threshold test and the masked sum (3). Rows
+    # whose mask is clear need no work.
+    m_work = int(m_valid.sum())
+    n_ops = 36.0 * c * m_work
+    n_bytes = c * 9 * 4 + m_bucket * (4 * 4 + 1) + c * 8
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     print(
-        f"K2 M={m_bucket}: counts equal (max {int(ck.max())}),"
+        f"{label}: counts equal (max {int(ck.max())}),"
         f" max|dsum| {err:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms,"
-        f" bound {b_ms:.4f} ms ({b_by})"
+        f" bound {b_ms:.4f} ms ({b_by}, {m_work} valid rows)"
     )
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by}
@@ -423,15 +521,24 @@ def check_gather(matches, m_bucket, device, gen) -> dict:
     torch.cuda.synchronize()
     if not (torch.equal(out_k, out_p) and torch.equal(out_l, out_p)):
         raise AssertionError(f"K3 M={m_bucket}: gathers differ")
-    ms = cuda_ms(lambda: k3.gather_packed(packed, idx), 20)
+    # The kernel and index_select in turns, 200 calls a turn: at tens of
+    # microseconds a call, separate runs measure the host as much as the
+    # card.
+    turns = {"kernel": [], "library": []}
+    for _ in range(GATHER_TURNS):
+        turns["kernel"].append(cuda_ms(lambda: k3.gather_packed(packed, idx), 200))
+        turns["library"].append(cuda_ms(lambda: torch.index_select(packed, 1, flat), 200))
+    ms = float(np.median(turns["kernel"]))
+    lib_ms = float(np.median(turns["library"]))
     plain_ms = cuda_ms(lambda: k3.gather_packed_plain(packed, idx), 20)
-    lib_ms = cuda_ms(lambda: torch.index_select(packed, 1, flat), 20)
     k = idx.numel()
     n_bytes = 4.0 * k + 4.0 * packed.numel() + 8.0 * k
     b_ms, b_by = bound_ms(n_bytes, 0.0)
     print(
         f"K3 M={m_bucket}: exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-        f" index_select {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+        f" index_select {lib_ms:.4f} ms (medians of {GATHER_TURNS} interleaved"
+        f" turns: kernel {[round(x, 5) for x in turns['kernel']]}, index_select"
+        f" {[round(x, 5) for x in turns['library']]}), bound {b_ms:.4f} ms ({b_by})"
     )
     return {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": b_by}
@@ -533,7 +640,7 @@ def check_sweep_sharded(mesh, swept: dict, kw: dict, reps: int) -> dict:
     # warp box sums over every shard's haloed planes.
     halo_rows = 2 * k1.KS + 4 * 2 * kw["window"] + n_o * 2 * m_w0
     n_bytes = 4.0 * h * w * (9 + (axis is None) + n_o + 3) + 8.0 * w * n * halo_rows
-    n_ops = 241.0 * swept["n_eval"] + 41.0 * n_o * n * (hs + 2 * m_w0) * w
+    n_ops = SWEEP_OPS_PER_EVAL * swept["n_eval"] + 41.0 * n_o * n * (hs + 2 * m_w0) * w
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     print(
         f"K1s {name} over {mesh.describe()}: equal to K1 (0 flips, |dcorr| 0,"
@@ -696,10 +803,12 @@ def phase_end_to_end(img1, img2, disparity, counters, mesh=None,
     return {"seconds": best_s, "launches": launches, "plan": plan}
 
 
-def profile_end_to_end(img1, img2) -> None:
-    """One warm main-path run under torch.profiler: the card's busy share
-    of the run (union of device-event intervals over the host wall time)
-    and the ops by self device time."""
+def profile_end_to_end(img1, img2, mesh=None, label="profile") -> dict:
+    """One warm main-path run under torch.profiler (under `mesh`; None:
+    the single-card path): the card's busy share of the run (union of
+    device-event intervals over the host wall time), the ops by self
+    device time, and each wrapper's kernels' device milliseconds in the
+    run (KERNEL_NAMES)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -715,7 +824,7 @@ def profile_end_to_end(img1, img2) -> None:
     )
     images = [SourceImage(im) for im in (img1, img2)]
     names = ["synth_a.png", "synth_b.png"]
-    with tempfile.TemporaryDirectory() as td, use_mesh(None):
+    with tempfile.TemporaryDirectory() as td, use_mesh(mesh):
         out = os.path.join(td, "mesh.ply")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -731,9 +840,17 @@ def profile_end_to_end(img1, img2) -> None:
         if e > end:
             busy += e - max(s, end)
             end = e
-    print(f"profile: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms"
+    print(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms"
           f" ({busy / wall_us:.4f} of the run), {len(spans)} device events")
-    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    averages = prof.key_averages()
+    print(averages.table(sort_by="self_device_time_total", row_limit=15))
+    per_kernel = {
+        name: sum(e.self_device_time_total for e in averages
+                  if any(k in e.key for k in keys)) / 1e3
+        for name, keys in KERNEL_NAMES.items()
+    }
+    print(f"{label}: device ms per run by wrapper {json.dumps(per_kernel)}")
+    return per_kernel
 
 
 def main() -> int:
@@ -756,9 +873,11 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    ptxas_report()
 
     t0 = time.perf_counter()
     sweep = phase_sweep(device)
+    awkward = phase_sweep_awkward(device)
     img1, img2, disparity = synth_sem_pair(SIZE, SIZE)
     matches = main_path_matches(img1, img2, device)
     m_main = pow2_bucket(len(matches), floor=2048, factor=4)
@@ -767,6 +886,10 @@ def main() -> int:
     gen.manual_seed(0)
     sizes = sorted({8192, m_main})
     score_r = {m: check_score(matches, m, device, gen) for m in sizes}
+    score_awkward = [
+        check_score(matches, m_main, device, gen, c=BATCH + 1, mask=mask, reps=0)
+        for mask in ("holes", "none")
+    ]
     gather_r = {m: check_gather(matches, m, device, gen) for m in sizes}
     print(f"kernel checks took {time.perf_counter() - t0:.1f} s")
 
@@ -774,7 +897,7 @@ def main() -> int:
                 "score_candidates": (score, "launches"),
                 "gather_packed": (gather, "launches")}
     e2e = phase_end_to_end(img1, img2, disparity, counters)
-    profile_end_to_end(img1, img2)
+    device_ms = profile_end_to_end(img1, img2)
 
     t0 = time.perf_counter()
     mesh = chip_mesh()
@@ -788,10 +911,12 @@ def main() -> int:
         mesh=mesh, label="end to end under the mesh",
     )
     check_mesh_launches(e2e_mesh, mesh.size)
+    device_ms_mesh = profile_end_to_end(img1, img2, mesh, "profile under the mesh")
     phase_same_correlation(img1, img2, matches, mesh, device)
     print(f"multi-device phase took {time.perf_counter() - t0:.1f} s")
 
-    def record(name, source, replaces, main, errs, run=e2e):
+    def record(name, source, replaces, main, errs, run=e2e, dev_ms=device_ms,
+               dev_name=None):
         return {
             "name": name, "route": "cuda",
             "source": f"cybervision_tpu_torch/csrc/{source}",
@@ -801,21 +926,24 @@ def main() -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main.get("library_ms"),
+            # Device time of the wrapper's kernels in one profiled e2e run.
+            "device_ms_per_run": dev_ms[dev_name or name],
         }
 
     kernels_line = {"kernels": [
         record("ncc_sweep", "ncc_sweep.cu",
                "cybervision_tpu/ops/pallas_ncc.py:93", sweep["horiz"],
-               [r["err"] for r in sweep.values()]),
+               [r["err"] for r in [*sweep.values(), *awkward]]),
         record("score_candidates", "score_candidates.cu",
                "cybervision_tpu/ops/pallas_score.py:56", score_r[m_main],
-               [r["err"] for r in score_r.values()]),
+               [r["err"] for r in [*score_r.values(), *score_awkward]]),
         record("gather_packed", "gather_packed.cu",
                "cybervision_tpu/ops/pallas_gather.py:60", gather_r[m_main],
                [r["err"] for r in gather_r.values()]),
         record("ncc_sweep_sharded", "ncc_sweep.cu",
                "cybervision_tpu/ops/pallas_ncc.py:682", sharded["horiz"],
-               [r["err"] for r in sharded.values()], run=e2e_mesh),
+               [r["err"] for r in sharded.values()], run=e2e_mesh,
+               dev_ms=device_ms_mesh, dev_name="ncc_sweep"),
     ]}
     print(f"end-to-end seconds (warm, best of 3): {e2e['seconds']:.4f} on one"
           f" card, {e2e_mesh['seconds']:.4f} over {mesh.describe()}")

@@ -105,10 +105,10 @@ def library() -> ctypes.CDLL:
                 vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                 vp, vp, vp,
                 ci, ci, ci, ci, ci, ci, ci, ci, cf, cf,
-                ci, ci, ci, ci, ci, vp,
+                ci, ci, ci, ci, ci, ci, ci, ci, vp,
             ]
             lib.cv_score_candidates.argtypes = [
-                vp, vp, ci, ci, cf, vp, vp, vp,
+                vp, vp, vp, ci, ci, cf, ci, ci, vp, vp, vp, vp, vp,
             ]
             lib.cv_gather_packed.argtypes = [vp, ci, vp, ctypes.c_long, vp, vp]
             for fn in (

@@ -20,6 +20,9 @@ shift of the per-pixel form).
 The TPU kernel's row tiles, VMEM budget (pick_tile_h) and the
 horizontal-axis transpose of refine_pass_pallas have no counterpart:
 the CUDA kernel sweeps columns directly and takes every refine level.
+Its static forms run one block per output tile with every operand in
+shared memory; `sweep_tile_plan` is that launch's geometry (tile, grid,
+shared bytes for the window), computed here so the CPU tests reach it.
 
 K1s, `ncc_sweep_sharded` (pallas_ncc.py:682-801), runs the same kernel
 on the row shards of a parallel.Mesh: every shard's fields get their
@@ -52,6 +55,14 @@ launches = 0
 # to 0.
 sharded_launches = 0
 
+# csrc/ncc_sweep.cu's static forms: output tiles short along the sweep
+# axis (the band of warp and fields they stage grows with the window along
+# it), 256 threads each, and the shared memory one block may hold on the
+# H100 (227 KB).
+TILES = {"horiz": (16, 64), "vert": (64, 16)}
+TILE_THREADS = 256
+SMEM_LIMIT = 232_448
+
 
 def _box11(x: torch.Tensor) -> torch.Tensor:
     """11x11 window sums over the last two axes, zero outside: column
@@ -81,6 +92,37 @@ def shift(x: torch.Tensor, u: int, dim: int, fill: int = 0) -> torch.Tensor:
     else:
         out.narrow(dim, -u, n + u).copy_(x.narrow(dim, 0, n + u))
     return out
+
+
+def sweep_tile_plan(h: int, w: int, window: int, axis: str) -> dict:
+    """Launch geometry of the static forms ("vert", "horiz") for an
+    (h, w) plane: tile (rows, columns), grid (column tiles, row tiles)
+    covering the plane, and the block's shared bytes — csrc/ncc_sweep.cu's
+    layout(): the img1 tile +- KS, the w0 band (+- KS, and +- window along
+    the axis), four per-q planes of the band, and the larger of the
+    row-sum plane and the box sums' scratch. Raises ValueError where the
+    window's band does not fit one block."""
+    if axis not in TILES:
+        raise ValueError(f"sweep_tile_plan: axis must be vert or horiz, got {axis!r}")
+    th, tw = TILES[axis]
+    wy, wx = (window, 0) if axis == "vert" else (0, window)
+    ir, ip = th + 2 * KS, tw + 2 * KS
+    wr, wp = th + 2 * KS + 2 * wy, tw + 2 * KS + 2 * wx
+    br, bc = th + 2 * wy, tw + 2 * wx
+    # A "vert" warp spans two 16-wide rows: 4 floats of padding per row.
+    bp = bc + 4 if axis == "vert" else bc
+    rp = tw + 4 if axis == "vert" else tw
+    floats = ir * ip + wr * wp + 4 * br * bp + max(ir * rp, 2 * wr * bp)
+    smem = 4 * floats
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"ncc_sweep: window {window} needs {smem} bytes of shared memory"
+            f" per {axis} tile, over the {SMEM_LIMIT} one block may hold"
+        )
+    return {
+        "tile": (th, tw), "grid": (-(-w // tw), -(-h // th)),
+        "threads": TILE_THREADS, "smem_bytes": smem,
+    }
 
 
 def _halo_rows(window: int) -> dict[str, int]:
@@ -246,26 +288,36 @@ def ncc_sweep(
     from cybervision_tpu_torch import kernels
 
     lib = kernels.library()
-    sw = torch.empty_like(w0)
-    sww = torch.empty_like(w0)
+    if axis is None:
+        # The per-pixel form reads the warp's box sums from a plane; the
+        # static forms compute them in their tiles.
+        sw, sww = torch.empty_like(w0), torch.empty_like(w0)
+        tile_h = tile_w = smem = 0
+    else:
+        sw = sww = None
+        plan = sweep_tile_plan(h, w, window, axis)
+        (tile_h, tile_w), smem = plan["tile"], plan["smem_bytes"]
     corr = torch.empty((h, w), dtype=torch.float32, device=dev)
     bx = torch.empty((h, w), dtype=torch.int32, device=dev)
     by = torch.empty((h, w), dtype=torch.int32, device=dev)
     # The C entry points launch on the host thread's current device.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        kernels.check(
-            lib.cv_box_sums(w0.data_ptr(), n_o, h + 2 * m_w0, w, sw.data_ptr(),
-                            sww.data_ptr(), stream),
-            "cv_box_sums",
-        )
+        if sw is not None:
+            kernels.check(
+                lib.cv_box_sums(w0.data_ptr(), n_o, h + 2 * m_w0, w,
+                                sw.data_ptr(), sww.data_ptr(), stream),
+                "cv_box_sums",
+            )
         kernels.check(
             lib.cv_ncc_sweep(
                 *(t.data_ptr() for t in fields.values()), w0.data_ptr(),
-                sw.data_ptr(), sww.data_ptr(), corr.data_ptr(), bx.data_ptr(),
-                by.data_ptr(), h, w, n_o, corridor_size, window, h2, w2,
-                _AXES[axis], float(threshold), float(min_stdev),
-                depth["img1"], depth["center"], m_w0, row0_g, h_total, stream,
+                None if sw is None else sw.data_ptr(),
+                None if sww is None else sww.data_ptr(), corr.data_ptr(),
+                bx.data_ptr(), by.data_ptr(), h, w, n_o, corridor_size, window,
+                h2, w2, _AXES[axis], float(threshold), float(min_stdev),
+                depth["img1"], depth["center"], m_w0, row0_g, h_total,
+                tile_h, tile_w, smem, stream,
             ),
             "cv_ncc_sweep",
         )

@@ -15,6 +15,32 @@ import torch
 # Kernel launches since the counter was last set to 0.
 launches = 0
 
+# csrc/score_candidates.cu's launch constants: threads per block,
+# candidates per thread, and the match rows of a split, one shared-memory
+# slab: small, so that the padding rows of the main path's bucketed table
+# (60 % of it at 1024^2) leave whole blocks idle and the valid rows still
+# spread over several waves of blocks.
+THREADS = 128
+CANDS_PER_THREAD = 2
+SLAB = 256
+
+
+def score_plan(c: int, m: int) -> dict:
+    """The kernel's grid for C candidates against M matches: candidate
+    tiles of THREADS * CANDS_PER_THREAD, and the match rows in splits of
+    SLAB rows (the last one short, none empty)."""
+    per_block = THREADS * CANDS_PER_THREAD
+    n_splits = -(-m // SLAB)
+    if n_splits > 65535:
+        raise ValueError(f"score_candidates: {m} matches need {n_splits} splits, over 65535")
+    return {
+        "threads": THREADS,
+        "cands_per_block": per_block,
+        "cand_tiles": -(-c // per_block),
+        "split": SLAB,
+        "n_splits": n_splits,
+    }
+
 
 def sampson_error(f: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     """First-order epipolar residual (fundamentalmatrix.rs:461-471):
@@ -85,17 +111,22 @@ def score_candidates(ff, p1, p2, m_valid, threshold: float):
     from cybervision_tpu_torch import kernels
 
     lib = kernels.library()
+    plan = score_plan(c, m)
     ffl = ff.reshape(c, 9).contiguous()
-    pts = torch.stack(
-        [p1[:, 0], p1[:, 1], p2[:, 0], p2[:, 1], m_valid.to(torch.float32)]
-    ).contiguous()
+    # (M, 4) rows (x1, y1, x2, y2), read as float4; the mask as bytes.
+    pts = torch.cat([p1, p2], dim=1).contiguous()
+    mask = m_valid.contiguous()
+    part_count = torch.empty((plan["n_splits"], c), dtype=torch.int32, device=dev)
+    part_sum = torch.empty((plan["n_splits"], c), dtype=torch.float32, device=dev)
     count = torch.empty(c, dtype=torch.int32, device=dev)
     esum = torch.empty(c, dtype=torch.float32, device=dev)
     # The C entry point launches on the host thread's current device.
     with torch.cuda.device(dev):
         kernels.check(
             lib.cv_score_candidates(
-                ffl.data_ptr(), pts.data_ptr(), c, m, float(threshold),
+                ffl.data_ptr(), pts.data_ptr(), mask.data_ptr(), c, m,
+                float(threshold), plan["cand_tiles"], plan["n_splits"],
+                part_count.data_ptr(), part_sum.data_ptr(),
                 count.data_ptr(), esum.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
             ),

@@ -1,16 +1,20 @@
 """The kernel wrappers of the PyTorch/CUDA port.
 
 On the CPU: each wrapper checks its inputs, raises on what its kernel
-does not take, and runs the plain version without counting a launch.
-With a card (tests marked `cuda`, skipped without one): each kernel
-against its plain version on the card, with the tolerances of
+does not take, and runs the plain version without counting a launch;
+the launch geometry the wrappers compute (K1's tile plan, K2's split
+plan) covers its plane or table exactly and fits the card's shared
+memory. With a card (tests marked `cuda`, skipped without one): each
+kernel against its plain version on the card, with the tolerances of
 chip_smoke.py — K1 under 0.5 % of valid flags differ, corr within 1e-4,
 over 99.5 % of positions equal; K2 counts equal and sums within rtol
-1e-5; K3 exact. K1's row-halo form (K1s, four shards on one card) is
-held to its sharded plain version with K1's tolerances and to the
-unsharded kernel exactly; with a second card, every kernel launches on
-cuda:1. This file imports nothing of JAX, so the card tests run where
-JAX is absent:
+1e-5; K3 exact — also at shapes that are no multiple of a tile, at the
+window buckets' ends (8, 128), and for K2 at C 50,001 with holes in the
+mask or none set. K1's row-halo form (K1s, shards on one card, one of
+odd height) is held to its sharded plain version with K1's tolerances
+and to the unsharded kernel exactly; with a second card, every kernel
+launches on cuda:1. This file imports nothing of JAX, so the card tests
+run where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
@@ -149,6 +153,54 @@ def test_gather_wrapper_checks_and_runs_plain_on_cpu():
         k3.gather_packed(packed[:1], idx)
 
 
+@pytest.mark.parametrize("axis", ["horiz", "vert"])
+@pytest.mark.parametrize("h,w", [(1024, 1024), (999, 777), (300, 280), (17, 5), (1, 1)])
+def test_sweep_tile_plan_covers_the_plane(axis, h, w):
+    plan = k1.sweep_tile_plan(h, w, 16, axis)
+    (th, tw), (gx, gy) = plan["tile"], plan["grid"]
+    assert th * tw == 4 * plan["threads"]
+    # Every pixel in exactly one tile; no tile wholly outside the plane.
+    assert gx * tw >= w > (gx - 1) * tw
+    assert gy * th >= h > (gy - 1) * th
+    # Short along the sweep axis, where the staged band grows.
+    assert (tw if axis == "horiz" else th) > (th if axis == "horiz" else tw)
+
+
+@pytest.mark.parametrize("axis", ["horiz", "vert"])
+@pytest.mark.parametrize("window", [8, 16, 24, 32, 64, 128])
+def test_sweep_tile_plan_fits_every_window_bucket(axis, window):
+    """corridor_window_buckets, the low-memory 8 and the fixed 16: every
+    window the port sweeps fits one block's 227 KB, and the bytes grow
+    with the band (2 * window along the axis)."""
+    plan = k1.sweep_tile_plan(64, 64, window, axis)
+    assert plan["smem_bytes"] <= 232_448
+    assert plan["smem_bytes"] > k1.sweep_tile_plan(64, 64, window - 1, axis)["smem_bytes"]
+
+
+@pytest.mark.parametrize("axis", ["horiz", "vert"])
+def test_sweep_tile_plan_raises_where_the_band_cannot_fit(axis):
+    with pytest.raises(ValueError, match="shared memory"):
+        k1.sweep_tile_plan(1024, 1024, 256, axis)
+    with pytest.raises(ValueError):
+        k1.sweep_tile_plan(1024, 1024, 16, None)
+
+
+@pytest.mark.parametrize("c,m", [
+    (50_000, 32_768), (50_001, 8192), (12_500, 32_768), (2000, 3000),
+    (1, 1), (7, 511), (7, 512), (7, 513), (100, 0),
+])
+def test_score_plan_splits_cover_the_matches(c, m):
+    plan = k2.score_plan(c, m)
+    per_block, split, n = plan["cands_per_block"], plan["split"], plan["n_splits"]
+    assert per_block == plan["threads"] * k2.CANDS_PER_THREAD
+    assert plan["cand_tiles"] * per_block >= c > (plan["cand_tiles"] - 1) * per_block
+    # One shared-memory slab per split; splits cover [0, M), none empty.
+    assert split == k2.SLAB
+    bounds = [(i * split, min(m, (i + 1) * split)) for i in range(n)]
+    assert all(hi > lo for lo, hi in bounds)
+    assert sum(hi - lo for lo, hi in bounds) == m
+
+
 # --- the kernels on the card --------------------------------------------------
 
 
@@ -186,6 +238,51 @@ def test_sweep_kernel_reads_zero_outside_the_plane(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["horiz", "vert"])
+def test_sweep_kernel_matches_plain_off_the_tile_grid(cuda, axis):
+    """999x777: no multiple of either tile shape, so the last row and
+    column of tiles are ragged."""
+    h, w = (999, 777) if axis == "horiz" else (777, 999)
+    fields, kw = _sweep_fields(cuda, h=h, w=w, axis=axis)
+    out = k1.ncc_sweep(*fields.values(), axis=axis, **kw)
+    ref = k1.ncc_sweep_plain(*fields.values(), axis=axis, **kw)
+    _sweeps_agree(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["horiz", "vert"])
+@pytest.mark.parametrize("window", [8, 128])
+def test_sweep_kernel_matches_plain_at_the_window_ends(cuda, axis, window):
+    h, w = (300, 280) if axis == "horiz" else (280, 300)
+    fields, kw = _sweep_fields(cuda, h=h, w=w, axis=axis)
+    kw = dict(kw, window=window)
+    out = k1.ncc_sweep(*fields.values(), axis=axis, **kw)
+    ref = k1.ncc_sweep_plain(*fields.values(), axis=axis, **kw)
+    _sweeps_agree(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["holes", "none"])
+def test_score_kernel_matches_plain_at_awkward_shapes(cuda, mask):
+    """C 50,001 (a ragged candidate tile) against a table whose mask has
+    holes in the middle, or no valid row at all (counts and sums 0)."""
+    ff, p1, p2, valid, _ = _ransac_inputs(cuda, c=50_001)
+    if mask == "holes":
+        valid[100:700] = False
+        valid[1500:1530] = False
+    else:
+        valid[:] = False
+    count, esum = k2.score_candidates(ff, p1, p2, valid, 0.1)
+    c_ref, s_ref = k2.score_candidates_plain(ff, p1, p2, valid, 0.1)
+    assert torch.equal(count, c_ref)
+    torch.testing.assert_close(esum, s_ref, rtol=1e-5, atol=0)
+    if mask == "none":
+        assert int(count.abs().sum()) == 0 and float(esum.abs().sum()) == 0.0
+    else:
+        assert int(count.max()) > 2000
+
+
+@pytest.mark.cuda
 def test_score_kernel_matches_plain(cuda):
     ff, p1, p2, valid, _ = _ransac_inputs(cuda)
     k2.launches = 0
@@ -218,11 +315,12 @@ def test_wrappers_raise_on_cuda_tensors_they_cannot_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("axis", ["vert", "horiz", None])
-def test_row_halo_sweep_matches_plain_and_equals_unsharded(cuda, axis):
+@pytest.mark.parametrize("axis,h", [("vert", 72), ("horiz", 72), (None, 72), ("vert", 77), ("horiz", 77)])
+def test_row_halo_sweep_matches_plain_and_equals_unsharded(cuda, axis, h):
     """Four shards on one card: the row-halo kernel against its plain
-    version, and the gathered result against the unsharded kernel."""
-    fields, kw = _sweep_fields(cuda, axis=axis)
+    version, and the gathered result against the unsharded kernel. At 77
+    rows the shards are 20, 20, 20 and 17 rows: the last of odd height."""
+    fields, kw = _sweep_fields(cuda, h=h, axis=axis)
     mesh = Mesh((cuda,) * 4)
     k1.launches = k1.sharded_launches = 0
     out = [gather_rows(o, cuda) for o in k1.ncc_sweep_sharded(mesh, *fields.values(), axis=axis, **kw)]
