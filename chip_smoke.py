@@ -24,8 +24,22 @@ Phases, each of which raises on failure:
                      with no row valid;
      K3 gather     — (13, 4, 50,000) draws from the packed table at the
                      same two sizes; exact. torch.index_select is timed
-                     beside it as the library yardstick, interleaved with
-                     the kernel (5 turns of 200 calls each, medians).
+                     beside it as the library yardstick, in turns with
+                     the kernel: CUDA events around 200 calls (5 turns,
+                     medians), the device time per call from
+                     torch.profiler (5 turns of 50 calls in one profile),
+                     and the host time per call (perf_counter around
+                     1,000 calls with no sync, 5 turns, medians), there
+                     also of the same launch through PyTorch's public
+                     host API (gather_public_path);
+     K1 wide       — both static forms at 1024x1024 and window 192 (two
+                     chunks of offsets per stripe), bit-equal to the
+                     plain version and timed; the row-halo form at 192
+                     over phase 4's mesh, bit-equal to the plain version;
+     draws         — the threefry draws of one RANSAC round (utils.prng,
+                     (13, 4, 50,000) int32) equal on the card and on the
+                     CPU, timed beside torch.randint, the draw they
+                     replaced.
 3. Run the main path end to end through reconstruction.reconstruct: the
    synthetic 1024x1024 SEM pair, ReconstructionConfig(projection=AFFINE,
    mesh=VERTEX_COLORS), to a PLY in a temporary directory. One warm-up
@@ -34,8 +48,10 @@ Phases, each of which raises on failure:
    the PLY holds over 30 % of the pixels as vertices, and its depth tracks
    the planted disparity. Then one more warm run under torch.profiler:
    the card's busy share of the run, the ops by device time, and each
-   kernel's device milliseconds in that run. Phases 1 to 3 run without
-   a mesh: the single-card path.
+   kernel's device milliseconds in that run. Then RANSAC alone on the
+   main path's matches with an early exit no count reaches, so all 20
+   rounds run: K2 and K3 launches and device milliseconds per run, and
+   its seconds. Phases 1 to 3 run without a mesh: the single-card path.
 4. The multi-device path over a mesh: every visible card when there are
    two or more, else four row shards on the one card (the sharded code
    runs for real either way: halo exchange, global row bounds, a launch
@@ -73,6 +89,9 @@ SIZE = 1024
 BATCH = 50_000  # RansacConfig.check_interval: candidates per RANSAC round
 DRAW_ROUNDS = 13  # redraw rounds of _ransac_batch_core's sampling
 GATHER_TURNS = 5
+GATHER_PROFILED_CALLS = 50  # per turn, in the one profile
+GATHER_HOST_CALLS = 1000  # per turn, timed on the host clock
+WIDE_WINDOW = 192  # two chunks of offsets per stripe in K1's static forms
 # Device kernels of each wrapper, as the profiler names them.
 KERNEL_NAMES = {
     "ncc_sweep": ("sweep_tile_kernel", "sweep_pixel_kernel", "box_sums_kernel"),
@@ -412,6 +431,30 @@ def phase_sweep(device) -> dict:
     return out
 
 
+def phase_sweep_wide(device, mesh) -> list[dict]:
+    """K1's static forms at 1024x1024 and window 192, which sweep each
+    stripe's offsets in two chunks: bit-equal to the plain version and
+    timed; then the row-halo form (K1s) at 192 over the mesh, bit-equal
+    to its plain version and to the unsharded kernel."""
+    from cybervision_tpu_torch.ops import ncc_sweep as k1
+
+    res = []
+    for axis in ("horiz", "vert"):
+        fields, kw = sweep_case(device, axis, SIZE, SIZE, WIDE_WINDOW)
+        chunks = k1.sweep_tile_plan(SIZE, SIZE, WIDE_WINDOW, axis)["chunks"]
+        r = check_sweep(fields, axis, kw, reps=3, label=f" at window {WIDE_WINDOW}")
+        print(f"K1 {axis} at window {WIDE_WINDOW}: chunks {chunks}")
+        if not r["exact"]:
+            raise AssertionError(f"K1 {axis} at window {WIDE_WINDOW}: not bit-equal to the plain version")
+        res.append(r)
+        if axis == "horiz":
+            s = check_sweep_sharded(mesh, r, kw, reps=1)
+            if not s["exact"]:
+                raise AssertionError(f"K1s at window {WIDE_WINDOW}: not bit-equal to the plain version")
+            res.append(s)
+    return res
+
+
 def phase_sweep_awkward(device) -> list[dict]:
     """The static forms off the tile grid (999x777) and at the window
     buckets' ends (8 and 128, on a 300x280 plane): checked, not timed."""
@@ -518,30 +561,206 @@ def check_gather(matches, m_bucket, device, gen) -> dict:
     out_p = k3.gather_packed_plain(packed, idx)
     flat = idx.reshape(-1)
     out_l = torch.index_select(packed, 1, flat).reshape(out_p.shape)
+    out_pub = gather_public_path(packed, idx)
     torch.cuda.synchronize()
-    if not (torch.equal(out_k, out_p) and torch.equal(out_l, out_p)):
+    if not all(torch.equal(o, out_p) for o in (out_k, out_l, out_pub)):
         raise AssertionError(f"K3 M={m_bucket}: gathers differ")
+    calls = {"kernel": lambda: k3.gather_packed(packed, idx),
+             "library": lambda: torch.index_select(packed, 1, flat)}
     # The kernel and index_select in turns, 200 calls a turn: at tens of
     # microseconds a call, separate runs measure the host as much as the
     # card.
     turns = {"kernel": [], "library": []}
     for _ in range(GATHER_TURNS):
-        turns["kernel"].append(cuda_ms(lambda: k3.gather_packed(packed, idx), 200))
-        turns["library"].append(cuda_ms(lambda: torch.index_select(packed, 1, flat), 200))
+        for who, fn in calls.items():
+            turns[who].append(cuda_ms(fn, 200))
     ms = float(np.median(turns["kernel"]))
     lib_ms = float(np.median(turns["library"]))
+    dev_us = gather_device_us(calls)
+    # Host time also of the same launch through the public host path
+    # (gather_public_path): what the wrapper's trimmed path saves.
+    host_calls = dict(calls, public=lambda: gather_public_path(packed, idx))
+    host = {who: [] for who in host_calls}
+    for _ in range(GATHER_TURNS):
+        for who, fn in host_calls.items():
+            host[who].append(host_us(fn, GATHER_HOST_CALLS))
+    host_med = {who: tuple(float(np.median([t[i] for t in v])) for i in range(2))
+                for who, v in host.items()}
     plain_ms = cuda_ms(lambda: k3.gather_packed_plain(packed, idx), 20)
     k = idx.numel()
     n_bytes = 4.0 * k + 4.0 * packed.numel() + 8.0 * k
     b_ms, b_by = bound_ms(n_bytes, 0.0)
     print(
         f"K3 M={m_bucket}: exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-        f" index_select {lib_ms:.4f} ms (medians of {GATHER_TURNS} interleaved"
-        f" turns: kernel {[round(x, 5) for x in turns['kernel']]}, index_select"
-        f" {[round(x, 5) for x in turns['library']]}), bound {b_ms:.4f} ms ({b_by})"
+        f" index_select {lib_ms:.4f} ms (CUDA events around 200 calls, medians"
+        f" of {GATHER_TURNS} turns: kernel {[round(x, 5) for x in turns['kernel']]},"
+        f" index_select {[round(x, 5) for x in turns['library']]}), bound"
+        f" {b_ms:.4f} ms ({b_by})"
+    )
+    print(
+        f"K3 M={m_bucket} per call: device {dev_us['kernel']['mean']:.3f} us"
+        f" (events {dev_us['kernel']['events']}, median {dev_us['kernel']['median']:.3f})"
+        f" vs index_select {dev_us['library']['mean']:.3f} us (events"
+        f" {dev_us['library']['events']}, median {dev_us['library']['median']:.3f},"
+        f" kernels {dev_us['library']['names']}); host {host_med['kernel'][0]:.3f} us"
+        f" to enqueue, {host_med['kernel'][1]:.3f} us with the queue drained, vs"
+        f" index_select {host_med['library'][0]:.3f} / {host_med['library'][1]:.3f} us,"
+        f" public host path {host_med['public'][0]:.3f} / {host_med['public'][1]:.3f} us"
+        f" (medians of {GATHER_TURNS} turns of {GATHER_HOST_CALLS} calls: kernel"
+        f" {[round(t[0], 3) for t in host['kernel']]}, index_select"
+        f" {[round(t[0], 3) for t in host['library']]}, public host path"
+        f" {[round(t[0], 3) for t in host['public']]})"
     )
     return {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by,
+            "device_us_per_call": dev_us["kernel"]["mean"],
+            "library_device_us_per_call": dev_us["library"]["mean"],
+            "host_us_per_call": host_med["kernel"][0],
+            "library_host_us_per_call": host_med["library"][0],
+            "public_host_us_per_call": host_med["public"][0]}
+
+
+def gather_public_path(table, idx):
+    """K3's launch through PyTorch's public host API, for timing beside
+    ops.gather.gather_packed: the library looked up per call, a
+    torch.cuda.device context and a torch.cuda.Stream object for the
+    stream, around the same C entry point. Counts no launch."""
+    import torch
+
+    from cybervision_tpu_torch import kernels
+
+    lib = kernels.library()
+    tbl = table.contiguous()
+    flat = idx.contiguous()
+    out = torch.empty((2,) + tuple(idx.shape), dtype=torch.int32, device=idx.device)
+    with torch.cuda.device(idx.device):
+        kernels.check(
+            lib.cv_gather_packed(
+                tbl.data_ptr(), tbl.shape[1], flat.data_ptr(), flat.numel(),
+                out.data_ptr(), torch.cuda.current_stream(idx.device).cuda_stream,
+            ),
+            "cv_gather_packed",
+        )
+    return out
+
+
+def host_us(fn, calls: int) -> tuple[float, float]:
+    """Host microseconds per call: perf_counter around `calls` calls with
+    no sync (the time to enqueue them), and with the queue drained."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) / calls * 1e6, (t2 - t0) / calls * 1e6
+
+
+def gather_device_us(calls: dict) -> dict:
+    """Device microseconds per call of K3 ("kernel") and index_select
+    ("library"), from one torch.profiler profile that runs them in turns
+    (GATHER_TURNS turns of GATHER_PROFILED_CALLS calls, a sync between
+    turns): the device events of K3's kernel, and every other device
+    event (index_select's kernels), summed over each one's calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(GATHER_TURNS):
+            for fn in calls.values():
+                for _ in range(GATHER_PROFILED_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for who in calls:
+        mine = [e for e in kernels
+                if any(k in e.name for k in KERNEL_NAMES["gather_packed"]) == (who == "kernel")]
+        durs = [e.time_range.end - e.time_range.start for e in mine]
+        n_calls = GATHER_TURNS * GATHER_PROFILED_CALLS
+        out[who] = {"mean": sum(durs) / n_calls if durs else float("nan"),
+                    "median": float(np.median(durs)) if durs else float("nan"),
+                    "events": len(durs), "names": sorted({e.name[:40] for e in mine})}
+    return out
+
+
+def check_draws(device) -> dict:
+    """One RANSAC round's draws, utils.prng.randint((13, 4, 50,000)) from a
+    round key: equal on the card and on the CPU; ms per call beside
+    torch.randint, the draw the threefry port replaced."""
+    import torch
+
+    from cybervision_tpu_torch.utils import prng
+
+    key = prng.split(prng.prng_key(0))[1]
+    shape = (DRAW_ROUNDS, 4, BATCH)
+    top = 13_066
+    out = prng.randint(key, shape, 0, top, device=device)
+    same = torch.equal(out.cpu(), prng.randint(key, shape, 0, top))
+    ms = cuda_ms(lambda: prng.randint(key, shape, 0, top, device=device), 20)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    old_ms = cuda_ms(lambda: torch.randint(0, top, shape, generator=gen, device=device,
+                                           dtype=torch.int32), 20)
+    print(f"draws of one RANSAC round {shape}: card equals CPU {same};"
+          f" threefry {ms:.4f} ms per call vs torch.randint {old_ms:.4f} ms")
+    if not same:
+        raise AssertionError("the card's threefry draws differ from the CPU's")
+    return {"ms": ms, "torch_randint_ms": old_ms}
+
+
+def phase_ransac_all_rounds(matches, device, counters) -> dict:
+    """find_fundamental_matrix on the main path's matches with an early
+    exit no count reaches (RansacConfig.ransac_d_early_exit_affine above
+    the match count), so every one of the 1,000,000 / 50,000 = 20 rounds
+    runs: seconds (best of 2 warm runs), K2 and K3 launches per run (set
+    to 0 just before, read just after), and their device milliseconds in
+    one more run under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cybervision_tpu_torch.config import ProjectionMode, RansacConfig
+    from cybervision_tpu_torch.ops.epipolar import find_fundamental_matrix
+
+    cfg = RansacConfig(ransac_d_early_exit_affine=10**9)
+    aff = ProjectionMode.AFFINE
+    rounds = cfg.ransac_k_affine // cfg.check_interval
+    secs, res = [], None
+    for _ in range(2):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        res = find_fundamental_matrix(matches, aff, float(SIZE), cfg, device=device, mesh=None)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        find_fundamental_matrix(matches, aff, float(SIZE), cfg, device=device, mesh=None)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    dev_ms = {name: sum(e.self_device_time_total for e in averages
+                        if any(k in e.key for k in KERNEL_NAMES[name])) / 1e3
+              for name in counters}
+    busy = device_busy_us(prof)[0] / 1e3
+    print(f"RANSAC, all {rounds} rounds (no early exit): best of 2 {min(secs):.4f} s"
+          f" (runs {[round(x, 4) for x in secs]}), launches {launches}; profiled run:"
+          f" wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, device ms by wrapper"
+          f" {json.dumps(dev_ms)}; winner {res.matches_count} inliers of"
+          f" {len(matches)} matches")
+    for name, n in launches.items():
+        if n != rounds:
+            raise AssertionError(f"{name} launched {n} times in {rounds} rounds")
+    return {"seconds": min(secs), "launches": launches, "device_ms": dev_ms}
 
 
 def main_path_matches(img1, img2, device) -> np.ndarray:
@@ -612,6 +831,7 @@ def check_sweep_sharded(mesh, swept: dict, kw: dict, reps: int) -> dict:
             f"K1s {name}: not equal to the unsharded K1 ({flips} valid flips,"
             f" max|dcorr| {d_corr:.3g}, positions equal {pos_same})"
         )
+    exact = all(torch.equal(a, b) for a, b in zip(out, ref))
     vp = torch.isfinite(ref[0])
     flip = float((v1 != vp).float().mean())
     both = v1 & vp
@@ -643,14 +863,15 @@ def check_sweep_sharded(mesh, swept: dict, kw: dict, reps: int) -> dict:
     n_ops = SWEEP_OPS_PER_EVAL * swept["n_eval"] + 41.0 * n_o * n * (hs + 2 * m_w0) * w
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     print(
-        f"K1s {name} over {mesh.describe()}: equal to K1 (0 flips, |dcorr| 0,"
-        f" positions equal); vs sharded plain: flips {flip:.6f},"
-        f" max|dcorr| {err:.3g}, positions equal {pos_eq:.6f};"
+        f"K1s {name} over {mesh.describe()}, window {kw['window']}: equal to K1"
+        f" (0 flips, |dcorr| 0, positions equal); vs sharded plain: flips"
+        f" {flip:.6f}, max|dcorr| {err:.3g}, positions equal {pos_eq:.6f},"
+        f" bit-equal {exact};"
         f" {ms:.3f} ms per call with the halo exchange, plain {plain_ms:.1f} ms,"
         f" bound {b_ms:.4f} ms ({b_by})"
     )
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "bound_by": b_by, "exact": exact}
 
 
 def phase_mesh_sweep(mesh, sweep: dict) -> dict:
@@ -800,7 +1021,24 @@ def phase_end_to_end(img1, img2, disparity, counters, mesh=None,
         raise AssertionError(f"only {share:.3f} of the pixels became vertices")
     if r < 0.9 or med > 1.0:
         raise AssertionError(f"depth does not track the disparity (r {r:.3f}, median {med:.3f})")
-    return {"seconds": best_s, "launches": launches, "plan": plan}
+    return {"seconds": best_s, "launches": launches, "plan": plan, "phases": phases}
+
+
+def device_busy_us(prof) -> tuple[float, int]:
+    """Microseconds in which the card ran at least one kernel during a
+    profiled window (the union of its device events), and their count."""
+    import torch
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy, len(spans)
 
 
 def profile_end_to_end(img1, img2, mesh=None, label="profile") -> dict:
@@ -831,17 +1069,9 @@ def profile_end_to_end(img1, img2, mesh=None, label="profile") -> dict:
             reconstruct(names, out, cfg, quiet=True, images=images)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    busy, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
+    busy, n_events = device_busy_us(prof)
     print(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms"
-          f" ({busy / wall_us:.4f} of the run), {len(spans)} device events")
+          f" ({busy / wall_us:.4f} of the run), {n_events} device events")
     averages = prof.key_averages()
     print(averages.table(sort_by="self_device_time_total", row_limit=15))
     per_kernel = {
@@ -891,16 +1121,22 @@ def main() -> int:
         for mask in ("holes", "none")
     ]
     gather_r = {m: check_gather(matches, m, device, gen) for m in sizes}
+    draws = check_draws(device)
+    mesh = chip_mesh()
+    wide = phase_sweep_wide(device, mesh)
     print(f"kernel checks took {time.perf_counter() - t0:.1f} s")
 
     counters = {"ncc_sweep": (ncc_sweep, "launches"),
                 "score_candidates": (score, "launches"),
                 "gather_packed": (gather, "launches")}
     e2e = phase_end_to_end(img1, img2, disparity, counters)
+    print("RANSAC phase of the best run, threefry draws:"
+          f" {e2e['phases']['Completed RANSAC fitting']} s")
     device_ms = profile_end_to_end(img1, img2)
+    ransac_full = phase_ransac_all_rounds(
+        matches, device, {k: counters[k] for k in ("score_candidates", "gather_packed")})
 
     t0 = time.perf_counter()
-    mesh = chip_mesh()
     print(f"mesh: {mesh.describe()} ("
           + ("every visible card" if len(set(mesh.devices)) > 1 else
              "row shards on one card: the only card visible") + ")")
@@ -933,20 +1169,25 @@ def main() -> int:
     kernels_line = {"kernels": [
         record("ncc_sweep", "ncc_sweep.cu",
                "cybervision_tpu/ops/pallas_ncc.py:93", sweep["horiz"],
-               [r["err"] for r in [*sweep.values(), *awkward]]),
+               [r["err"] for r in [*sweep.values(), *awkward, *wide]]),
         record("score_candidates", "score_candidates.cu",
                "cybervision_tpu/ops/pallas_score.py:56", score_r[m_main],
                [r["err"] for r in [*score_r.values(), *score_awkward]]),
-        record("gather_packed", "gather_packed.cu",
-               "cybervision_tpu/ops/pallas_gather.py:60", gather_r[m_main],
-               [r["err"] for r in gather_r.values()]),
+        dict(record("gather_packed", "gather_packed.cu",
+                    "cybervision_tpu/ops/pallas_gather.py:60", gather_r[m_main],
+                    [r["err"] for r in gather_r.values()]),
+             **{k: gather_r[m_main][k] for k in (
+                 "device_us_per_call", "library_device_us_per_call",
+                 "host_us_per_call", "library_host_us_per_call")}),
         record("ncc_sweep_sharded", "ncc_sweep.cu",
                "cybervision_tpu/ops/pallas_ncc.py:682", sharded["horiz"],
                [r["err"] for r in sharded.values()], run=e2e_mesh,
                dev_ms=device_ms_mesh, dev_name="ncc_sweep"),
     ]}
     print(f"end-to-end seconds (warm, best of 3): {e2e['seconds']:.4f} on one"
-          f" card, {e2e_mesh['seconds']:.4f} over {mesh.describe()}")
+          f" card, {e2e_mesh['seconds']:.4f} over {mesh.describe()}; RANSAC"
+          f" of all 20 rounds {ransac_full['seconds']:.4f} s; one round's draws"
+          f" {draws['ms']:.4f} ms (torch.randint {draws['torch_randint_ms']:.4f} ms)")
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

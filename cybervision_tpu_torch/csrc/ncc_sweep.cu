@@ -42,14 +42,20 @@
 // along the sweep axis, so the band below stays small), every operand
 // in dynamic shared memory:
 // - once: the img1 tile with its KS halo;
-// - per stripe: the band of w0[o] that the tile's shifts read (KS + window
-//   beyond the tile along the sweep axis, KS across it), the warp's 11x11
+// - per stripe and chunk of offsets [u0, u1] (the offsets of a stripe in
+//   increasing order, cut into chunks of the plan's length): the band of
+//   w0[o] that the tile's shifts by u0..u1 read (the tile widened by
+//   [u0, u1] along the sweep axis, +- KS around it), the warp's 11x11
 //   box sums over the band (row sums in dx order into a scratch plane,
 //   then column sums in dy order: box_sums_kernel's and _box11's order),
 //   and per q of the band the candidate fields: center (NaN where q fails
 //   a mask that does not depend on p — source band, candidate bounds,
 //   min_stdev — so one compare rejects it), floor(coeff*center + add) + o,
-//   the warp's mean and deviation;
+//   the warp's mean and deviation. The band grows with the chunk, not the
+//   window: a window whose whole band fits one block (up to 164 "horiz",
+//   150 "vert" in the H100's 227 KB) runs as one chunk of 2 * window + 1
+//   offsets; a wider one in the fewest chunks that fit. The first-maximum carry stays in
+//   registers across chunks, so the sweep order is the same either way;
 // - per offset u: a block vote (__syncthreads_or) on whether any pixel of
 //   the tile admits (o, u) (p_ok and the corridor [start, end)); if none
 //   does, nothing is computed. Otherwise the product plane's 11-wide row
@@ -65,7 +71,7 @@
 // so no FMA contraction moves floor(coeff*center + add) by a pixel or
 // flips a threshold: the kernel equals the plain version bit for bit.
 // Reads beyond a field's (haloed) extent stage as zero, like the plain
-// version's padding. The shared-memory layout depends on the window; the
+// version's padding. The shared-memory layout depends on the chunk; the
 // wrapper's plan (ops.ncc_sweep.sweep_tile_plan) mirrors layout() below,
 // and a launch whose byte count disagrees with it is refused.
 //
@@ -94,6 +100,7 @@ struct SweepArgs {
   float* out_corr;
   int32_t *out_x, *out_y;
   int h, w, n_o, corridor_size, window, h2, w2;
+  int chunk;   // offsets per chunk of the static forms' sweep
   // Halo rows above and below img1, vert/center/coeff/add and w0.
   int m_img, m_f, m_w0;
   int row0_g, h_total;   // global row of local row 0; global height
@@ -107,27 +114,27 @@ template <int kAxis> struct TileShape;
 template <> struct TileShape<2> { static constexpr int H = 16, W = 64; };
 template <> struct TileShape<1> { static constexpr int H = 64, W = 16; };
 
-// Shared-memory layout of one block, in floats. ops.ncc_sweep's
-// sweep_tile_plan computes the same numbers.
+// Shared-memory layout of one block, in floats, for a chunk of span + 1
+// offsets. ops.ncc_sweep's sweep_tile_plan computes the same numbers.
 struct Layout {
   int ip, ir;          // img1 tile: pitch, rows (tile +- KS)
-  int wp, wr;          // w0 band: pitch, rows (+- KS, +- window on the axis)
+  int wp, wr;          // w0 band: pitch, rows (+- KS, + span on the axis)
   int bp, br, bc;      // per-q band planes: pitch, rows, columns
   int rp;              // row-sum plane pitch (ir rows)
   int o_w0, o_cen, o_off, o_avg, o_sd, o_tmp, total;
 };
 
-__host__ __device__ inline Layout layout(int axis, int window) {
+__host__ __device__ inline Layout layout(int axis, int span) {
   const int th = axis == 2 ? TileShape<2>::H : TileShape<1>::H;
   const int tw = axis == 2 ? TileShape<2>::W : TileShape<1>::W;
-  const int wy = axis == 1 ? window : 0, wx = axis == 2 ? window : 0;
+  const int sy = axis == 1 ? span : 0, sx = axis == 2 ? span : 0;
   Layout L;
   L.ir = th + 2 * KS;
   L.ip = tw + 2 * KS;
-  L.wr = th + 2 * KS + 2 * wy;
-  L.wp = tw + 2 * KS + 2 * wx;
-  L.br = th + 2 * wy;
-  L.bc = tw + 2 * wx;
+  L.wr = th + 2 * KS + sy;
+  L.wp = tw + 2 * KS + sx;
+  L.br = th + sy;
+  L.bc = tw + sx;
   // "vert" tiles are 16 wide and a warp spans two rows of a plane: four
   // floats of padding put those rows on different banks.
   L.bp = axis == 1 ? L.bc + 4 : L.bc;
@@ -144,14 +151,17 @@ __host__ __device__ inline Layout layout(int axis, int window) {
   return L;
 }
 
+// At least 3 blocks per SM: without the bound, the chunk loop took "vert"
+// to 103 registers a thread, 2 blocks per SM at window 16 (0.690 ms
+// against 0.566 ms at 78 registers and 3 blocks).
 template <int kAxis>
-__global__ void __launch_bounds__(kTileThreads)
+__global__ void __launch_bounds__(kTileThreads, 3)
 sweep_tile_kernel(SweepArgs a) {
   constexpr int TH = TileShape<kAxis>::H, TW = TileShape<kAxis>::W;
   constexpr bool kVert = kAxis == 1;
   static_assert(TH * TW == kTileThreads * kPix, "one thread per kPix pixels");
   extern __shared__ float sm[];
-  const Layout L = layout(kAxis, a.window);
+  const Layout L = layout(kAxis, a.chunk - 1);
   float* s_img = sm;
   float* s_w0 = sm + L.o_w0;
   float* s_cen = sm + L.o_cen;
@@ -162,7 +172,6 @@ sweep_tile_kernel(SweepArgs a) {
   float* s_rs = s_tmp;
   const int h = a.h, w = a.w, win = a.window;
   const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
-  const int wy = kVert ? win : 0, wx = kVert ? 0 : win;
   const int tid = threadIdx.x;
   const int px = tid % TW, py0 = (tid / TW) * kPix;
   const float inv_kpc = (float)(1.0 / 121.0);
@@ -196,119 +205,124 @@ sweep_tile_kernel(SweepArgs a) {
   for (int oi = 0; oi < a.n_o; ++oi) {
     const float o_val = (float)(oi - a.corridor_size);
     const float* w0 = a.w0 + oi * w0_plane;
-    __syncthreads();  // the previous stripe's readers are done
-    for (int i = tid; i < L.wr * L.wp; i += kTileThreads) {
-      const int y = r0 - KS - wy + i / L.wp, x = c0 - KS - wx + i % L.wp;
-      s_w0[i] = (y >= -a.m_w0 && y < h + a.m_w0 && x >= 0 && x < w)
-                    ? w0[(long)y * w + x] : 0.f;
-    }
-    __syncthreads();
-    // Warp box statistics over the band: 11-wide row sums (dx order) of
-    // w0 and w0^2, then 11-tall column sums (dy order).
-    float* t_s = s_tmp;
-    float* t_ss = s_tmp + L.wr * L.bp;
-    for (int i = tid; i < L.wr * L.bc; i += kTileThreads) {
-      const int jy = i / L.bc, bj = i % L.bc;
-      const float* row = s_w0 + jy * L.wp + bj;
-      float s = row[0], ss = __fmul_rn(row[0], row[0]);
-#pragma unroll
-      for (int d = 1; d <= 2 * KS; ++d) {
-        s = __fadd_rn(s, row[d]);
-        ss = __fadd_rn(ss, __fmul_rn(row[d], row[d]));
-      }
-      t_s[jy * L.bp + bj] = s;
-      t_ss[jy * L.bp + bj] = ss;
-    }
-    __syncthreads();
-    // Per q of the band: the candidate fields of stripe o.
-    for (int i = tid; i < L.br * L.bc; i += kTileThreads) {
-      const int bi = i / L.bc, bj = i % L.bc;
-      float s = t_s[bi * L.bp + bj], ss = t_ss[bi * L.bp + bj];
-#pragma unroll
-      for (int d = 1; d <= 2 * KS; ++d) {
-        s = __fadd_rn(s, t_s[(bi + d) * L.bp + bj]);
-        ss = __fadd_rn(ss, t_ss[(bi + d) * L.bp + bj]);
-      }
-      const float avg_w = __fmul_rn(s, inv_kpc);
-      const float var_w = fmaxf(
-          __fsub_rn(__fmul_rn(ss, inv_kpc), __fmul_rn(avg_w, avg_w)), 0.f);
-      const float sd_w = __fsqrt_rn(var_w);
-      const int qr = r0 - wy + bi, qc = c0 - wx + bj;
-      const int src = kVert ? a.row0_g + qr : qc;
-      const int dim = kVert ? a.h_total : w;
-      bool ok = qr >= -a.m_f && qr < h + a.m_f && qc >= 0 && qc < w &&
-                src >= KS && src < dim - KS;
-      float cen = CUDART_NAN_F, off = 0.f;
-      if (ok) {
-        const long q = (long)qr * w + qc;
-        cen = a.center[q];
-        off = floorf(__fadd_rn(__fmul_rn(a.coeff[q], cen), a.add[q])) + o_val;
-        const float qx = kVert ? off : cen, qy = kVert ? cen : off;
-        ok = qx >= (float)KS && qx < (float)(a.w2 - KS) && qy >= (float)KS &&
-             qy < (float)(a.h2 - KS) && sd_w >= a.min_stdev;
-      }
-      const int b = bi * L.bp + bj;
-      s_cen[b] = ok ? cen : CUDART_NAN_F;
-      s_off[b] = off;
-      s_avg[b] = avg_w;
-      s_sd[b] = sd_w;
-    }
-    __syncthreads();
-
-    for (int u = -win; u <= win; ++u) {
-      // Band index of q = p + u for this thread's first pixel; the next
-      // pixel is one band row further.
-      const int b0 = kVert ? (py0 + u + win) * L.bp + px
-                           : py0 * L.bp + px + u + win;
-      unsigned adm = 0;
-#pragma unroll
-      for (int k = 0; k < kPix; ++k) {
-        const float cen = s_cen[b0 + k * L.bp];
-        if ((pok >> k & 1u) && cen >= st[k] && cen < en[k]) adm |= 1u << k;
-      }
-      // Also the barrier between the previous offset's column sums and
-      // this one's row sums.
-      if (!__syncthreads_or(adm)) continue;
-      // Row sums of img1 * (w0 shifted by u) over the tile's rows +- KS.
-      const int uy = kVert ? u + win : 0, ux = kVert ? 0 : u + win;
-      constexpr int kItemsPerRow = TW / kRun;
-      for (int i = tid; i < L.ir * kItemsPerRow; i += kTileThreads) {
-        const int iy = i / kItemsPerRow, x0 = (i % kItemsPerRow) * kRun;
-        const float* ir = s_img + iy * L.ip + x0;
-        const float* wr = s_w0 + (iy + uy) * L.wp + x0 + ux;
-        float prod[kRun + 2 * KS];
-#pragma unroll
-        for (int j = 0; j < kRun + 2 * KS; ++j) prod[j] = __fmul_rn(ir[j], wr[j]);
-#pragma unroll
-        for (int r = 0; r < kRun; ++r) {
-          float s = prod[r];
-#pragma unroll
-          for (int d = 1; d <= 2 * KS; ++d) s = __fadd_rn(s, prod[r + d]);
-          s_rs[iy * L.rp + x0 + r] = s;
-        }
+    for (int u0 = -win; u0 <= win; u0 += a.chunk) {
+      const int u1 = min(win, u0 + a.chunk - 1);
+      // The band's origin: the tile shifted by u0 along the sweep axis.
+      const int dy = kVert ? u0 : 0, dx = kVert ? 0 : u0;
+      __syncthreads();  // the previous chunk's readers are done
+      for (int i = tid; i < L.wr * L.wp; i += kTileThreads) {
+        const int y = r0 - KS + dy + i / L.wp, x = c0 - KS + dx + i % L.wp;
+        s_w0[i] = (y >= -a.m_w0 && y < h + a.m_w0 && x >= 0 && x < w)
+                      ? w0[(long)y * w + x] : 0.f;
       }
       __syncthreads();
-      if (!adm) continue;
-      float rsv[kPix + 2 * KS];
+      // Warp box statistics over the band: 11-wide row sums (dx order) of
+      // w0 and w0^2, then 11-tall column sums (dy order).
+      float* t_s = s_tmp;
+      float* t_ss = s_tmp + L.wr * L.bp;
+      for (int i = tid; i < L.wr * L.bc; i += kTileThreads) {
+        const int jy = i / L.bc, bj = i % L.bc;
+        const float* row = s_w0 + jy * L.wp + bj;
+        float s = row[0], ss = __fmul_rn(row[0], row[0]);
 #pragma unroll
-      for (int j = 0; j < kPix + 2 * KS; ++j) rsv[j] = s_rs[(py0 + j) * L.rp + px];
+        for (int d = 1; d <= 2 * KS; ++d) {
+          s = __fadd_rn(s, row[d]);
+          ss = __fadd_rn(ss, __fmul_rn(row[d], row[d]));
+        }
+        t_s[jy * L.bp + bj] = s;
+        t_ss[jy * L.bp + bj] = ss;
+      }
+      __syncthreads();
+      // Per q of the band: the candidate fields of stripe o.
+      for (int i = tid; i < L.br * L.bc; i += kTileThreads) {
+        const int bi = i / L.bc, bj = i % L.bc;
+        float s = t_s[bi * L.bp + bj], ss = t_ss[bi * L.bp + bj];
 #pragma unroll
-      for (int k = 0; k < kPix; ++k) {
-        if (!(adm >> k & 1u)) continue;
-        float cross = rsv[k];
+        for (int d = 1; d <= 2 * KS; ++d) {
+          s = __fadd_rn(s, t_s[(bi + d) * L.bp + bj]);
+          ss = __fadd_rn(ss, t_ss[(bi + d) * L.bp + bj]);
+        }
+        const float avg_w = __fmul_rn(s, inv_kpc);
+        const float var_w = fmaxf(
+            __fsub_rn(__fmul_rn(ss, inv_kpc), __fmul_rn(avg_w, avg_w)), 0.f);
+        const float sd_w = __fsqrt_rn(var_w);
+        const int qr = r0 + dy + bi, qc = c0 + dx + bj;
+        const int src = kVert ? a.row0_g + qr : qc;
+        const int dim = kVert ? a.h_total : w;
+        bool ok = qr >= -a.m_f && qr < h + a.m_f && qc >= 0 && qc < w &&
+                  src >= KS && src < dim - KS;
+        float cen = CUDART_NAN_F, off = 0.f;
+        if (ok) {
+          const long q = (long)qr * w + qc;
+          cen = a.center[q];
+          off = floorf(__fadd_rn(__fmul_rn(a.coeff[q], cen), a.add[q])) + o_val;
+          const float qx = kVert ? off : cen, qy = kVert ? cen : off;
+          ok = qx >= (float)KS && qx < (float)(a.w2 - KS) && qy >= (float)KS &&
+               qy < (float)(a.h2 - KS) && sd_w >= a.min_stdev;
+        }
+        const int b = bi * L.bp + bj;
+        s_cen[b] = ok ? cen : CUDART_NAN_F;
+        s_off[b] = off;
+        s_avg[b] = avg_w;
+        s_sd[b] = sd_w;
+      }
+      __syncthreads();
+
+      for (int u = u0; u <= u1; ++u) {
+        // Band index of q = p + u for this thread's first pixel; the next
+        // pixel is one band row further.
+        const int b0 = kVert ? (py0 + u - u0) * L.bp + px
+                             : py0 * L.bp + px + u - u0;
+        unsigned adm = 0;
 #pragma unroll
-        for (int d = 1; d <= 2 * KS; ++d) cross = __fadd_rn(cross, rsv[k + d]);
-        const int b = b0 + k * L.bp;
-        const float corr = __fdiv_rn(
-            __fmul_rn(__fsub_rn(__fmul_rn(cross, inv_kpc),
-                                __fmul_rn(avg1[k], s_avg[b])),
-                      isd1[k]),
-            fmaxf(s_sd[b], 1e-12f));
-        if (corr >= a.threshold && corr > best[k]) {
-          best[k] = corr;
-          const float cen = s_cen[b], off = s_off[b];
-          best_x[k] = (int)(kVert ? off : cen);
-          best_y[k] = (int)(kVert ? cen : off);
+        for (int k = 0; k < kPix; ++k) {
+          const float cen = s_cen[b0 + k * L.bp];
+          if ((pok >> k & 1u) && cen >= st[k] && cen < en[k]) adm |= 1u << k;
+        }
+        // Also the barrier between the previous offset's column sums and
+        // this one's row sums.
+        if (!__syncthreads_or(adm)) continue;
+        // Row sums of img1 * (w0 shifted by u) over the tile's rows +- KS.
+        const int uy = kVert ? u - u0 : 0, ux = kVert ? 0 : u - u0;
+        constexpr int kItemsPerRow = TW / kRun;
+        for (int i = tid; i < L.ir * kItemsPerRow; i += kTileThreads) {
+          const int iy = i / kItemsPerRow, x0 = (i % kItemsPerRow) * kRun;
+          const float* ir = s_img + iy * L.ip + x0;
+          const float* wr = s_w0 + (iy + uy) * L.wp + x0 + ux;
+          float prod[kRun + 2 * KS];
+#pragma unroll
+          for (int j = 0; j < kRun + 2 * KS; ++j) prod[j] = __fmul_rn(ir[j], wr[j]);
+#pragma unroll
+          for (int r = 0; r < kRun; ++r) {
+            float s = prod[r];
+#pragma unroll
+            for (int d = 1; d <= 2 * KS; ++d) s = __fadd_rn(s, prod[r + d]);
+            s_rs[iy * L.rp + x0 + r] = s;
+          }
+        }
+        __syncthreads();
+        if (!adm) continue;
+        float rsv[kPix + 2 * KS];
+#pragma unroll
+        for (int j = 0; j < kPix + 2 * KS; ++j) rsv[j] = s_rs[(py0 + j) * L.rp + px];
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          if (!(adm >> k & 1u)) continue;
+          float cross = rsv[k];
+#pragma unroll
+          for (int d = 1; d <= 2 * KS; ++d) cross = __fadd_rn(cross, rsv[k + d]);
+          const int b = b0 + k * L.bp;
+          const float corr = __fdiv_rn(
+              __fmul_rn(__fsub_rn(__fmul_rn(cross, inv_kpc),
+                                  __fmul_rn(avg1[k], s_avg[b])),
+                        isd1[k]),
+              fmaxf(s_sd[b], 1e-12f));
+          if (corr >= a.threshold && corr > best[k]) {
+            best[k] = corr;
+            const float cen = s_cen[b], off = s_off[b];
+            best_x[k] = (int)(kVert ? off : cen);
+            best_y[k] = (int)(kVert ? cen : off);
+          }
         }
       }
     }
@@ -466,7 +480,9 @@ template <int kAxis>
 int launch_tiled(const SweepArgs& a, int tile_h, int tile_w, int smem_bytes,
                  cudaStream_t s) {
   constexpr int TH = TileShape<kAxis>::H, TW = TileShape<kAxis>::W;
-  const Layout L = layout(kAxis, a.window);
+  if (a.chunk < 1 || a.chunk > 2 * a.window + 1)
+    return (int)cudaErrorInvalidValue;
+  const Layout L = layout(kAxis, a.chunk - 1);
   if (tile_h != TH || tile_w != TW || smem_bytes != L.total * 4 ||
       smem_bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
@@ -497,8 +513,8 @@ extern "C" int cv_box_sums(const void* w0, int n_o, int h, int w, void* sw,
 }
 
 // axis 1 / 2 launch the tiled kernel with the wrapper's plan (tile_h,
-// tile_w, smem_bytes; sw and sww unused); axis 0 the per-pixel kernel,
-// reading box_sums_kernel's sw and sww.
+// tile_w, chunk, smem_bytes; sw and sww unused); axis 0 the per-pixel
+// kernel, reading box_sums_kernel's sw and sww.
 extern "C" int cv_ncc_sweep(const void* img1, const void* vert,
                             const void* center, const void* coeff,
                             const void* add, const void* avg1,
@@ -509,7 +525,7 @@ extern "C" int cv_ncc_sweep(const void* img1, const void* vert,
                             int corridor_size, int window, int h2, int w2,
                             int axis, float threshold, float min_stdev,
                             int m_img, int m_f, int m_w0, int row0_g,
-                            int h_total, int tile_h, int tile_w,
+                            int h_total, int tile_h, int tile_w, int chunk,
                             int smem_bytes, void* stream) {
   if (h == 0 || w == 0) return 0;
   // Each haloed field's pointer moves to its local row 0.
@@ -536,6 +552,7 @@ extern "C" int cv_ncc_sweep(const void* img1, const void* vert,
   a.n_o = n_o;
   a.corridor_size = corridor_size;
   a.window = window;
+  a.chunk = chunk;
   a.h2 = h2;
   a.w2 = w2;
   a.m_img = m_img;

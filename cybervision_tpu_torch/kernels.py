@@ -7,11 +7,15 @@ named by a hash of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses the last build. Nothing here runs at import: the
 first kernel launch (or an explicit `library()` call) builds.
 
+The wrappers call `library()`, `on_device()` and `stream_of()` on every
+launch, so each is a few attribute reads once the library is loaded.
+
 Build directory: cybervision_tpu_torch/_build/ (git-ignored).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -20,6 +24,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -94,6 +100,8 @@ def build() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(build())
@@ -105,7 +113,7 @@ def library() -> ctypes.CDLL:
                 vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                 vp, vp, vp,
                 ci, ci, ci, ci, ci, ci, ci, ci, cf, cf,
-                ci, ci, ci, ci, ci, ci, ci, ci, vp,
+                ci, ci, ci, ci, ci, ci, ci, ci, ci, vp,
             ]
             lib.cv_score_candidates.argtypes = [
                 vp, vp, vp, ci, ci, cf, ci, ci, vp, vp, vp, vp, vp,
@@ -118,6 +126,26 @@ def library() -> ctypes.CDLL:
                 fn.restype = ci
             _LIB = lib
         return _LIB
+
+
+_HERE = contextlib.nullcontext()
+
+
+def stream_of(dev: torch.device) -> int:
+    """The current stream of CUDA device `dev`, as the C entry points take
+    it: its raw pointer, without building a torch.cuda.Stream per call.
+    Read on every launch: a kept stream would ignore a caller's
+    torch.cuda.stream context."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def on_device(dev: torch.device):
+    """A context under which `dev` is the host thread's current device,
+    where the C entry points launch: torch.cuda.device(dev), or nothing
+    when `dev` already is current."""
+    if torch.cuda.current_device() == dev.index:
+        return _HERE
+    return torch.cuda.device(dev)
 
 
 def check(err: int, name: str) -> None:

@@ -10,14 +10,16 @@ coordinates (kernel K3), redraws conflicting slots, solves every sample
 in closed form, scores every candidate against every match (kernel K2)
 and keeps the lexicographic (count desc, mean error asc) best.
 
-RNG: a torch.Generator seeded from RansacConfig.seed. It cannot
-reproduce JAX's threefry stream, so _ransac_batch_core takes the draws
-(`all_idx`) as an optional argument and tests inject JAX's.
+RNG: JAX's threefry stream (utils.prng) under the JAX package's key
+schedule, so the port draws the same samples and picks the same winner:
+key = PRNGKey(RansacConfig.seed), one `key, sub = split(key)` per round
+(epipolar.py:1437, 1467, 1494), and one randint(sub, (13, n, B), 0,
+top_limit) of int32 draws per batch (epipolar.py:666).
 
 Under a parallel.Mesh each round's batch splits over the devices
-(ransac_batch_sharded, epipolar.py:969-1035): every device draws and
-scores batch/n hypotheses with its own generator, K3 and K2 launching
-there, and the per-device winners merge on the lead device.
+(ransac_batch_sharded, epipolar.py:969-1035): shard i draws and scores
+batch/n hypotheses from keys[i] of split(sub, n), K3 and K2 launching on
+its device, and the per-device winners merge on the lead device.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from cybervision_tpu_torch.errors import RansacError
 from cybervision_tpu_torch.ops.gather import gather_packed
 from cybervision_tpu_torch.ops.score import sampson_error, score_candidates
 from cybervision_tpu_torch.parallel import AUTO, replicate, resolve_mesh
+from cybervision_tpu_torch.utils import prng
 from cybervision_tpu_torch.utils.buckets import pow2_bucket
 
 F32 = torch.float32
@@ -168,6 +171,7 @@ def _lex_topk_iter(count: torch.Tensor, err: torch.Tensor, k: int) -> torch.Tens
 
 
 def _ransac_batch_core(
+    key: torch.Tensor,
     p1: torch.Tensor,
     p2: torch.Tensor,
     m_valid: torch.Tensor,
@@ -179,27 +183,21 @@ def _ransac_batch_core(
     batch: int,
     rank_eps: float,
     packed_t: torch.Tensor | None = None,
-    generator: torch.Generator | None = None,
-    all_idx: torch.Tensor | None = None,
     top_k: int = 1,
 ):
     """One batch of affine RANSAC hypotheses (the affine branch of
     cybervision_tpu epipolar._ransac_batch_core).
 
-    p1, p2: (M, 2) f32 matches, m_valid: (M,) mask; samples are drawn
-    from [0, top_limit) — the best-distance prefix (fundamentalmatrix.rs:
-    159-162). all_idx: optional (13, n_samples, batch) int32 draws (13
-    redraw rounds); otherwise drawn from `generator`. Conflicting slots
+    key: a utils.prng key. p1, p2: (M, 2) f32 matches, m_valid: (M,)
+    mask; samples are drawn from [0, top_limit) — the best-distance
+    prefix (fundamentalmatrix.rs:159-162) — as JAX's one randint(key,
+    (13, n_samples, batch)) for the 13 redraw rounds. Conflicting slots
     closer than min_inlier_distance on any axis are redrawn against
     earlier slots (fundamentalmatrix.rs:155-175).
 
     Returns the top_k hypotheses: (f (K, 3, 3), count (K,), mean_err (K,))."""
     dev = p1.device
-    if all_idx is None:
-        all_idx = torch.randint(
-            0, top_limit, (13, n_samples, batch), generator=generator,
-            device=dev, dtype=I32,
-        )
+    all_idx = prng.randint(key, (13, n_samples, batch), 0, top_limit, device=dev)
     tril = torch.tril(torch.ones((n_samples, n_samples), dtype=torch.bool, device=dev), -1)
 
     if packed_t is None:
@@ -246,21 +244,9 @@ def _ransac_batch_core(
     return f[top_i], count[top_i], mean_err[top_i]
 
 
-def shard_generators(mesh, seed: int) -> list[torch.Generator]:
-    """One generator per shard, on the shard's device, seeded from
-    (seed, shard index) — the counterpart of JAX splitting the round key
-    over the devices (epipolar.py:1003)."""
-    gens = []
-    for i, dev in enumerate(mesh.devices):
-        g = torch.Generator(device=dev)
-        state = np.random.SeedSequence([seed, i]).generate_state(1, np.uint64)[0]
-        g.manual_seed(int(state) & (2**63 - 1))
-        gens.append(g)
-    return gens
-
-
 def ransac_batch_sharded(
     mesh,
+    key,
     p1,
     p2,
     m_valid,
@@ -273,15 +259,14 @@ def ransac_batch_sharded(
     batch: int,
     rank_eps: float,
     packed_t=None,
-    generators: list[torch.Generator] | None = None,
-    all_idx: list[torch.Tensor] | None = None,
     top_k: int = 1,
 ):
     """_ransac_batch_core with the hypothesis batch split over a
     parallel.Mesh: shard i runs batch // n hypotheses on mesh.devices[i]
-    from generators[i] (or its injected draws all_idx[i], (13,
-    n_samples, batch // n)); the per-device top-K merge on the lead
-    device by (count desc, error asc, index asc), the batch's own rule.
+    drawn from keys[i] of split(key, n), as each JAX device draws from
+    its split of the round key (epipolar.py:1003); the per-device top-K
+    merge on the lead device by (count desc, error asc, index asc), the
+    batch's own rule.
 
     The match table (p1, p2, m_valid, packed_t) is copied once to each
     distinct device. Returns (f (K, 3, 3), count (K,), mean_err (K,)) on
@@ -292,14 +277,14 @@ def ransac_batch_sharded(
         None if t is None else replicate(mesh, t)
         for t in (p1, p2, m_valid, packed_t)
     ]
+    keys = prng.split(key, n)
     fs, cs, es = [], [], []
     for i in range(n):
         p1_i, p2_i, mv_i, pk_i = (None if t is None else t[i] for t in tables)
         f_i, c_i, e_i = _ransac_batch_core(
-            p1_i, p2_i, mv_i, top_limit, threshold, min_inlier_distance,
-            min_count, n_samples, per, rank_eps, packed_t=pk_i,
-            generator=None if generators is None else generators[i],
-            all_idx=None if all_idx is None else all_idx[i], top_k=top_k,
+            keys[i], p1_i, p2_i, mv_i, top_limit, threshold,
+            min_inlier_distance, min_count, n_samples, per, rank_eps,
+            packed_t=pk_i, top_k=top_k,
         )
         fs.append(f_i.to(mesh.lead))
         cs.append(c_i.to(mesh.lead))
@@ -361,8 +346,9 @@ def find_fundamental_matrix(
     budget is spent or the best count exceeds the early-exit count; the
     JAX package's fused all-rounds program is this same loop (its pool
     is identical to absorbing round by round). Under a mesh (AUTO reads
-    parallel.pipeline_mesh()) every round runs ransac_batch_sharded,
-    with one generator per shard."""
+    parallel.pipeline_mesh()) every round runs ransac_batch_sharded.
+    Every round draws from the next `sub` of JAX's key chain, so the
+    winner is the JAX package's for the same seed."""
     if projection != ProjectionMode.AFFINE:
         raise NotImplementedError(
             "perspective RANSAC is not ported yet (ROADMAP.md Queue 1:"
@@ -387,24 +373,19 @@ def find_fundamental_matrix(
     args = (top_limit, t, float(cfg.min_inlier_distance), d + n)
     kw = dict(n_samples=n, batch=cfg.check_interval, rank_eps=cfg.rank_epsilon)
     if mesh is None:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(cfg.seed)
-
-        def sweep():
-            return _ransac_batch_core(
-                p1, p2, m_valid, *args, packed_t=packed, generator=gen, **kw
-            )
+        def sweep(sub):
+            return _ransac_batch_core(sub, p1, p2, m_valid, *args, packed_t=packed, **kw)
     else:
-        gens = shard_generators(mesh, cfg.seed)
-
-        def sweep():
+        def sweep(sub):
             return ransac_batch_sharded(
-                mesh, p1, p2, m_valid, *args, packed_t=packed, generators=gens, **kw
+                mesh, sub, p1, p2, m_valid, *args, packed_t=packed, **kw
             )
+    key = prng.prng_key(cfg.seed)
     n_batches = max(1, ransac_k // cfg.check_interval)
     pool: list[tuple[np.ndarray, int, float]] = []
     for i in range(n_batches):
-        f_b, c_b, e_b = sweep()
+        key, sub = prng.split(key)
+        f_b, c_b, e_b = sweep(sub)
         fs = f_b.to(torch.float64).cpu().numpy()
         counts = c_b.cpu().numpy()
         errs = e_b.to(torch.float64).cpu().numpy()

@@ -21,8 +21,10 @@ The TPU kernel's row tiles, VMEM budget (pick_tile_h) and the
 horizontal-axis transpose of refine_pass_pallas have no counterpart:
 the CUDA kernel sweeps columns directly and takes every refine level.
 Its static forms run one block per output tile with every operand in
-shared memory; `sweep_tile_plan` is that launch's geometry (tile, grid,
-shared bytes for the window), computed here so the CPU tests reach it.
+shared memory, staging the band of warp and fields the tile's shifts
+read in chunks of offsets along the sweep axis, so every window fits;
+`sweep_tile_plan` is that launch's geometry (tile, grid, chunk, shared
+bytes), computed here so the CPU tests reach it.
 
 K1s, `ncc_sweep_sharded` (pallas_ncc.py:682-801), runs the same kernel
 on the row shards of a parallel.Mesh: every shard's fields get their
@@ -33,10 +35,12 @@ equals the unsharded one bit for bit.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from cybervision_tpu_torch import kernels
 from cybervision_tpu_torch.parallel.sharding import (
     RowShards,
     assert_spans_mesh,
@@ -56,9 +60,9 @@ launches = 0
 sharded_launches = 0
 
 # csrc/ncc_sweep.cu's static forms: output tiles short along the sweep
-# axis (the band of warp and fields they stage grows with the window along
-# it), 256 threads each, and the shared memory one block may hold on the
-# H100 (227 KB).
+# axis (the band of warp and fields they stage grows with the chunk of
+# offsets along it), 256 threads each, and the shared memory one block may
+# hold on the H100 (227 KB).
 TILES = {"horiz": (16, 64), "vert": (64, 16)}
 TILE_THREADS = 256
 SMEM_LIMIT = 232_448
@@ -94,34 +98,51 @@ def shift(x: torch.Tensor, u: int, dim: int, fill: int = 0) -> torch.Tensor:
     return out
 
 
-def sweep_tile_plan(h: int, w: int, window: int, axis: str) -> dict:
-    """Launch geometry of the static forms ("vert", "horiz") for an
-    (h, w) plane: tile (rows, columns), grid (column tiles, row tiles)
-    covering the plane, and the block's shared bytes — csrc/ncc_sweep.cu's
-    layout(): the img1 tile +- KS, the w0 band (+- KS, and +- window along
-    the axis), four per-q planes of the band, and the larger of the
-    row-sum plane and the box sums' scratch. Raises ValueError where the
-    window's band does not fit one block."""
-    if axis not in TILES:
-        raise ValueError(f"sweep_tile_plan: axis must be vert or horiz, got {axis!r}")
+def _tile_smem(axis: str, span: int) -> int:
+    """Shared bytes of one block whose chunk holds span + 1 offsets —
+    csrc/ncc_sweep.cu's layout(): the img1 tile +- KS, the w0 band (+- KS,
+    and + span along the axis), four per-q planes of the band, and the
+    larger of the row-sum plane and the box sums' scratch."""
     th, tw = TILES[axis]
-    wy, wx = (window, 0) if axis == "vert" else (0, window)
+    sy, sx = (span, 0) if axis == "vert" else (0, span)
     ir, ip = th + 2 * KS, tw + 2 * KS
-    wr, wp = th + 2 * KS + 2 * wy, tw + 2 * KS + 2 * wx
-    br, bc = th + 2 * wy, tw + 2 * wx
+    wr, wp = th + 2 * KS + sy, tw + 2 * KS + sx
+    br, bc = th + sy, tw + sx
     # A "vert" warp spans two 16-wide rows: 4 floats of padding per row.
     bp = bc + 4 if axis == "vert" else bc
     rp = tw + 4 if axis == "vert" else tw
-    floats = ir * ip + wr * wp + 4 * br * bp + max(ir * rp, 2 * wr * bp)
-    smem = 4 * floats
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"ncc_sweep: window {window} needs {smem} bytes of shared memory"
-            f" per {axis} tile, over the {SMEM_LIMIT} one block may hold"
-        )
+    return 4 * (ir * ip + wr * wp + 4 * br * bp + max(ir * rp, 2 * wr * bp))
+
+
+@functools.lru_cache(maxsize=None)
+def _chunking(axis: str, window: int) -> tuple[int, tuple, int]:
+    """(chunk, chunks, shared bytes) of sweep_tile_plan."""
+    n_off = 2 * window + 1
+    chunk = n_off
+    if _tile_smem(axis, n_off - 1) > SMEM_LIMIT:
+        longest = max(c for c in range(1, n_off) if _tile_smem(axis, c - 1) <= SMEM_LIMIT)
+        chunk = -(-n_off // -(-n_off // longest))
+    chunks = tuple((u0, min(window, u0 + chunk - 1))
+                   for u0 in range(-window, window + 1, chunk))
+    return chunk, chunks, _tile_smem(axis, chunk - 1)
+
+
+def sweep_tile_plan(h: int, w: int, window: int, axis: str) -> dict:
+    """Launch geometry of the static forms ("vert", "horiz") for an
+    (h, w) plane: tile (rows, columns), grid (column tiles, row tiles)
+    covering the plane, the chunk (offsets staged per band) and the
+    block's shared bytes. A window whose whole band of 2 * window + 1
+    offsets fits one block sweeps it as one chunk; a wider one in the
+    fewest chunks that fit, of equal length but the last. `chunks` lists
+    each chunk's first and last offset, in the sweep's order."""
+    if axis not in TILES:
+        raise ValueError(f"sweep_tile_plan: axis must be vert or horiz, got {axis!r}")
+    chunk, chunks, smem = _chunking(axis, window)
+    th, tw = TILES[axis]
     return {
         "tile": (th, tw), "grid": (-(-w // tw), -(-h // th)),
-        "threads": TILE_THREADS, "smem_bytes": smem,
+        "threads": TILE_THREADS, "chunk": chunk, "chunks": chunks,
+        "smem_bytes": smem,
     }
 
 
@@ -285,24 +306,22 @@ def ncc_sweep(
         return ncc_sweep_plain(*fields.values(), w0, **kw)
     if dev.type != "cuda":
         raise ValueError(f"ncc_sweep: unsupported device {dev}")
-    from cybervision_tpu_torch import kernels
-
     lib = kernels.library()
     if axis is None:
         # The per-pixel form reads the warp's box sums from a plane; the
         # static forms compute them in their tiles.
         sw, sww = torch.empty_like(w0), torch.empty_like(w0)
-        tile_h = tile_w = smem = 0
+        tile_h = tile_w = chunk = smem = 0
     else:
         sw = sww = None
         plan = sweep_tile_plan(h, w, window, axis)
-        (tile_h, tile_w), smem = plan["tile"], plan["smem_bytes"]
+        (tile_h, tile_w), chunk, smem = plan["tile"], plan["chunk"], plan["smem_bytes"]
     corr = torch.empty((h, w), dtype=torch.float32, device=dev)
     bx = torch.empty((h, w), dtype=torch.int32, device=dev)
     by = torch.empty((h, w), dtype=torch.int32, device=dev)
     # The C entry points launch on the host thread's current device.
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with kernels.on_device(dev):
+        stream = kernels.stream_of(dev)
         if sw is not None:
             kernels.check(
                 lib.cv_box_sums(w0.data_ptr(), n_o, h + 2 * m_w0, w,
@@ -317,7 +336,7 @@ def ncc_sweep(
                 bx.data_ptr(), by.data_ptr(), h, w, n_o, corridor_size, window,
                 h2, w2, _AXES[axis], float(threshold), float(min_stdev),
                 depth["img1"], depth["center"], m_w0, row0_g, h_total,
-                tile_h, tile_w, smem, stream,
+                tile_h, tile_w, chunk, smem, stream,
             ),
             "cv_ncc_sweep",
         )

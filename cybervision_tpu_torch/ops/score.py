@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from cybervision_tpu_torch import kernels
+
 # Kernel launches since the counter was last set to 0.
 launches = 0
 
@@ -108,9 +110,6 @@ def score_candidates(ff, p1, p2, m_valid, threshold: float):
         return score_candidates_plain(ff, p1, p2, m_valid, threshold)
     if dev.type != "cuda":
         raise ValueError(f"score_candidates: unsupported device {dev}")
-    from cybervision_tpu_torch import kernels
-
-    lib = kernels.library()
     plan = score_plan(c, m)
     ffl = ff.reshape(c, 9).contiguous()
     # (M, 4) rows (x1, y1, x2, y2), read as float4; the mask as bytes.
@@ -121,16 +120,13 @@ def score_candidates(ff, p1, p2, m_valid, threshold: float):
     count = torch.empty(c, dtype=torch.int32, device=dev)
     esum = torch.empty(c, dtype=torch.float32, device=dev)
     # The C entry point launches on the host thread's current device.
-    with torch.cuda.device(dev):
-        kernels.check(
-            lib.cv_score_candidates(
-                ffl.data_ptr(), pts.data_ptr(), mask.data_ptr(), c, m,
-                float(threshold), plan["cand_tiles"], plan["n_splits"],
-                part_count.data_ptr(), part_sum.data_ptr(),
-                count.data_ptr(), esum.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream,
-            ),
-            "cv_score_candidates",
+    with kernels.on_device(dev):
+        err = kernels.library().cv_score_candidates(
+            ffl.data_ptr(), pts.data_ptr(), mask.data_ptr(), c, m,
+            float(threshold), plan["cand_tiles"], plan["n_splits"],
+            part_count.data_ptr(), part_sum.data_ptr(),
+            count.data_ptr(), esum.data_ptr(), kernels.stream_of(dev),
         )
+    kernels.check(err, "cv_score_candidates")
     launches += 1
     return count, esum

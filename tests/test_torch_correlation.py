@@ -122,6 +122,38 @@ def test_refine_pass_matches_jax(rng, name, static):
     assert out.valid.numpy().mean() > (0.05 if name == "mixed" else 0.2)
 
 
+def test_refine_pass_matches_jax_at_window_192(rng):
+    """A window wider than one block of the card's tiled sweep holds (the
+    kernel sweeps it in two chunks of offsets): the plain sweep against
+    JAX's refine_pass (its scan, which the JAX package also takes for a
+    level whose tile does not fit) on a 40x420 scene, wide enough for
+    the shifts, with the sweep's tolerances."""
+    h, w, d = 40, 420, 2
+    img1, img2 = _scene(rng, h, w, d)
+    qy, qx = np.mgrid[0 : h // 2, 0 : w // 2]
+    pos = np.stack([np.maximum(2 * qx - d, 0), 2 * qy], axis=-1).astype(np.int32)
+    wtr, tmin = jc.split_trange(jc.warp_shift_range(F_HSHIFT, 1.0, h, w, h, w))
+    kw = {"warp_trange": wtr, "warp_tmin": tmin, "window": 192}
+    args = (1.0, 0.6, 1.0, 2.5, 1.0, 2)
+    jprev = jc.CorrelationState(
+        pos=jnp.asarray(pos), corr=jnp.ones(pos.shape[:2], jnp.float32),
+        valid=jnp.ones(pos.shape[:2], bool),
+    )
+    ref = jc.refine_pass(
+        jnp.asarray(img1), jnp.asarray(img2), jprev, jnp.asarray(F_HSHIFT, jnp.float32), *args, **kw,
+    )
+    tprev = correlation_state_from_numpy(pos, np.ones(pos.shape[:2]), np.ones(pos.shape[:2], bool))
+    out = tc.refine_pass(
+        torch.as_tensor(img1), torch.as_tensor(img2), tprev,
+        torch.as_tensor(F_HSHIFT, dtype=torch.float32), *args, **kw,
+    )
+    _assert_states_agree(
+        out.valid.numpy(), np.asarray(ref.valid), out.pos.numpy(),
+        np.asarray(ref.pos), out.corr.numpy(), np.asarray(ref.corr),
+    )
+    assert out.valid.numpy().mean() > 0.2
+
+
 def test_first_pass_matches_jax():
     img1, img2, _ = golden_scene()
     a = np.ascontiguousarray(img1[::2, ::2])

@@ -4,17 +4,22 @@ On the CPU: each wrapper checks its inputs, raises on what its kernel
 does not take, and runs the plain version without counting a launch;
 the launch geometry the wrappers compute (K1's tile plan, K2's split
 plan) covers its plane or table exactly and fits the card's shared
-memory. With a card (tests marked `cuda`, skipped without one): each
+memory — K1's at every window, in chunks of offsets beyond 164 ("horiz")
+or 150 ("vert"); the threefry draws (utils.prng) hold their shape and
+range. With a card (tests marked `cuda`, skipped without one): each
 kernel against its plain version on the card, with the tolerances of
 chip_smoke.py — K1 under 0.5 % of valid flags differ, corr within 1e-4,
 over 99.5 % of positions equal; K2 counts equal and sums within rtol
 1e-5; K3 exact — also at shapes that are no multiple of a tile, at the
 window buckets' ends (8, 128), and for K2 at C 50,001 with holes in the
-mask or none set. K1's row-halo form (K1s, shards on one card, one of
-odd height) is held to its sharded plain version with K1's tolerances
-and to the unsharded kernel exactly; with a second card, every kernel
-launches on cuda:1. This file imports nothing of JAX, so the card tests
-run where JAX is absent:
+mask or none set; K1's static forms bit-equal to the plain version at
+windows 192 and 256 (two chunks), and its row-halo form at 192. K1's
+row-halo form (K1s, shards on one card, one of odd height) is held to
+its sharded plain version with K1's tolerances and to the unsharded
+kernel exactly; K3 launches on the caller's current stream; the draws
+on the card equal the CPU's; with a second card, every kernel launches
+on cuda:1. This file imports nothing of JAX, so the card tests run
+where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
@@ -30,6 +35,7 @@ from cybervision_tpu_torch.ops import ncc_sweep as k1
 from cybervision_tpu_torch.ops import score as k2
 from cybervision_tpu_torch.ops.epipolar import pack_coord_table, solve_affine_batch
 from cybervision_tpu_torch.parallel import Mesh, gather_rows
+from cybervision_tpu_torch.utils import prng
 
 torch.set_num_threads(2)
 
@@ -170,19 +176,57 @@ def test_sweep_tile_plan_covers_the_plane(axis, h, w):
 @pytest.mark.parametrize("window", [8, 16, 24, 32, 64, 128])
 def test_sweep_tile_plan_fits_every_window_bucket(axis, window):
     """corridor_window_buckets, the low-memory 8 and the fixed 16: every
-    window the port sweeps fits one block's 227 KB, and the bytes grow
-    with the band (2 * window along the axis)."""
+    window the CLI sweeps fits one block's 227 KB as one chunk of all its
+    2 * window + 1 offsets, and the bytes grow with the band."""
     plan = k1.sweep_tile_plan(64, 64, window, axis)
     assert plan["smem_bytes"] <= 232_448
+    assert plan["chunks"] == ((-window, window),) and plan["chunk"] == 2 * window + 1
     assert plan["smem_bytes"] > k1.sweep_tile_plan(64, 64, window - 1, axis)["smem_bytes"]
+
+
+def _assert_chunks_cover(chunks, window):
+    """Chunks in increasing order, covering [-window, window] with no
+    gap and no overlap."""
+    assert chunks[0][0] == -window and chunks[-1][1] == window
+    assert all(lo <= hi for lo, hi in chunks)
+    assert all(a[1] + 1 == b[0] for a, b in zip(chunks, chunks[1:]))
+
+
+@pytest.mark.parametrize("axis", ["horiz", "vert"])
+@pytest.mark.parametrize("window", [192, 256, 512, 1024])
+def test_sweep_tile_plan_chunks_every_wide_window(axis, window):
+    """Windows whose whole band does not fit one block (the API's
+    corridor_window_fixed or buckets beyond the CLI's 128) sweep in
+    chunks of offsets that do, all of one length but the last."""
+    plan = k1.sweep_tile_plan(1024, 1024, window, axis)
+    chunks = plan["chunks"]
+    assert plan["smem_bytes"] <= 232_448 and len(chunks) > 1
+    _assert_chunks_cover(chunks, window)
+    assert {hi - lo + 1 for lo, hi in chunks[:-1]} == {plan["chunk"]}
+    assert chunks[-1][1] - chunks[-1][0] + 1 <= plan["chunk"]
+    # The fewest chunks that fit: one fewer would not.
+    n_off = 2 * window + 1
+    assert k1._tile_smem(axis, -(-n_off // (len(chunks) - 1)) - 1) > 232_448
 
 
 @pytest.mark.parametrize("axis", ["horiz", "vert"])
 def test_sweep_tile_plan_raises_where_the_band_cannot_fit(axis):
-    with pytest.raises(ValueError, match="shared memory"):
-        k1.sweep_tile_plan(1024, 1024, 256, axis)
+    """Only the per-pixel form has no tile plan; a static axis fits at
+    any window (256 was refused before the band was chunked)."""
+    plan = k1.sweep_tile_plan(1024, 1024, 256, axis)
+    assert plan["smem_bytes"] <= 232_448
+    _assert_chunks_cover(plan["chunks"], 256)
     with pytest.raises(ValueError):
         k1.sweep_tile_plan(1024, 1024, 16, None)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 1), (0, 13_066), (-7, 9), (5, 5)])
+def test_randint_draws_are_int32_in_range(lo, hi):
+    out = prng.randint(prng.prng_key(3), (13, 4, 257), lo, hi)
+    assert out.dtype == torch.int32 and out.shape == (13, 4, 257)
+    assert int(out.min()) >= lo and int(out.max()) <= max(lo, hi - 1)
+    if hi - lo > 8:
+        assert len(torch.unique(out)) > min(hi - lo, 1000) // 2
 
 
 @pytest.mark.parametrize("c,m", [
@@ -262,6 +306,39 @@ def test_sweep_kernel_matches_plain_at_the_window_ends(cuda, axis, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["horiz", "vert"])
+@pytest.mark.parametrize("window", [192, 256])
+def test_sweep_kernel_equals_plain_at_wide_windows(cuda, axis, window):
+    """Two chunks of offsets per stripe: bit-equal to the plain version,
+    as the one-chunk windows are."""
+    h, w = (300, 280) if axis == "horiz" else (280, 300)
+    fields, kw = _sweep_fields(cuda, h=h, w=w, axis=axis)
+    kw = dict(kw, window=window)
+    assert len(k1.sweep_tile_plan(h, w, window, axis)["chunks"]) == 2
+    out = k1.ncc_sweep(*fields.values(), axis=axis, **kw)
+    ref = k1.ncc_sweep_plain(*fields.values(), axis=axis, **kw)
+    assert torch.isfinite(ref[0]).float().mean() > 0.2
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["horiz", "vert"])
+def test_row_halo_sweep_equals_plain_at_window_192(cuda, axis):
+    """Two 200-row shards (a halo is KS + 192 = 197 rows) of a 400-row
+    plane on one card: the chunked row-halo kernel equals the unsharded
+    plain version bit for bit."""
+    fields, kw = _sweep_fields(cuda, h=400, w=64, axis=axis)
+    kw = dict(kw, window=192)
+    out = [gather_rows(o, cuda) for o in k1.ncc_sweep_sharded(
+        Mesh((cuda,) * 2), *fields.values(), axis=axis, **kw)]
+    ref = k1.ncc_sweep_plain(*fields.values(), axis=axis, **kw)
+    assert torch.isfinite(ref[0]).float().mean() > 0.2
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mask", ["holes", "none"])
 def test_score_kernel_matches_plain_at_awkward_shapes(cuda, mask):
     """C 50,001 (a ragged candidate tile) against a table whose mask has
@@ -296,13 +373,37 @@ def test_score_kernel_matches_plain(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [8192, 32768])
 def test_gather_kernel_matches_take(cuda, m):
-    """Both table paths: shared memory (M <= 8192) and through L2."""
+    """The smallest bucket's table (cached in L1) and the main path's
+    (through L2)."""
     packed = torch.randint(0, 2**31 - 1, (2, m), dtype=torch.int32, device=cuda)
     idx = torch.randint(0, m, (13, 4, 5000), dtype=torch.int32, device=cuda)
     k3.launches = 0
     out = k3.gather_packed(packed, idx)
     assert k3.launches == 1
     assert torch.equal(out, k3.gather_packed_plain(packed, idx))
+
+
+@pytest.mark.cuda
+def test_gather_kernel_launches_on_the_current_stream(cuda):
+    """Under a torch.cuda.stream context the kernel runs on that stream:
+    its output is complete once the stream is synchronised."""
+    packed = torch.randint(0, 2**31 - 1, (2, 32768), dtype=torch.int32, device=cuda)
+    idx = torch.randint(0, 32768, (13, 4, 50_000), dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        out = k3.gather_packed(packed, idx)
+    side.synchronize()
+    assert torch.equal(out, k3.gather_packed_plain(packed, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,shape,top", [(0, (13, 4, 50_000), 13_066), (2**40 + 7, (13, 7, 33), 1000)])
+def test_randint_on_the_card_equals_the_cpu(cuda, seed, shape, top):
+    key = prng.prng_key(seed)
+    out = prng.randint(key, shape, 0, top, device=cuda)
+    assert out.device.type == "cuda"
+    assert torch.equal(out.cpu(), prng.randint(key, shape, 0, top))
 
 
 @pytest.mark.cuda

@@ -11,10 +11,13 @@ Tolerances: the sharded port equals the unsharded port exactly (the
 row-halo sweep sees every value and rounding of the unsharded one);
 against JAX's sharded sweep, tests/test_pallas_ncc.py:52-60's (under
 0.5 % of valid flags differ, corr within 1e-4, over 99.5 % of positions
-equal); the sharded matcher equals JAX's exactly; with JAX's per-device
-draws injected, RANSAC picks JAX's winner (count equal, F within 1e-5 of
-its largest entry); the reconstruction under a mesh stays within
-tests/test_torch_pipeline.py's 2 % / 1 % budgets of the unsharded run.
+equal); the sharded matcher equals JAX's exactly; from the same key,
+each shard draws what its JAX device draws (split(key, n), threefry), so
+RANSAC picks JAX's winner (count equal, F within 1e-5 of its largest
+entry), for one batch and for the whole round loop; the reconstruction
+under a mesh stays within tests/test_torch_pipeline.py's 2 % / 1 %
+budgets of the unsharded run (a mesh splits the round key, so its
+samples are not the unsharded run's).
 """
 
 import os
@@ -41,6 +44,7 @@ from cybervision_tpu_torch.ops import matching as tm
 from cybervision_tpu_torch.ops import ncc_sweep as k1
 from cybervision_tpu_torch.parallel import Mesh, gather_rows, use_mesh
 from cybervision_tpu_torch.reconstruction import reconstruct
+from cybervision_tpu_torch.utils import prng
 
 from .test_parallel import F_AFFINE, _pair
 from .test_pipeline import _sem_pair
@@ -218,7 +222,8 @@ def test_sharded_matcher_equals_jax_and_unsharded(n):
 
 
 def test_ransac_batch_sharded_with_jax_draws_picks_jax_winner():
-    """tests/test_torch_ransac.py's scene: integral matches of a smooth
+    """JAX's draws, made by the port's own threefry from the same key,
+    pick JAX's winner. tests/test_torch_ransac.py's scene: integral matches of a smooth
     disparity with 20 % outliers. (tests/test_parallel.py:178-204's pure
     translation is degenerate for the 4-point affine solver: every 3x3
     minor of its rank-2 system is exactly 0 when evaluated as written,
@@ -239,16 +244,10 @@ def test_ransac_batch_sharded_with_jax_draws_picks_jax_winner():
         jax_mesh(n), key, jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(valid),
         *args, projection_affine=True, packed_t=jnp.asarray(packed), **kw,
     )
-    # The draws each JAX device makes from its split of the key.
-    draws = [
-        torch.tensor(np.asarray(
-            jax.random.randint(k, (13, ns, batch // n), 0, top_limit, dtype=jnp.int32)
-        ))
-        for k in jax.random.split(key, n)
-    ]
+    # The same key, no draws handed over: each shard draws from its split.
     f_t, c_t, e_t = te.ransac_batch_sharded(
-        cpu_mesh(n), torch.tensor(p1), torch.tensor(p2), torch.tensor(valid), *args,
-        packed_t=torch.tensor(packed), all_idx=draws, **kw,
+        cpu_mesh(n), prng.prng_key(5), torch.tensor(p1), torch.tensor(p2),
+        torch.tensor(valid), *args, packed_t=torch.tensor(packed), **kw,
     )
     assert int(c_t[0]) == int(c_j[0]) > 400
     f_j = np.asarray(f_j[0], np.float64)
@@ -257,8 +256,9 @@ def test_ransac_batch_sharded_with_jax_draws_picks_jax_winner():
 
 
 def test_find_fundamental_matrix_under_a_mesh_recovers_the_geometry():
-    """The round loop with one generator per shard keeps the planted
-    inliers, like tests/test_torch_ransac.py's unsharded run."""
+    """The round loop with one key per shard keeps the planted inliers,
+    like tests/test_torch_ransac.py's unsharded run; the shards draw
+    different samples."""
     matches, inlier = _matches(3, m=800)
     cfg = tcfg.RansacConfig(
         ransac_k_affine=32768, check_interval=8192, ransac_d_early_exit_affine=200,
@@ -268,9 +268,31 @@ def test_find_fundamental_matrix_under_a_mesh_recovers_the_geometry():
             matches, tcfg.ProjectionMode.AFFINE, 160.0, cfg, device="cpu"
         )
     assert res.matches_count == len(res.inliers) >= 0.95 * inlier.sum()
-    gens = te.shard_generators(cpu_mesh(2), 0)
-    assert not torch.equal(torch.randint(0, 99, (8,), generator=gens[0]),
-                           torch.randint(0, 99, (8,), generator=gens[1]))
+    keys = prng.split(prng.prng_key(0), 2)
+    assert not torch.equal(prng.randint(keys[0], (8,), 0, 99), prng.randint(keys[1], (8,), 0, 99))
+
+
+def test_find_fundamental_matrix_under_a_mesh_picks_jax_winner(monkeypatch):
+    """The round loop under the JAX package's mesh of the conftest's 8
+    devices (CVTPU_SHARD=1) and under an 8-shard CPU mesh in the port:
+    the same round keys split over the same shards, the same winner."""
+    matches, _ = _matches(2, m=700)
+    kw = dict(ransac_k_affine=16384, check_interval=4096, ransac_d_early_exit_affine=10**6)
+    monkeypatch.setenv("CVTPU_SHARD", "1")
+    monkeypatch.delenv("CVTPU_NO_SHARD", raising=False)
+    from cybervision_tpu.config import RansacConfig as JRansacConfig
+    from cybervision_tpu.parallel import pipeline_mesh as jax_pipeline_mesh
+
+    assert jax_pipeline_mesh().devices.size == 8
+    ref = je.find_fundamental_matrix(matches, JProjectionMode.AFFINE, 160.0, JRansacConfig(**kw))
+    monkeypatch.delenv("CVTPU_SHARD")
+    with use_mesh(cpu_mesh(8)):
+        out = te.find_fundamental_matrix(
+            matches, tcfg.ProjectionMode.AFFINE, 160.0, tcfg.RansacConfig(**kw), device="cpu"
+        )
+    assert out.matches_count == ref.matches_count > 400
+    np.testing.assert_allclose(out.f, ref.f, rtol=0, atol=1e-5 * np.abs(ref.f).max())
+    np.testing.assert_array_equal(out.inliers, ref.inliers)
 
 
 # --- the whole path under a mesh --------------------------------------------------

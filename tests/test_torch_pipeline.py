@@ -2,11 +2,14 @@
 tests/test_pipeline.py's 160x160 SEM pair to a PLY mesh, against the JAX
 package's reconstruct on the same files.
 
-Tolerances: vertex counts within 2 % and the mean |z| difference on the
-grid cells both meshes hold under 1 % of the JAX depth range. The two
-runs draw different RANSAC samples (torch.Generator vs threefry), so the
-winning F — and with it a few boundary pixels — may differ; everything
-downstream of F is held to the same budgets as tests/test_golden_parity.py.
+Tolerances: both runs draw the same RANSAC samples (the port's threefry,
+utils.prng, equals jax.random's), so they pick the same F up to f32
+rounding, and the meshes are held to the same vertex and face counts,
+the same grid cells, and a mean |z| difference under 1e-6 of the JAX
+depth range (on this pair they are equal). COUNT_RTOL and DEPTH_BUDGET —
+vertex counts within 2 %, mean |z| under 1 % of the range, the budgets of
+tests/test_golden_parity.py — hold runs whose samples differ, such as a
+mesh's sharded RANSAC (tests/test_torch_parallel.py).
 """
 
 import numpy as np
@@ -27,6 +30,7 @@ torch.set_num_threads(2)
 
 COUNT_RTOL = 0.02
 DEPTH_BUDGET = 0.01
+SAME_F_DEPTH_BUDGET = 1e-6
 
 
 def _port_fast_cfg(**kw):
@@ -80,12 +84,11 @@ def test_cli_cpu_ply_matches_jax(sem_files, tmp_path, monkeypatch):
     nv_j, nf_j, cells_j = _read_ply(out_j)
     nv_t, nf_t, cells_t = _read_ply(out_t)
     assert nv_j > 3000 and nf_t > 3000
-    assert abs(nv_t - nv_j) <= COUNT_RTOL * nv_j
-    common = cells_j.keys() & cells_t.keys()
-    assert len(common) >= (1 - COUNT_RTOL) * nv_j
-    zj = np.array([cells_j[k] for k in common])
-    zt = np.array([cells_t[k] for k in common])
-    assert np.abs(zt - zj).mean() / (zj.max() - zj.min()) < DEPTH_BUDGET
+    assert (nv_t, nf_t) == (nv_j, nf_j)
+    assert cells_t.keys() == cells_j.keys()
+    zj = np.array([cells_j[k] for k in cells_j])
+    zt = np.array([cells_t[k] for k in cells_j])
+    assert np.abs(zt - zj).mean() / (zj.max() - zj.min()) < SAME_F_DEPTH_BUDGET
 
 
 def test_in_memory_images_equal_file_loads(sem_files):

@@ -7,10 +7,11 @@ product and sum rounded); error sums are within rtol 1e-5 of the exact
 (f64) sum of those errors. score_candidates_xla's fused reduction is
 itself off the exact sum by up to ~3e-4 relative on this table (XLA:CPU
 contracts the linear forms into FMAs inside the fusion), so against it
-the sums are held to 1e-4 of count * threshold. The gather is exact;
-with JAX's draws injected, one RANSAC batch picks JAX's winner — equal
-count, F and mean error within 1e-5 relative (f32 solver arithmetic in
-another order).
+the sums are held to 1e-4 of count * threshold. The gather is exact.
+The port's threefry keys and draws (utils.prng) equal jax.random's bit
+for bit, so from the same key one RANSAC batch, and the whole round
+loop from the same seed, pick JAX's winner — equal count, F and mean
+error within 1e-5 relative (f32 solver arithmetic in another order).
 """
 
 import jax
@@ -27,6 +28,7 @@ from cybervision_tpu_torch.config import ProjectionMode, RansacConfig
 from cybervision_tpu_torch.ops import epipolar as te
 from cybervision_tpu_torch.ops import gather as tg
 from cybervision_tpu_torch.ops import score as ts
+from cybervision_tpu_torch.utils import prng
 from cybervision_tpu_torch.utils.buckets import pow2_bucket
 
 torch.set_num_threads(2)
@@ -117,8 +119,49 @@ def test_gather_plain_matches_take():
     np.testing.assert_array_equal(out, ref)
 
 
+SEEDS = [0, 1, 2**40 + 7]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prng_key_and_split_match_jax(seed):
+    key = jax.random.PRNGKey(seed)
+    np.testing.assert_array_equal(prng.prng_key(seed).numpy(), np.asarray(key).astype(np.int64))
+    for n in (2, 4, 7):
+        np.testing.assert_array_equal(
+            prng.split(prng.prng_key(seed), n).numpy(),
+            np.asarray(jax.random.split(key, n)).astype(np.int64),
+        )
+    np.testing.assert_array_equal(
+        prng.random_bits(prng.prng_key(seed), (13, 7, 33)).numpy(),
+        np.asarray(jax.random.bits(key, (13, 7, 33), jnp.uint32)).astype(np.int64),
+    )
+
+
+@pytest.mark.parametrize("top_limit", [1, 2, 1000, 13_066])
+@pytest.mark.parametrize("shape", [(13, 4, 50), (13, 7, 33), (1,)])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint_matches_jax(seed, shape, top_limit):
+    """The port's draws equal jax.random.randint's bit for bit (int32,
+    JAX 0.9's partitionable threefry); the round keys of a RANSAC run
+    come from split, held above."""
+    ref = jax.random.randint(jax.random.PRNGKey(seed), shape, 0, top_limit, dtype=jnp.int32)
+    out = prng.randint(prng.prng_key(seed), shape, 0, top_limit)
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def _assert_same_winner(f_t, c_t, e_t, f_j, c_j, e_j):
+    assert int(c_t) == int(c_j) > 400
+    f_j, f_t = np.asarray(f_j, np.float64), np.asarray(f_t, np.float64)
+    np.testing.assert_allclose(f_t, f_j, rtol=0, atol=F_RTOL * np.abs(f_j).max())
+    if e_j is not None:
+        np.testing.assert_allclose(float(e_t), float(e_j), rtol=F_RTOL)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_ransac_batch_with_jax_draws_picks_jax_winner(seed):
+    """One batch from the same key, no draws handed over: the port makes
+    JAX's draws itself (utils.prng) and picks JAX's winner."""
     matches, _ = _matches(seed)
     mpad, valid = _tables(matches)
     cfg = JRansacConfig()
@@ -135,23 +178,33 @@ def test_ransac_batch_with_jax_draws_picks_jax_winner(seed):
         projection_affine=True, rank_eps=cfg.rank_epsilon,
         packed_t=jnp.asarray(packed),
     )
-    # The draws _ransac_batch_core makes from `key`, handed to the port.
-    all_idx = jax.random.randint(key, (13, n, batch), 0, top_limit, dtype=jnp.int32)
     f_t, c_t, e_t = te._ransac_batch_core(
-        torch.tensor(p1), torch.tensor(p2), torch.tensor(valid),
+        prng.prng_key(seed), torch.tensor(p1), torch.tensor(p2), torch.tensor(valid),
         top_limit, t, float(cfg.min_inlier_distance), d + n, n_samples=n,
-        batch=batch, rank_eps=cfg.rank_epsilon,
-        packed_t=torch.tensor(packed), all_idx=torch.tensor(np.asarray(all_idx)),
+        batch=batch, rank_eps=cfg.rank_epsilon, packed_t=torch.tensor(packed),
     )
-    assert int(c_t[0]) == int(c_j[0]) > 400
-    f_j, f_t = np.asarray(f_j[0], np.float64), f_t[0].double().numpy()
-    np.testing.assert_allclose(f_t, f_j, rtol=0, atol=F_RTOL * np.abs(f_j).max())
-    np.testing.assert_allclose(float(e_t[0]), float(e_j[0]), rtol=F_RTOL)
+    _assert_same_winner(f_t[0], c_t[0], e_t[0], f_j[0], c_j[0], e_j[0])
+
+
+@pytest.mark.parametrize("early_exit", [200, 10**6])
+def test_find_fundamental_matrix_picks_jax_winner(early_exit):
+    """The whole round loop from RansacConfig.seed: one split of the key
+    per round, as the JAX package does. An early exit of 200 stops after
+    the first round; an unreachable one runs all four (JAX fuses them
+    into one program over the same round keys)."""
+    matches, _ = _matches(2, m=700)
+    kw = dict(ransac_k_affine=16384, check_interval=4096, ransac_d_early_exit_affine=early_exit)
+    ref = je.find_fundamental_matrix(matches, JProjectionMode.AFFINE, 160.0, JRansacConfig(**kw))
+    out = te.find_fundamental_matrix(
+        matches, ProjectionMode.AFFINE, 160.0, RansacConfig(**kw), device="cpu"
+    )
+    _assert_same_winner(out.f, out.matches_count, None, ref.f, ref.matches_count, None)
+    np.testing.assert_array_equal(out.inliers, ref.inliers)
 
 
 def test_find_fundamental_matrix_recovers_the_geometry():
-    """The port's round loop with its own generator: the winner keeps the
-    planted inliers, like JAX's find_fundamental_matrix on the table."""
+    """The port's round loop: the winner keeps the planted inliers, like
+    JAX's find_fundamental_matrix on the table."""
     matches, inlier = _matches(3, m=800)
     kw = dict(ransac_k_affine=32768, check_interval=8192, ransac_d_early_exit_affine=200)
     ref = je.find_fundamental_matrix(matches, JProjectionMode.AFFINE, 160.0, JRansacConfig(**kw))
