@@ -11,12 +11,16 @@ Phases, each of which raises on failure:
 2. Hold every kernel against its plain PyTorch version on the card, at
    the shapes the 1024x1024 main path gives it, and time both:
      K1 ncc_sweep  — the refine sweep of the finest level in its "horiz"
-                     (main path), "vert" and per-pixel forms; tolerances
-                     of tests/test_pallas_ncc.py (under 0.5 % of valid
-                     flags differ, corr within 1e-4, over 99.5 % of
-                     positions equal); also "horiz" and "vert" at 999x777
-                     (no multiple of a tile) and at windows 8 and 128 on
-                     a 300x280 plane;
+                     (main path), "vert" and per-pixel forms (the last on
+                     a checkerboard of axes in 64-pixel squares);
+                     tolerances of tests/test_pallas_ncc.py (under 0.5 %
+                     of valid flags differ, corr within 1e-4, over 99.5 %
+                     of positions equal), the per-pixel form bit for bit;
+                     also all three forms at 999x777 (no multiple of a
+                     tile) and at windows 8 and 128 on a 300x280 plane,
+                     the per-pixel one with its axis flipping across the
+                     diagonal; the per-pixel form prints its tile votes
+                     and the tiles that stage one band of the warp or two;
      K2 score      — 50,000 affine candidates against the match table at
                      8192 rows and at the main path's bucket; counts equal,
                      sums within rtol 1e-5; also 50,001 candidates against
@@ -32,7 +36,7 @@ Phases, each of which raises on failure:
                      1,000 calls with no sync, 5 turns, medians), there
                      also of the same launch through PyTorch's public
                      host API (gather_public_path);
-     K1 wide       — both static forms at 1024x1024 and window 192 (two
+     K1 wide       — all three forms at 1024x1024 and window 192 (in
                      chunks of offsets per stripe), bit-equal to the
                      plain version and timed; the row-halo form at 192
                      over phase 4's mesh, bit-equal to the plain version;
@@ -57,8 +61,8 @@ Phases, each of which raises on failure:
    runs for real either way: halo exchange, global row bounds, a launch
    per shard). K1s, ncc_sweep_sharded, at phase 2's 1024x1024 fields in
    its three forms must equal the unsharded K1 exactly and agree with
-   its sharded plain version within K1's tolerances; its time includes
-   the halo exchange. Then the main path end to end under the mesh (a
+   its sharded plain version within K1's tolerances (the per-pixel form
+   bit for bit); its time includes the halo exchange. Then the main path end to end under the mesh (a
    warm-up and three timed runs, phase 3's gates, the launches per run
    checked against the plan: one K1 per shard on each sharded level,
    one K2 and one K3 per shard per RANSAC round), one more run under
@@ -180,7 +184,7 @@ DLT_AGREE_REL = 1e-6
 DEPTH_R_MIN = 0.9
 # Device kernels of each wrapper, as the profiler names them.
 KERNEL_NAMES = {
-    "ncc_sweep": ("sweep_tile_kernel", "sweep_pixel_kernel", "box_sums_kernel"),
+    "ncc_sweep": ("sweep_tile_kernel", "sweep_pixel_tile_kernel"),
     "score_candidates": ("score_split_kernel", "score_reduce_kernel"),
     "gather_packed": ("gather_packed_kernel",),
 }
@@ -339,18 +343,23 @@ def _finest_prev_state(disparity, device):
 
 
 def sweep_evaluations(fields: dict, axis, corridor_size, window, h2, w2,
-                      min_stdev) -> tuple[int, int]:
-    """Hypotheses whose 11x11 product the sweep must compute: those that
-    pass every mask tested before it (source band, candidate bounds,
-    corridor, p_ok, the warp's min_stdev) — the data-dependent work.
-    Also, for the static forms, the (stripe, offset, tile) triples that
-    the tiled kernel's block vote lets through (a tile computes the
-    product for all its pixels once one admits the hypothesis); 0 for
-    the per-pixel form."""
+                      min_stdev) -> dict:
+    """What the sweep computes on these fields. n_eval: the hypotheses
+    whose 11x11 product the sweep must compute, those that pass every mask
+    tested before it (source band, candidate bounds, corridor, p_ok, the
+    warp's min_stdev) — the data-dependent work. tile_votes: the (stripe,
+    offset, tile) triples that the tiled kernel's block vote lets through
+    (a tile computes the product for all its pixels once one admits the
+    hypothesis). For the per-pixel form also the tiles that stage one
+    band of w0 or two: those with a pixel that passes the masks that hold
+    for every stripe, by the axes among their elements (the tile +- KS
+    inside the plane)."""
     import torch
+    import torch.nn.functional as F
 
     from cybervision_tpu_torch.ops import ncc_sweep as k1
 
+    ks = k1.KS
     h, w = fields["avg1"].shape
     dev = fields["avg1"].device
     rows = torch.arange(h, device=dev)[:, None]
@@ -359,9 +368,15 @@ def sweep_evaluations(fields: dict, axis, corridor_size, window, h2, w2,
     off0 = torch.floor(fields["coeff"] * fields["center"] + fields["add"])
     box = k1._box11(torch.stack([fields["w0"], fields["w0"] * fields["w0"]]))
     pok = fields["p_ok"] > 0.5
-    th, tw = k1.TILES.get(axis, (1, 1))
+    th, tw = k1.TILES[axis]
     pad = (0, -w % tw, 0, -h % th)
+
+    def per_tile(m):
+        t = F.pad(m.float(), pad)
+        return t.reshape(-1, th, t.shape[1] // tw, tw).amax((1, 3)) > 0
+
     total = tiles = 0
+    base_any = per_tile(torch.zeros_like(pok))
     for oi in range(fields["w0"].shape[0]):
         avg = box[0, oi] / k1.KPC
         sd = torch.sqrt(torch.clamp(box[1, oi] / k1.KPC - avg * avg, min=0.0))
@@ -369,9 +384,9 @@ def sweep_evaluations(fields: dict, axis, corridor_size, window, h2, w2,
         for u in range(-window, window + 1):
             sh = {
                 "vert": (k1.shift(planes, u, -2),
-                         (rows + u >= k1.KS) & (rows + u < h - k1.KS)),
+                         (rows + u >= ks) & (rows + u < h - ks)),
                 "horiz": (k1.shift(planes, u, -1),
-                          (cols + u >= k1.KS) & (cols + u < w - k1.KS)),
+                          (cols + u >= ks) & (cols + u < w - ks)),
             }
             if axis is None:
                 sl = torch.where(vert_b, sh["vert"][0], sh["horiz"][0])
@@ -385,25 +400,55 @@ def sweep_evaluations(fields: dict, axis, corridor_size, window, h2, w2,
                 off if is_vert else cen)
             qy = torch.where(is_vert, cen, off) if axis is None else (
                 cen if is_vert else off)
+            base = src_ok & pok & (cen >= fields["start"]) & (cen < fields["end"])
+            if axis is None:
+                # The masks that hold for every stripe, as the kernel's
+                # first vote tests them.
+                base &= ((vert_u > 0.5) == vert_b) & (cen >= ks) & (
+                    cen < torch.where(vert_b, h2, w2) - ks)
+                if oi == 0:
+                    base_any |= per_tile(base)
             ok = (
-                src_ok & pok
-                & (qx >= k1.KS) & (qx < w2 - k1.KS)
-                & (qy >= k1.KS) & (qy < h2 - k1.KS)
-                & (cen >= fields["start"]) & (cen < fields["end"])
+                base
+                & (qx >= ks) & (qx < w2 - ks)
+                & (qy >= ks) & (qy < h2 - ks)
                 & (sd_u >= min_stdev)
             )
-            if axis is None:
-                ok &= (vert_u > 0.5) == vert_b
             total += int(ok.sum())
-            if axis is not None:
-                t = torch.nn.functional.pad(ok.float(), pad)
-                tiles += int((t.reshape(-1, th, t.shape[1] // tw, tw).amax((1, 3)) > 0).sum())
-    return total, tiles
+            tiles += int(per_tile(ok).sum())
+    out = {"n_eval": total, "tile_votes": tiles}
+    if axis is None:
+        # Axes among each tile's elements inside the plane: zero padding
+        # adds neither.
+        pad_e = (ks, ks + pad[1], ks, ks + pad[3])
+        kern = (th + 2 * ks, tw + 2 * ks)
+        has = [F.max_pool2d(F.pad(m.float(), pad_e)[None, None], kern, (th, tw))[0, 0] > 0
+               for m in (vert_b, ~vert_b)]
+        bands = has[0].int() + has[1].int()
+        out["tiles_one_band"] = int(((bands == 1) & base_any).sum())
+        out["tiles_two_bands"] = int(((bands == 2) & base_any).sum())
+        out["tiles"] = bands.numel()
+    return out
+
+
+def mixed_axes(fields: dict, kind: str, block: int = 64) -> dict:
+    """The fields with the per-pixel axis set per pixel: vertical on a
+    checkerboard of `block`-pixel squares, or below the diagonal from the
+    top-left corner to the bottom-right one."""
+    import torch
+
+    h, w = fields["avg1"].shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    vert = (yy // block + xx // block) % 2 if kind == "checker" else xx * h > yy * w
+    return dict(fields, vert=torch.as_tensor(vert.astype(np.float32),
+                                             device=fields["avg1"].device))
 
 
 def check_sweep(fields: dict, axis, kw: dict, reps: int, label: str = "") -> dict:
-    """K1 against its plain version on the same fields; reps > 0 also
-    times both and states the bound."""
+    """K1 against its plain version on the same fields: the per-pixel form
+    bit for bit, the static forms within K1's tolerances; reps > 0 also
+    times both and states the bound. The per-pixel form prints its tile
+    votes and the tiles that stage one band of w0 or two."""
     import torch
 
     from cybervision_tpu_torch.ops import ncc_sweep as k1
@@ -425,41 +470,48 @@ def check_sweep(fields: dict, axis, kw: dict, reps: int, label: str = "") -> dic
     h, w = fields["avg1"].shape
     name = f"{axis or 'per-pixel'}{label}"
     if not (flip < SWEEP_FLIP_MAX and err <= SWEEP_CORR_ATOL
-            and pos_eq > SWEEP_POS_EQ_MIN):
+            and pos_eq > SWEEP_POS_EQ_MIN) or (axis is None and not exact):
         raise AssertionError(
             f"K1 {name}: valid flips {flip:.5f}, corr err {err:.3g},"
-            f" positions equal {pos_eq:.5f}"
+            f" positions equal {pos_eq:.5f}, bit-equal {exact}"
         )
+    votes = ""
+    if reps or axis is None:
+        ev = sweep_evaluations(
+            fields, axis, kw["corridor_size"], kw["window"], kw["h2"], kw["w2"],
+            kw["min_stdev"],
+        )
+        th, tw = k1.TILES[axis]
+        votes = (f"; evaluated hypotheses {ev['n_eval']}, tile votes passed"
+                 f" {ev['tile_votes']}, i.e. {ev['tile_votes'] * th * tw}"
+                 f" pixel-hypotheses computed"
+                 f" ({ev['tile_votes'] * th * tw / max(ev['n_eval'], 1):.2f}x the evaluated ones)")
+        if axis is None:
+            votes += (f"; tiles staging one band {ev['tiles_one_band']}, two bands"
+                      f" {ev['tiles_two_bands']}, of {ev['tiles']}")
     if not reps:
         print(f"K1 {name} at {h}x{w}, window {kw['window']}: valid"
               f" {valid_share:.4f}, flips {flip:.6f}, max|dcorr| {err:.3g},"
-              f" positions equal {pos_eq:.6f}, bit-equal {exact}")
+              f" positions equal {pos_eq:.6f}, bit-equal {exact}{votes}")
         return {"err": err, "exact": exact, "valid_share": valid_share}
     ms = cuda_ms(lambda: k1.ncc_sweep(*args, axis=axis, **kw), reps)
     plain_ms = cuda_ms(lambda: k1.ncc_sweep_plain(*args, axis=axis, **kw), 1)
-    n_eval, n_tiles = sweep_evaluations(
-        fields, axis, kw["corridor_size"], kw["window"], kw["h2"], kw["w2"],
-        kw["min_stdev"],
-    )
     n_o = fields["w0"].shape[0]
     # Inputs read once (the vert plane only by the per-pixel form), three
     # outputs written once.
     n_planes = 9 + (axis is None) + n_o + 3
     n_bytes = 4.0 * h * w * n_planes
-    n_ops = SWEEP_OPS_PER_EVAL * n_eval + 41.0 * n_o * h * w
+    n_ops = SWEEP_OPS_PER_EVAL * ev["n_eval"] + 41.0 * n_o * h * w
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     print(
         f"K1 {name}: valid {valid_share:.4f}, flips {flip:.6f},"
         f" max|dcorr| {err:.3g}, positions equal {pos_eq:.6f}, bit-equal"
         f" {exact}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms,"
-        f" evaluated hypotheses {n_eval}, bound {b_ms:.4f} ms ({b_by})"
-        + (f"; tile votes passed {n_tiles}, i.e. {n_tiles * 4 * k1.TILE_THREADS}"
-           f" pixel-hypotheses computed ({n_tiles * 4 * k1.TILE_THREADS / n_eval:.2f}x"
-           f" the evaluated ones)" if n_tiles else "")
+        f" bound {b_ms:.4f} ms ({b_by}){votes}"
     )
     return {"err": err, "exact": exact, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "valid_share": valid_share,
-            "n_eval": n_eval, "fields": fields, "axis": axis}
+            "n_eval": ev["n_eval"], "fields": fields, "axis": axis}
 
 
 def sweep_case(device, axis: str, h: int, w: int, window: int | None = None):
@@ -499,8 +551,6 @@ def sweep_case(device, axis: str, h: int, w: int, window: int | None = None):
 
 
 def phase_sweep(device) -> dict:
-    import torch
-
     out = {}
     for axis in ("horiz", "vert"):
         fields, kw = sweep_case(device, axis, SIZE, SIZE)
@@ -512,26 +562,26 @@ def phase_sweep(device) -> dict:
             # vertical on a checkerboard of 64-pixel blocks, so the kernel
             # chooses the sweep axis per pixel, per window element, and
             # rejects hypotheses sourced across an axis boundary.
-            yy, xx = np.mgrid[0:SIZE, 0:SIZE]
-            checker = ((yy // 64 + xx // 64) % 2).astype(np.float32)
-            mixed = dict(fields, vert=torch.as_tensor(checker, device=device))
-            out["per-pixel"] = check_sweep(mixed, None, kw, reps=3)
+            out["per-pixel"] = check_sweep(mixed_axes(fields, "checker"), None, kw, reps=3)
     return out
 
 
 def phase_sweep_wide(device, mesh) -> list[dict]:
-    """K1's static forms at 1024x1024 and window 192, which sweep each
-    stripe's offsets in two chunks: bit-equal to the plain version and
-    timed; then the row-halo form (K1s) at 192 over the mesh, bit-equal
-    to its plain version and to the unsharded kernel."""
+    """K1's three forms at 1024x1024 and window 192, which sweep each
+    stripe's offsets in chunks (the per-pixel form on phase 2's
+    checkerboard of axes): bit-equal to the plain version and timed;
+    then the row-halo form (K1s) at 192 over the mesh, bit-equal to its
+    plain version and to the unsharded kernel."""
     from cybervision_tpu_torch.ops import ncc_sweep as k1
 
     res = []
-    for axis in ("horiz", "vert"):
-        fields, kw = sweep_case(device, axis, SIZE, SIZE, WIDE_WINDOW)
+    for axis in ("horiz", "vert", None):
+        fields, kw = sweep_case(device, axis or "horiz", SIZE, SIZE, WIDE_WINDOW)
+        if axis is None:
+            fields = mixed_axes(fields, "checker")
         chunks = k1.sweep_tile_plan(SIZE, SIZE, WIDE_WINDOW, axis)["chunks"]
         r = check_sweep(fields, axis, kw, reps=3, label=f" at window {WIDE_WINDOW}")
-        print(f"K1 {axis} at window {WIDE_WINDOW}: chunks {chunks}")
+        print(f"K1 {axis or 'per-pixel'} at window {WIDE_WINDOW}: chunks {chunks}")
         if not r["exact"]:
             raise AssertionError(f"K1 {axis} at window {WIDE_WINDOW}: not bit-equal to the plain version")
         res.append(r)
@@ -544,12 +594,15 @@ def phase_sweep_wide(device, mesh) -> list[dict]:
 
 
 def phase_sweep_awkward(device) -> list[dict]:
-    """The static forms off the tile grid (999x777) and at the window
-    buckets' ends (8 and 128, on a 300x280 plane): checked, not timed."""
+    """K1's three forms off the tile grid (999x777) and at the window
+    buckets' ends (8 and 128, on a 300x280 plane), the per-pixel form with
+    its axis flipping across the diagonal: checked, not timed."""
     res = []
-    for axis in ("horiz", "vert"):
+    for axis in ("horiz", "vert", None):
         for h, w, window in ((999, 777, None), (300, 280, 8), (300, 280, 128)):
-            fields, kw = sweep_case(device, axis, h, w, window)
+            fields, kw = sweep_case(device, axis or "horiz", h, w, window)
+            if axis is None:
+                fields = mixed_axes(fields, "diagonal")
             res.append(check_sweep(fields, axis, kw, 0))
     return res
 
@@ -929,10 +982,10 @@ def check_sweep_sharded(mesh, swept: dict, kw: dict, reps: int) -> dict:
         if bool(both.any()) else 1.0
     )
     if not (flip < SWEEP_FLIP_MAX and err <= SWEEP_CORR_ATOL
-            and pos_eq > SWEEP_POS_EQ_MIN):
+            and pos_eq > SWEEP_POS_EQ_MIN) or (axis is None and not exact):
         raise AssertionError(
             f"K1s {name} vs plain: valid flips {flip:.5f}, corr err {err:.3g},"
-            f" positions equal {pos_eq:.5f}"
+            f" positions equal {pos_eq:.5f}, bit-equal {exact}"
         )
     ms = mesh_ms(lambda: k1.ncc_sweep_sharded(mesh, *args, axis=axis, **kw), mesh, reps)
     plain_ms = mesh_ms(
@@ -1676,7 +1729,7 @@ def perspective_runs(label: str, views, cfg, out: str, counters, warm: int,
     dev_ms = {name: sum(v for k, v in durs.items() if any(n in k for n in keys)) / 1e3
               for name, keys in KERNEL_NAMES.items()}
     dev_ms["ncc_sweep_pixel"] = sum(
-        v for k, v in durs.items() if "sweep_pixel_kernel" in k or "box_sums_kernel" in k) / 1e3
+        v for k, v in durs.items() if "sweep_pixel_tile_kernel" in k) / 1e3
     top = sorted(durs.items(), key=lambda kv: -kv[1])[:8]
     print(f"{label}: device time by kernel (top 8, ms):"
           f" {json.dumps({k[:100]: round(v / 1e3, 3) for k, v in top})};"
@@ -2045,6 +2098,12 @@ def main() -> int:
         f"device_ms_per_run_{key}_per_pixel": r["device_ms"]["ncc_sweep_pixel"]
         for key, r in (("full_width", full), ("diagonal", diag))
     })
+    # The per-pixel form at 1024x1024 (phase 2's checkerboard of axes),
+    # for K1 and over the mesh for K1s; "*_perspective" above is K1's
+    # per-pixel form on the diagonal run's finest fields.
+    for rec, r in ((kernels_line["kernels"][0], sweep["per-pixel"]),
+                   (kernels_line["kernels"][3], sharded["per-pixel"])):
+        rec.update({f"per_pixel_{k}": r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
     print(f"end-to-end seconds (warm, best of 3): {e2e['seconds']:.4f} on one"
           f" card, {e2e_mesh['seconds']:.4f} over {mesh.describe()}; RANSAC"
           f" of all 20 rounds {ransac_full['seconds']:.4f} s; one round's draws"

@@ -16,7 +16,8 @@
 // the affine main path runs. Axis 0 chooses per pixel from the vert field,
 // rejects hypotheses whose source pixel has the other axis, and picks the
 // warp shift per window element by that element's own axis (the per-pixel
-// form of refine_pass, off the affine main path).
+// form of refine_pass: the perspective path's, wherever the epipolar lines
+// cross the image at an angle).
 //
 // Row-halo form (K1s, replaces the row_halo=True use of _sweep_kernel by
 // pallas_ncc.py:ncc_sweep_sharded): a row shard of a larger image, whose
@@ -47,7 +48,7 @@
 //   w0[o] that the tile's shifts by u0..u1 read (the tile widened by
 //   [u0, u1] along the sweep axis, +- KS around it), the warp's 11x11
 //   box sums over the band (row sums in dx order into a scratch plane,
-//   then column sums in dy order: box_sums_kernel's and _box11's order),
+//   then column sums in dy order: _box11's order),
 //   and per q of the band the candidate fields: center (NaN where q fails
 //   a mask that does not depend on p — source band, candidate bounds,
 //   min_stdev — so one compare rejects it), floor(coeff*center + add) + o,
@@ -75,9 +76,45 @@
 // wrapper's plan (ops.ncc_sweep.sweep_tile_plan) mirrors layout() below,
 // and a launch whose byte count disagrees with it is refused.
 //
-// The per-pixel form (sweep_pixel_kernel) is the earlier design, one
-// thread per pixel reading its 11x11 operands through L1/L2, with the
-// warp's box sums from box_sums_kernel.
+// The per-pixel form (sweep_pixel_tile_kernel). What bounds it is the same
+// 21 operations per evaluated hypothesis; a thread per pixel reading its
+// 121 window elements through L1/L2 would spend 363 loads and a 121-long
+// dependent chain on each, compute every product again for each of the
+// 121 pixels that share it, and diverge on every mask. The tiled design
+// rests on one fact of the plain version: the warp of window
+// element (y, x) follows that element's axis, not the scored pixel's, so
+// for each (o, u) ONE product plane img1 * warp_u serves every pixel of a
+// tile whatever its axis, and its 11x11 sums are separable as in the
+// static forms. Only the candidate fields a pixel reads differ: a "vert"
+// pixel reads q = p + u down the rows, a "horiz" one along the columns.
+// One block of 256 threads per 32x32 output tile (square: the bands grow
+// along both axes), four pixels a thread, the carry in registers:
+// - once: img1 and the element axes over the tile +- KS; vote 1 (which
+//   axes occur among those elements: which bands of w0 the product plane
+//   reads); vote 2 (per axis, the smallest and largest offset any pixel
+//   of that axis can admit, from the masks that hold for every stripe —
+//   source band, vert(q) == vert(p), the centre's own bound, the
+//   corridor). The sweep covers only [lo, hi] of the union: on a scene
+//   whose corridors are narrow, the bands shrink with it.
+// - per stripe and chunk of [lo, hi]: the row band of w0 (the tile +- KS
+//   widened by the chunk down the rows) if a "vert" element reads it, the
+//   column band (widened along the columns) if a "horiz" one does; for
+//   each axis whose pixels can admit an offset of the chunk, the warp's
+//   box sums over its band and its per-q planes, with the centre NaN where
+//   q fails a mask that does not depend on p — including the axis gate,
+//   vert(q) false in the row band and true in the column band.
+// - per offset u: the block vote on whether any pixel admits (o, u) from
+//   its own axis's planes; then the one product plane's row sums (element
+//   by element from the band of its axis; a tile whose elements share one
+//   axis reads that band alone) and per pixel the column sum, the
+//   normalisation and the carry, as in the static forms.
+// The rounding is the static forms', so the per-pixel kernel too equals
+// the plain version bit for bit, and a uniform vert field gives the static
+// kernel's result. Its plan (sweep_tile_plan(h, w, window, None)) keeps a
+// chunk within 113 KB, two blocks per SM; pixel_layout() mirrors it and a
+// launch whose byte count disagrees is refused. Reading the warp's box
+// sums from planes made by a separate pass, instead of summing the band,
+// was measured slower on the H100 and is not kept.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -90,22 +127,77 @@ constexpr int kTileThreads = 256;
 constexpr int kPix = 4;   // pixels per thread: 4 neighbouring rows of a column
 constexpr int kRun = 4;   // row sums per work item of the row-sum phase
 constexpr int kMaxSmem = 232448;
+constexpr float kInvKpc = (float)(1.0 / 121.0);  // 1 / (11 * 11)
 
 // Field pointers address local row 0: a haloed field's rows -m..h+m-1
-// are reachable with negative row indices. w0, sw and sww hold n_o
-// planes of h + 2 * m_w0 rows each.
+// are reachable with negative row indices. w0 holds n_o planes of
+// h + 2 * m_w0 rows each.
 struct SweepArgs {
   const float *img1, *vert, *center, *coeff, *add, *avg1, *isd1, *start,
-      *end, *pok, *w0, *sw, *sww;
+      *end, *pok, *w0;
   float* out_corr;
   int32_t *out_x, *out_y;
   int h, w, n_o, corridor_size, window, h2, w2;
-  int chunk;   // offsets per chunk of the static forms' sweep
+  int chunk;   // offsets per chunk of the sweep
   // Halo rows above and below img1, vert/center/coeff/add and w0.
   int m_img, m_f, m_w0;
   int row0_g, h_total;   // global row of local row 0; global height
   float threshold, min_stdev;
 };
+
+// The warp's box statistics, shared by every form: the plain version's
+// _box11 order on a band staged in shared memory.
+
+// Warp mean and deviation from an 11x11 box sum of w0 and of w0^2.
+__device__ __forceinline__ void warp_stats(float s, float ss, float& avg_w,
+                                           float& sd_w) {
+  avg_w = __fmul_rn(s, kInvKpc);
+  const float var_w = fmaxf(
+      __fsub_rn(__fmul_rn(ss, kInvKpc), __fmul_rn(avg_w, avg_w)), 0.f);
+  sd_w = __fsqrt_rn(var_w);
+}
+
+// The NCC of a pixel's 11x11 window product sum `cross`, normalised by
+// img1's mean and inverse deviation at p and the warp's at q.
+__device__ __forceinline__ float ncc(float cross, float avg1, float isd1,
+                                     float avg_w, float sd_w) {
+  return __fdiv_rn(__fmul_rn(__fsub_rn(__fmul_rn(cross, kInvKpc),
+                                       __fmul_rn(avg1, avg_w)),
+                             isd1),
+                   fmaxf(sd_w, 1e-12f));
+}
+
+// 11-wide row sums (dx order) of w0 and w0^2 over `rows` rows and `cols`
+// columns of a band, into t_s / t_ss with pitch tp.
+__device__ __forceinline__ void band_row_sums(const float* band, int bp,
+                                              int rows, int cols, float* t_s,
+                                              float* t_ss, int tp, int tid) {
+  for (int i = tid; i < rows * cols; i += kTileThreads) {
+    const int jy = i / cols, bj = i % cols;
+    const float* row = band + jy * bp + bj;
+    float s = row[0], ss = __fmul_rn(row[0], row[0]);
+#pragma unroll
+    for (int d = 1; d <= 2 * KS; ++d) {
+      s = __fadd_rn(s, row[d]);
+      ss = __fadd_rn(ss, __fmul_rn(row[d], row[d]));
+    }
+    t_s[jy * tp + bj] = s;
+    t_ss[jy * tp + bj] = ss;
+  }
+}
+
+// 11-tall column sums (dy order) of t_s / t_ss at (bi, bj).
+__device__ __forceinline__ void box_at(const float* t_s, const float* t_ss,
+                                       int tp, int bi, int bj, float& s,
+                                       float& ss) {
+  s = t_s[bi * tp + bj];
+  ss = t_ss[bi * tp + bj];
+#pragma unroll
+  for (int d = 1; d <= 2 * KS; ++d) {
+    s = __fadd_rn(s, t_s[(bi + d) * tp + bj]);
+    ss = __fadd_rn(ss, t_ss[(bi + d) * tp + bj]);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Static forms: shared-memory tiles.
@@ -174,7 +266,6 @@ sweep_tile_kernel(SweepArgs a) {
   const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
   const int tid = threadIdx.x;
   const int px = tid % TW, py0 = (tid / TW) * kPix;
-  const float inv_kpc = (float)(1.0 / 121.0);
 
   float best[kPix], avg1[kPix], isd1[kPix], st[kPix], en[kPix];
   int best_x[kPix], best_y[kPix];
@@ -216,36 +307,17 @@ sweep_tile_kernel(SweepArgs a) {
                       ? w0[(long)y * w + x] : 0.f;
       }
       __syncthreads();
-      // Warp box statistics over the band: 11-wide row sums (dx order) of
-      // w0 and w0^2, then 11-tall column sums (dy order).
+      // Warp box statistics over the band.
       float* t_s = s_tmp;
       float* t_ss = s_tmp + L.wr * L.bp;
-      for (int i = tid; i < L.wr * L.bc; i += kTileThreads) {
-        const int jy = i / L.bc, bj = i % L.bc;
-        const float* row = s_w0 + jy * L.wp + bj;
-        float s = row[0], ss = __fmul_rn(row[0], row[0]);
-#pragma unroll
-        for (int d = 1; d <= 2 * KS; ++d) {
-          s = __fadd_rn(s, row[d]);
-          ss = __fadd_rn(ss, __fmul_rn(row[d], row[d]));
-        }
-        t_s[jy * L.bp + bj] = s;
-        t_ss[jy * L.bp + bj] = ss;
-      }
+      band_row_sums(s_w0, L.wp, L.wr, L.bc, t_s, t_ss, L.bp, tid);
       __syncthreads();
       // Per q of the band: the candidate fields of stripe o.
       for (int i = tid; i < L.br * L.bc; i += kTileThreads) {
         const int bi = i / L.bc, bj = i % L.bc;
-        float s = t_s[bi * L.bp + bj], ss = t_ss[bi * L.bp + bj];
-#pragma unroll
-        for (int d = 1; d <= 2 * KS; ++d) {
-          s = __fadd_rn(s, t_s[(bi + d) * L.bp + bj]);
-          ss = __fadd_rn(ss, t_ss[(bi + d) * L.bp + bj]);
-        }
-        const float avg_w = __fmul_rn(s, inv_kpc);
-        const float var_w = fmaxf(
-            __fsub_rn(__fmul_rn(ss, inv_kpc), __fmul_rn(avg_w, avg_w)), 0.f);
-        const float sd_w = __fsqrt_rn(var_w);
+        float s, ss, avg_w, sd_w;
+        box_at(t_s, t_ss, L.bp, bi, bj, s, ss);
+        warp_stats(s, ss, avg_w, sd_w);
         const int qr = r0 + dy + bi, qc = c0 + dx + bj;
         const int src = kVert ? a.row0_g + qr : qc;
         const int dim = kVert ? a.h_total : w;
@@ -312,11 +384,7 @@ sweep_tile_kernel(SweepArgs a) {
 #pragma unroll
           for (int d = 1; d <= 2 * KS; ++d) cross = __fadd_rn(cross, rsv[k + d]);
           const int b = b0 + k * L.bp;
-          const float corr = __fdiv_rn(
-              __fmul_rn(__fsub_rn(__fmul_rn(cross, inv_kpc),
-                                  __fmul_rn(avg1[k], s_avg[b])),
-                        isd1[k]),
-              fmaxf(s_sd[b], 1e-12f));
+          const float corr = ncc(cross, avg1[k], isd1[k], s_avg[b], s_sd[b]);
           if (corr >= a.threshold && corr > best[k]) {
             best[k] = corr;
             const float cen = s_cen[b], off = s_off[b];
@@ -341,139 +409,359 @@ sweep_tile_kernel(SweepArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// Per-pixel form: one thread per pixel.
+// Per-pixel form: shared-memory tiles over both epipolar axes.
 
-// 11x11 window sums of every stripe's warp, zero outside the plane; rows
-// of column sums, each summed in increasing offset order. The row-halo
-// form passes the haloed plane (h + 2 * m_w0 rows): the sums a shard's
-// sweep reads lie within `window` rows of it and see only stored rows.
-__global__ void box_sums_kernel(const float* __restrict__ w0, int n_o, int h,
-                                int w, float* __restrict__ sw,
-                                float* __restrict__ sww) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long plane = (long)h * w;
-  if (idx >= (long)n_o * plane) return;
-  const int c = (int)(idx % w);
-  const int r = (int)((idx / w) % h);
-  const float* p = w0 + (idx / plane) * plane;
-  float s = 0.f, ss = 0.f;
-  for (int dy = -KS; dy <= KS; ++dy) {
-    const int y = r + dy;
-    float rs = 0.f, rss = 0.f;
-    if (y >= 0 && y < h) {
-      for (int dx = -KS; dx <= KS; ++dx) {
-        const int x = c + dx;
-        const float v = (x >= 0 && x < w) ? p[(long)y * w + x] : 0.f;
-        rs = __fadd_rn(rs, v);
-        rss = __fadd_rn(rss, __fmul_rn(v, v));
+constexpr int PTH = 32, PTW = 32;  // output tile of the per-pixel form
+
+// Shared-memory layout of one per-pixel block, in floats, for a chunk of
+// span + 1 offsets. ops.ncc_sweep's sweep_tile_plan computes the same
+// numbers. Both bands hold the tile +- KS: the row band (read by "vert"
+// elements) widened by span rows, the column band ("horiz" elements) by
+// span columns. Each band has four per-q planes (centre, offset, warp
+// mean, warp deviation) for the pixels of its axis: (PTH + span) x PTW
+// for the row band, PTH x (PTW + span) for the column band.
+struct PixLayout {
+  int ip, ir;   // img1 and element-axis tile: pitch, rows (tile +- KS)
+  int rwp;      // row band of w0: pitch (rows ir + span)
+  int cwp;      // column band of w0: pitch (rows ir)
+  int rqr;      // row band's per-q planes: rows (pitch PTW)
+  int cqp;      // column band's per-q planes: pitch (rows PTH)
+  int o_sel, o_rw, o_cw, o_rq, o_cq, o_tmp, total;
+};
+
+__host__ __device__ inline PixLayout pixel_layout(int span) {
+  PixLayout L;
+  L.ir = PTH + 2 * KS;
+  L.ip = PTW + 2 * KS;
+  L.rwp = L.ip;
+  L.cwp = L.ip + span;
+  L.rqr = PTH + span;
+  L.cqp = PTW + span;
+  const int img = L.ir * L.ip;
+  L.o_sel = img;                          // one byte per element
+  L.o_rw = L.o_sel + (img + 3) / 4;
+  L.o_cw = L.o_rw + (L.ir + span) * L.rwp;
+  L.o_rq = L.o_cw + L.ir * L.cwp;
+  L.o_cq = L.o_rq + 4 * L.rqr * PTW;
+  L.o_tmp = L.o_cq + 4 * PTH * L.cqp;
+  // Scratch: the box row sums of one band (w0 and w0^2), later the
+  // product plane's row sums.
+  const int box_r = 2 * (L.ir + span) * PTW, box_c = 2 * L.ir * L.cqp;
+  const int rs = L.ir * PTW;
+  const int m = box_r > box_c ? box_r : box_c;
+  L.total = L.o_tmp + (m > rs ? m : rs);
+  return L;
+}
+
+// The masks of hypothesis u at pixel (r, c) that depend on no stripe:
+// the source band, the axis gate vert(q) == vert(p), the centre's own
+// candidate bound and the corridor. Every stripe's admission implies it.
+// Branch-free (a q outside the source band reads p's own fields), so an
+// unrolled scan keeps several offsets' loads in flight.
+__device__ __forceinline__ bool admits_some_stripe(const SweepArgs& a, int r,
+                                                   int c, bool vp, int u,
+                                                   float st, float en) {
+  const int g = vp ? a.row0_g + r + u : c + u;
+  const bool src = g >= KS && g < (vp ? a.h_total : a.w) - KS;
+  const long q = src ? (vp ? (long)(r + u) * a.w + c : (long)r * a.w + c + u)
+                     : (long)r * a.w + c;
+  const bool vq = __ldg(a.vert + q) > 0.5f;
+  const float cen = __ldg(a.center + q);
+  const float lim = (float)((vp ? a.h2 : a.w2) - KS);
+  return src && vq == vp && cen >= st && cen < en && cen >= (float)KS &&
+         cen < lim;
+}
+
+// Row sums of the product plane img1 * warp_u over the tile's rows +- KS,
+// each work item four neighbouring sums from 14 products held in
+// registers. Element (y, x) takes w0 shifted by u along its own axis: the
+// row band one row further per offset, the column band one column.
+// kMode 1: every element reads the row band, 2: the column band, 3: the
+// band of its own axis (s_sel).
+template <int kMode>
+__device__ __forceinline__ void product_row_sums(
+    const PixLayout& L, const float* s_img, const unsigned char* s_sel,
+    const float* s_rw, const float* s_cw, float* s_rs, int du, int tid) {
+  constexpr int kItemsPerRow = PTW / kRun;
+  for (int i = tid; i < L.ir * kItemsPerRow; i += kTileThreads) {
+    const int iy = i / kItemsPerRow, x0 = (i % kItemsPerRow) * kRun;
+    const float* im = s_img + iy * L.ip + x0;
+    const float* rw = s_rw + (iy + du) * L.rwp + x0;
+    const float* cw = s_cw + iy * L.cwp + x0 + du;
+    const unsigned char* sel = s_sel + iy * L.ip + x0;
+    float prod[kRun + 2 * KS];
+#pragma unroll
+    for (int j = 0; j < kRun + 2 * KS; ++j) {
+      const float wv = kMode == 1 ? rw[j] : kMode == 2 ? cw[j]
+                                          : (sel[j] ? rw[j] : cw[j]);
+      prod[j] = __fmul_rn(im[j], wv);
+    }
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+      float s = prod[r];
+#pragma unroll
+      for (int d = 1; d <= 2 * KS; ++d) s = __fadd_rn(s, prod[r + d]);
+      s_rs[iy * PTW + x0 + r] = s;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTileThreads, 2)
+sweep_pixel_tile_kernel(SweepArgs a) {
+  extern __shared__ float sm[];
+  __shared__ int s_lo[2], s_hi[2];
+  __shared__ unsigned s_flags;
+  const PixLayout L = pixel_layout(a.chunk - 1);
+  float* s_img = sm;
+  unsigned char* s_sel = reinterpret_cast<unsigned char*>(sm + L.o_sel);
+  float* s_rw = sm + L.o_rw;
+  float* s_cw = sm + L.o_cw;
+  float* s_rq = sm + L.o_rq;   // centre, offset, mean, deviation planes
+  float* s_cq = sm + L.o_cq;
+  float* s_tmp = sm + L.o_tmp;  // box row sums; then the row-sum plane
+  float* s_rs = s_tmp;
+  const int rq_n = L.rqr * PTW, cq_n = PTH * L.cqp;
+  const int h = a.h, w = a.w, win = a.window;
+  const int r0 = blockIdx.y * PTH, c0 = blockIdx.x * PTW;
+  const int tid = threadIdx.x;
+  const int px = tid % PTW, py0 = (tid / PTW) * kPix;
+
+  float best[kPix], avg1[kPix], isd1[kPix], st[kPix], en[kPix];
+  int best_x[kPix], best_y[kPix];
+  unsigned pok = 0, vmask = 0;
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int r = r0 + py0 + k, c = c0 + px;
+    best[k] = -CUDART_INF_F;
+    best_x[k] = best_y[k] = 0;
+    avg1[k] = isd1[k] = st[k] = en[k] = 0.f;
+    if (r < h && c < w) {
+      const long p = (long)r * w + c;
+      if (a.pok[p] > 0.5f) pok |= 1u << k;
+      if (a.vert[p] > 0.5f) vmask |= 1u << k;
+      avg1[k] = a.avg1[p];
+      isd1[k] = a.isd1[p];
+      st[k] = a.start[p];
+      en[k] = a.end[p];
+    }
+  }
+  if (tid == 0) {
+    s_lo[0] = s_lo[1] = win + 1;
+    s_hi[0] = s_hi[1] = -win - 1;
+    s_flags = 0;
+  }
+
+  // img1 and the element axes over the tile +- KS. Vote 1: which axes
+  // occur among the elements inside img1's extent (bit 0 "vert", bit 1
+  // "horiz"), i.e. which bands of w0 the product plane reads.
+  unsigned flags = 0;
+  for (int i = tid; i < L.ir * L.ip; i += kTileThreads) {
+    const int y = r0 - KS + i / L.ip, x = c0 - KS + i % L.ip;
+    float v = 0.f;
+    bool ve = false;
+    if (y >= -a.m_img && y < h + a.m_img && x >= 0 && x < w) {
+      const long e = (long)y * w + x;
+      v = __ldg(a.img1 + e);
+      ve = __ldg(a.vert + e) > 0.5f;
+      flags |= ve ? 1u : 2u;
+    }
+    s_img[i] = v;
+    s_sel[i] = ve;
+  }
+  // Vote 2: the offsets the tile's pixels of each axis can admit, from the
+  // masks that hold for every stripe. A pixel tests only the offsets
+  // outside the range its thread has found so far for its axis.
+  int lo[2] = {win + 1, win + 1}, hi[2] = {-win - 1, -win - 1};
+  for (int k = 0; k < kPix; ++k) {
+    if (!(pok >> k & 1u)) continue;
+    const bool vp = vmask >> k & 1u;
+    const int ax = vp ? 0 : 1, r = r0 + py0 + k, c = c0 + px;
+    const int l0 = lo[ax], h0 = hi[ax];
+    int l = l0, hh = h0;
+#pragma unroll 4
+    for (int u = -win; u <= win; ++u) {
+      if (u >= l0 && u <= h0) continue;
+      if (admits_some_stripe(a, r, c, vp, u, st[k], en[k])) {
+        l = min(l, u);
+        hh = max(hh, u);
       }
     }
-    s = __fadd_rn(s, rs);
-    ss = __fadd_rn(ss, rss);
+    lo[ax] = l;
+    hi[ax] = hh;
   }
-  sw[idx] = s;
-  sww[idx] = ss;
-}
-
-// 11x11 sum of img1 * warp around pixel (r, c) for the hypothesis shifted
-// by u, rows of column products first, each in increasing offset order.
-// Values outside a field's (haloed) extent read as zero, like the Pallas
-// kernel's zero padding; kBounded = false skips img1's tests for a pixel
-// whose whole window lies inside the image (every pixel p_ok admits on the
-// main path). vert shares img1's test: its halo is at least as deep.
-template <bool kBounded>
-__device__ __forceinline__ float cross_sum(const SweepArgs& a,
-                                           const float* __restrict__ w0,
-                                           int r, int c, int u) {
-  const int w = a.w, h = a.h;
-  float cross = 0.f;
-  for (int dy = -KS; dy <= KS; ++dy) {
-    float rs = 0.f;
-    const int y = r + dy;
-    for (int dx = -KS; dx <= KS; ++dx) {
-      const int x = c + dx;
-      const bool in = !kBounded ||
-                      (y >= -a.m_img && y < h + a.m_img && x >= 0 && x < w);
-      const float iv = in ? a.img1[(long)y * w + x] : 0.f;
-      // Warp element (y, x) is w0 shifted by u along the element's own
-      // epipolar axis.
-      const bool ve = in && a.vert[(long)y * w + x] > 0.5f;
-      const int wy = ve ? y + u : y;
-      const int wx = ve ? x : x + u;
-      const bool win = wy >= -a.m_w0 && wy < h + a.m_w0 && wx >= 0 && wx < w;
-      const float wv = win ? w0[(long)wy * w + wx] : 0.f;
-      rs = __fadd_rn(rs, __fmul_rn(iv, wv));
+  __syncthreads();
+#pragma unroll
+  for (int ax = 0; ax < 2; ++ax) {
+    if (lo[ax] <= hi[ax]) {
+      atomicMin(&s_lo[ax], lo[ax]);
+      atomicMax(&s_hi[ax], hi[ax]);
     }
-    cross = __fadd_rn(cross, rs);
   }
-  return cross;
-}
+  if (flags) atomicOr(&s_flags, flags);
+  __syncthreads();
+  const int lo_v = s_lo[0], hi_v = s_hi[0], lo_h = s_lo[1], hi_h = s_hi[1];
+  const int mode = s_flags & 3u;
+  const int lo_t = min(lo_v, lo_h), hi_t = max(hi_v, hi_h);
 
-__global__ void sweep_pixel_kernel(SweepArgs a) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= a.h || c >= a.w) return;
-  const int w = a.w, h = a.h;
-  const long p = (long)r * w + c;
-  float best = -CUDART_INF_F;
-  int best_x = 0, best_y = 0;
-  if (a.pok[p] > 0.5f) {
-    const bool vert_p = a.vert[p] > 0.5f;
-    const int rg = a.row0_g + r;
-    const bool interior =
-        rg >= KS && rg < a.h_total - KS && c >= KS && c < w - KS;
-    const float start = a.start[p], end = a.end[p];
-    const float avg1 = a.avg1[p], isd1 = a.isd1[p];
-    const float inv_kpc = (float)(1.0 / 121.0);
-    const long w0_plane = (long)(h + 2 * a.m_w0) * w;
-    for (int oi = 0; oi < a.n_o; ++oi) {
-      const float o_val = (float)(oi - a.corridor_size);
-      const float* w0 = a.w0 + (long)oi * w0_plane;
-      for (int u = -a.window; u <= a.window; ++u) {
-        const int qr = vert_p ? r + u : r;
-        const int qc = vert_p ? c : c + u;
-        const int src = vert_p ? a.row0_g + qr : qc;
-        const int dim = vert_p ? a.h_total : w;
-        if (src < KS || src >= dim - KS) continue;
-        const long q = (long)qr * w + qc;
-        if ((a.vert[q] > 0.5f) != vert_p) continue;
-        const float cen = a.center[q];
-        const float off =
-            floorf(__fadd_rn(__fmul_rn(a.coeff[q], cen), a.add[q])) + o_val;
-        const float qx = vert_p ? off : cen;
-        const float qy = vert_p ? cen : off;
-        if (!(qx >= (float)KS && qx < (float)(a.w2 - KS) && qy >= (float)KS &&
-              qy < (float)(a.h2 - KS)))
-          continue;
-        if (!(cen >= start && cen < end)) continue;
-        const long bq = (long)oi * w0_plane + q;
-        const float avg_w = __fmul_rn(a.sw[bq], inv_kpc);
-        const float var_w = fmaxf(
-            __fsub_rn(__fmul_rn(a.sww[bq], inv_kpc), __fmul_rn(avg_w, avg_w)),
-            0.f);
-        const float sd_w = __fsqrt_rn(var_w);
-        if (!(sd_w >= a.min_stdev)) continue;
-        // An interior p and the source band [KS, dim - KS) keep the whole
-        // shifted window inside the image, hence inside every halo.
-        const float cross = interior ? cross_sum<false>(a, w0, r, c, u)
-                                     : cross_sum<true>(a, w0, r, c, u);
-        const float corr = __fdiv_rn(
-            __fmul_rn(__fsub_rn(__fmul_rn(cross, inv_kpc),
-                                __fmul_rn(avg1, avg_w)),
-                      isd1),
-            fmaxf(sd_w, 1e-12f));
-        if (!(corr >= a.threshold)) continue;
-        if (corr > best) {
-          best = corr;
-          best_x = (int)qx;
-          best_y = (int)qy;
+  const long w0_plane = (long)(h + 2 * a.m_w0) * w;
+  // A tile whose pixels admit nothing (lo_t > hi_t) skips the sweep.
+  for (int oi = 0; oi < a.n_o && lo_t <= hi_t; ++oi) {
+    const float o_val = (float)(oi - a.corridor_size);
+    const float* w0 = a.w0 + oi * w0_plane;
+    for (int u0 = lo_t; u0 <= hi_t; u0 += a.chunk) {
+      const int u1 = min(hi_t, u0 + a.chunk - 1), span = u1 - u0;
+      // The per-q planes of an axis are staged only where a pixel of that
+      // axis can admit an offset of this chunk; the others sit it out.
+      const bool need_rq = lo_v <= u1 && hi_v >= u0;
+      const bool need_cq = lo_h <= u1 && hi_h >= u0;
+      if (!need_rq && !need_cq) continue;
+      const unsigned act = pok & ((need_rq ? vmask : 0u) | (need_cq ? ~vmask : 0u));
+      __syncthreads();  // the previous chunk's readers are done
+      if (mode & 1) {
+#pragma unroll 4
+        for (int i = tid; i < (L.ir + span) * L.rwp; i += kTileThreads) {
+          const int y = r0 - KS + u0 + i / L.rwp, x = c0 - KS + i % L.rwp;
+          s_rw[i] = (y >= -a.m_w0 && y < h + a.m_w0 && x >= 0 && x < w)
+                        ? __ldg(w0 + (long)y * w + x) : 0.f;
+        }
+      }
+      if (mode & 2) {
+        const int nc = L.ip + span;
+#pragma unroll 4
+        for (int i = tid; i < L.ir * nc; i += kTileThreads) {
+          const int iy = i / nc, ix = i % nc;
+          const int y = r0 - KS + iy, x = c0 - KS + u0 + ix;
+          s_cw[iy * L.cwp + ix] =
+              (y >= -a.m_w0 && y < h + a.m_w0 && x >= 0 && x < w)
+                  ? __ldg(w0 + (long)y * w + x) : 0.f;
+        }
+      }
+      __syncthreads();
+      if (need_rq) {
+        // q = p + u down the rows: (PTH + span) x PTW, box sums from the
+        // row band; NaN centre where q is no "vert" source of stripe o.
+        float* t_s = s_tmp;
+        float* t_ss = s_tmp + (L.ir + span) * PTW;
+        band_row_sums(s_rw, L.rwp, L.ir + span, PTW, t_s, t_ss, PTW, tid);
+        __syncthreads();
+#pragma unroll 2
+        for (int i = tid; i < (PTH + span) * PTW; i += kTileThreads) {
+          const int bi = i / PTW, bj = i % PTW;
+          float s, ss, avg_w, sd_w;
+          box_at(t_s, t_ss, PTW, bi, bj, s, ss);
+          warp_stats(s, ss, avg_w, sd_w);
+          const int qr = r0 + u0 + bi, qc = c0 + bj, src = a.row0_g + qr;
+          bool ok = qr >= -a.m_f && qr < h + a.m_f && qc < w && src >= KS &&
+                    src < a.h_total - KS;
+          float cen = CUDART_NAN_F, off = 0.f;
+          if (ok) {
+            const long q = (long)qr * w + qc;
+            cen = __ldg(a.center + q);
+            off = floorf(__fadd_rn(__fmul_rn(__ldg(a.coeff + q), cen),
+                                   __ldg(a.add + q))) + o_val;
+            ok = __ldg(a.vert + q) > 0.5f && off >= (float)KS &&
+                 off < (float)(a.w2 - KS) && cen >= (float)KS &&
+                 cen < (float)(a.h2 - KS) && sd_w >= a.min_stdev;
+          }
+          s_rq[i] = ok ? cen : CUDART_NAN_F;
+          s_rq[rq_n + i] = off;
+          s_rq[2 * rq_n + i] = avg_w;
+          s_rq[3 * rq_n + i] = sd_w;
+        }
+        if (need_cq) __syncthreads();  // the column band reuses the scratch
+      }
+      if (need_cq) {
+        // q = p + u along the columns: PTH x (PTW + span), box sums from
+        // the column band; NaN centre where q is no "horiz" source.
+        const int nq = PTW + span;
+        float* t_s = s_tmp;
+        float* t_ss = s_tmp + L.ir * L.cqp;
+        band_row_sums(s_cw, L.cwp, L.ir, nq, t_s, t_ss, L.cqp, tid);
+        __syncthreads();
+#pragma unroll 2
+        for (int i = tid; i < PTH * nq; i += kTileThreads) {
+          const int bi = i / nq, bj = i % nq;
+          float s, ss, avg_w, sd_w;
+          box_at(t_s, t_ss, L.cqp, bi, bj, s, ss);
+          warp_stats(s, ss, avg_w, sd_w);
+          const int qr = r0 + bi, qc = c0 + u0 + bj;
+          bool ok = qr >= -a.m_f && qr < h + a.m_f && qc >= KS && qc < w - KS;
+          float cen = CUDART_NAN_F, off = 0.f;
+          if (ok) {
+            const long q = (long)qr * w + qc;
+            cen = __ldg(a.center + q);
+            off = floorf(__fadd_rn(__fmul_rn(__ldg(a.coeff + q), cen),
+                                   __ldg(a.add + q))) + o_val;
+            ok = !(__ldg(a.vert + q) > 0.5f) && cen >= (float)KS &&
+                 cen < (float)(a.w2 - KS) && off >= (float)KS &&
+                 off < (float)(a.h2 - KS) && sd_w >= a.min_stdev;
+          }
+          const int b = bi * L.cqp + bj;
+          s_cq[b] = ok ? cen : CUDART_NAN_F;
+          s_cq[cq_n + b] = off;
+          s_cq[2 * cq_n + b] = avg_w;
+          s_cq[3 * cq_n + b] = sd_w;
+        }
+      }
+      __syncthreads();
+
+      for (int u = u0; u <= u1; ++u) {
+        const int du = u - u0;
+        unsigned adm = 0;
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          if (!(act >> k & 1u)) continue;
+          const float cen = (vmask >> k & 1u)
+                                ? s_rq[(py0 + k + du) * PTW + px]
+                                : s_cq[(py0 + k) * L.cqp + px + du];
+          if (cen >= st[k] && cen < en[k]) adm |= 1u << k;
+        }
+        // Also the barrier between the previous offset's column sums and
+        // this one's row sums.
+        if (!__syncthreads_or(adm)) continue;
+        if (mode == 1)
+          product_row_sums<1>(L, s_img, s_sel, s_rw, s_cw, s_rs, du, tid);
+        else if (mode == 2)
+          product_row_sums<2>(L, s_img, s_sel, s_rw, s_cw, s_rs, du, tid);
+        else
+          product_row_sums<3>(L, s_img, s_sel, s_rw, s_cw, s_rs, du, tid);
+        __syncthreads();
+        if (!adm) continue;
+        float rsv[kPix + 2 * KS];
+#pragma unroll
+        for (int j = 0; j < kPix + 2 * KS; ++j) rsv[j] = s_rs[(py0 + j) * PTW + px];
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          if (!(adm >> k & 1u)) continue;
+          float cross = rsv[k];
+#pragma unroll
+          for (int d = 1; d <= 2 * KS; ++d) cross = __fadd_rn(cross, rsv[k + d]);
+          const bool vp = vmask >> k & 1u;
+          const float* q = vp ? s_rq + (py0 + k + du) * PTW + px
+                              : s_cq + (py0 + k) * L.cqp + px + du;
+          const int n = vp ? rq_n : cq_n;
+          const float corr = ncc(cross, avg1[k], isd1[k], q[2 * n], q[3 * n]);
+          if (corr >= a.threshold && corr > best[k]) {
+            best[k] = corr;
+            const float cen = q[0], off = q[n];
+            best_x[k] = (int)(vp ? off : cen);
+            best_y[k] = (int)(vp ? cen : off);
+          }
         }
       }
     }
   }
-  a.out_corr[p] = best;
-  a.out_x[p] = best_x;
-  a.out_y[p] = best_y;
+
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int r = r0 + py0 + k, c = c0 + px;
+    if (r < h && c < w) {
+      const long p = (long)r * w + c;
+      a.out_corr[p] = best[k];
+      a.out_x[p] = best_x[k];
+      a.out_y[p] = best_y[k];
+    }
+  }
 }
 
 template <int kAxis>
@@ -497,36 +785,39 @@ int launch_tiled(const SweepArgs& a, int tile_h, int tile_w, int smem_bytes,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int cv_box_sums(const void* w0, int n_o, int h, int w, void* sw,
-                           void* sww, void* stream) {
-  const long total = (long)n_o * h * w;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long grid = (total + threads - 1) / threads;
-  box_sums_kernel<<<(unsigned)grid, threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w0), n_o, h, w, static_cast<float*>(sw),
-      static_cast<float*>(sww));
+int launch_pixel(const SweepArgs& a, int tile_h, int tile_w, int smem_bytes,
+                 cudaStream_t s) {
+  if (a.chunk < 1 || a.chunk > 2 * a.window + 1)
+    return (int)cudaErrorInvalidValue;
+  const PixLayout L = pixel_layout(a.chunk - 1);
+  if (tile_h != PTH || tile_w != PTW || smem_bytes != L.total * 4 ||
+      smem_bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      sweep_pixel_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.w + PTW - 1) / PTW, (a.h + PTH - 1) / PTH);
+  sweep_pixel_tile_kernel<<<grid, kTileThreads, smem_bytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-// axis 1 / 2 launch the tiled kernel with the wrapper's plan (tile_h,
-// tile_w, chunk, smem_bytes; sw and sww unused); axis 0 the per-pixel
-// kernel, reading box_sums_kernel's sw and sww.
+}  // namespace
+
+// Launches the tiled kernel of `axis` (0 per-pixel, 1 "vert", 2 "horiz")
+// with the wrapper's plan (tile_h, tile_w, chunk, smem_bytes); a plan
+// that disagrees with the kernel's layout is refused.
 extern "C" int cv_ncc_sweep(const void* img1, const void* vert,
                             const void* center, const void* coeff,
                             const void* add, const void* avg1,
                             const void* isd1, const void* start,
                             const void* end, const void* pok, const void* w0,
-                            const void* sw, const void* sww, void* out_corr,
-                            void* out_x, void* out_y, int h, int w, int n_o,
-                            int corridor_size, int window, int h2, int w2,
-                            int axis, float threshold, float min_stdev,
-                            int m_img, int m_f, int m_w0, int row0_g,
-                            int h_total, int tile_h, int tile_w, int chunk,
-                            int smem_bytes, void* stream) {
+                            void* out_corr, void* out_x, void* out_y, int h,
+                            int w, int n_o, int corridor_size, int window,
+                            int h2, int w2, int axis, float threshold,
+                            float min_stdev, int m_img, int m_f, int m_w0,
+                            int row0_g, int h_total, int tile_h, int tile_w,
+                            int chunk, int smem_bytes, void* stream) {
   if (h == 0 || w == 0) return 0;
   // Each haloed field's pointer moves to its local row 0.
   const long wl = w;
@@ -542,8 +833,6 @@ extern "C" int cv_ncc_sweep(const void* img1, const void* vert,
   a.end = static_cast<const float*>(end);
   a.pok = static_cast<const float*>(pok);
   a.w0 = static_cast<const float*>(w0) + m_w0 * wl;
-  a.sw = sw ? static_cast<const float*>(sw) + m_w0 * wl : nullptr;
-  a.sww = sww ? static_cast<const float*>(sww) + m_w0 * wl : nullptr;
   a.out_corr = static_cast<float*>(out_corr);
   a.out_x = static_cast<int32_t*>(out_x);
   a.out_y = static_cast<int32_t*>(out_y);
@@ -565,9 +854,5 @@ extern "C" int cv_ncc_sweep(const void* img1, const void* vert,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (axis == 1) return launch_tiled<1>(a, tile_h, tile_w, smem_bytes, s);
   if (axis == 2) return launch_tiled<2>(a, tile_h, tile_w, smem_bytes, s);
-  if (!sw || !sww) return (int)cudaErrorInvalidValue;
-  const dim3 block(32, 8);
-  const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
-  sweep_pixel_kernel<<<grid, block, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  return launch_pixel(a, tile_h, tile_w, smem_bytes, s);
 }

@@ -108,9 +108,8 @@ def library() -> ctypes.CDLL:
             vp = ctypes.c_void_p
             ci = ctypes.c_int
             cf = ctypes.c_float
-            lib.cv_box_sums.argtypes = [vp, ci, ci, ci, vp, vp, vp]
             lib.cv_ncc_sweep.argtypes = [
-                vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                 vp, vp, vp,
                 ci, ci, ci, ci, ci, ci, ci, ci, cf, cf,
                 ci, ci, ci, ci, ci, ci, ci, ci, ci, vp,
@@ -120,8 +119,7 @@ def library() -> ctypes.CDLL:
             ]
             lib.cv_gather_packed.argtypes = [vp, ci, vp, ctypes.c_long, vp, vp]
             for fn in (
-                lib.cv_box_sums, lib.cv_ncc_sweep, lib.cv_score_candidates,
-                lib.cv_gather_packed,
+                lib.cv_ncc_sweep, lib.cv_score_candidates, lib.cv_gather_packed,
             ):
                 fn.restype = ci
             _LIB = lib

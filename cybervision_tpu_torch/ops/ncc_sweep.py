@@ -20,11 +20,14 @@ shift of the per-pixel form).
 The TPU kernel's row tiles, VMEM budget (pick_tile_h) and the
 horizontal-axis transpose of refine_pass_pallas have no counterpart:
 the CUDA kernel sweeps columns directly and takes every refine level.
-Its static forms run one block per output tile with every operand in
+All three forms run one block per output tile with every operand in
 shared memory, staging the band of warp and fields the tile's shifts
-read in chunks of offsets along the sweep axis, so every window fits;
-`sweep_tile_plan` is that launch's geometry (tile, grid, chunk, shared
-bytes), computed here so the CPU tests reach it.
+read in chunks of offsets, so every window fits: the static forms one
+band along their axis, the per-pixel form a row band and a column band
+(each only where the tile needs it), one product plane per hypothesis
+serving the pixels of both axes. `sweep_tile_plan` is that launch's
+geometry (tile, grid, chunk, shared bytes), computed here so the CPU
+tests reach it.
 
 K1s, `ncc_sweep_sharded` (pallas_ncc.py:682-801), runs the same kernel
 on the row shards of a parallel.Mesh: every shard's fields get their
@@ -61,19 +64,24 @@ pixel_launches = 0
 # to 0.
 sharded_launches = 0
 
-# csrc/ncc_sweep.cu's static forms: output tiles short along the sweep
-# axis (the band of warp and fields they stage grows with the chunk of
-# offsets along it), 256 threads each, and the shared memory one block may
-# hold on the H100 (227 KB).
-TILES = {"horiz": (16, 64), "vert": (64, 16)}
+# csrc/ncc_sweep.cu's output tiles, 256 threads each: the static forms'
+# are short along the sweep axis (the band of warp and fields they stage
+# grows with the chunk of offsets along it), the per-pixel form's square
+# (its bands grow along both axes). SMEM_LIMIT is the shared memory one
+# block may hold on the H100 (227 KB).
+TILES = {"horiz": (16, 64), "vert": (64, 16), None: (32, 32)}
 TILE_THREADS = 256
 SMEM_LIMIT = 232_448
+# The per-pixel form's chunks stay within this many bytes: two blocks per
+# SM (228 KB, less 1 KB per block), the fastest of the budgets that
+# tools/k1_pixel_budget.py times on the H100.
+PIXEL_SMEM_LIMIT = 115_712
 
 
 def _box11(x: torch.Tensor) -> torch.Tensor:
     """11x11 window sums over the last two axes, zero outside: column
     offsets summed first, then row offsets, each in increasing order (the
-    order of the Pallas kernel's _box11 and of box_sums_kernel)."""
+    order of the Pallas kernel's _box11 and of the CUDA tiles)."""
     h, w = x.shape[-2:]
     xp = torch.nn.functional.pad(x, (KS, KS, KS, KS))
     acc = xp[..., :, 0:w]
@@ -100,12 +108,20 @@ def shift(x: torch.Tensor, u: int, dim: int, fill: int = 0) -> torch.Tensor:
     return out
 
 
-def _tile_smem(axis: str, span: int) -> int:
+def _tile_smem(axis: str | None, span: int) -> int:
     """Shared bytes of one block whose chunk holds span + 1 offsets —
     csrc/ncc_sweep.cu's layout(): the img1 tile +- KS, the w0 band (+- KS,
     and + span along the axis), four per-q planes of the band, and the
-    larger of the row-sum plane and the box sums' scratch."""
+    larger of the row-sum plane and the box sums' scratch. The per-pixel
+    form (pixel_layout()) has both bands, each with its four planes, and
+    a byte per element of the tile +- KS for its axis."""
     th, tw = TILES[axis]
+    if axis is None:
+        ir, ip = th + 2 * KS, tw + 2 * KS
+        bands = (ir + span) * ip + ir * (ip + span)
+        planes = 4 * (th + span) * tw + 4 * th * (tw + span)
+        tmp = max(2 * (ir + span) * tw, 2 * ir * (tw + span), ir * tw)
+        return 4 * (ir * ip + -(-ir * ip // 4) + bands + planes + tmp)
     sy, sx = (span, 0) if axis == "vert" else (0, span)
     ir, ip = th + 2 * KS, tw + 2 * KS
     wr, wp = th + 2 * KS + sy, tw + 2 * KS + sx
@@ -117,29 +133,34 @@ def _tile_smem(axis: str, span: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _chunking(axis: str, window: int) -> tuple[int, tuple, int]:
+def _chunking(axis: str | None, window: int, limit: int) -> tuple[int, tuple, int]:
     """(chunk, chunks, shared bytes) of sweep_tile_plan."""
     n_off = 2 * window + 1
     chunk = n_off
-    if _tile_smem(axis, n_off - 1) > SMEM_LIMIT:
-        longest = max(c for c in range(1, n_off) if _tile_smem(axis, c - 1) <= SMEM_LIMIT)
+    if _tile_smem(axis, n_off - 1) > limit:
+        longest = max(c for c in range(1, n_off) if _tile_smem(axis, c - 1) <= limit)
         chunk = -(-n_off // -(-n_off // longest))
     chunks = tuple((u0, min(window, u0 + chunk - 1))
                    for u0 in range(-window, window + 1, chunk))
     return chunk, chunks, _tile_smem(axis, chunk - 1)
 
 
-def sweep_tile_plan(h: int, w: int, window: int, axis: str) -> dict:
-    """Launch geometry of the static forms ("vert", "horiz") for an
-    (h, w) plane: tile (rows, columns), grid (column tiles, row tiles)
-    covering the plane, the chunk (offsets staged per band) and the
-    block's shared bytes. A window whose whole band of 2 * window + 1
-    offsets fits one block sweeps it as one chunk; a wider one in the
-    fewest chunks that fit, of equal length but the last. `chunks` lists
-    each chunk's first and last offset, in the sweep's order."""
+def sweep_tile_plan(h: int, w: int, window: int, axis: str | None) -> dict:
+    """Launch geometry of a form ("vert", "horiz", or None for the
+    per-pixel form) for an (h, w) plane: tile (rows, columns), grid
+    (column tiles, row tiles) covering the plane, the chunk (offsets
+    staged per band) and the block's shared bytes. A window whose whole
+    band of 2 * window + 1 offsets fits one block sweeps it as one
+    chunk; a wider one in the fewest chunks that fit, of equal length
+    but the last. `chunks` lists each chunk's first and last offset, in
+    the sweep's order. The per-pixel form first narrows each tile's
+    offsets to those its pixels can admit and cuts that range into
+    chunks of this length; `chunks` is then the cut of the widest range,
+    the whole window."""
     if axis not in TILES:
-        raise ValueError(f"sweep_tile_plan: axis must be vert or horiz, got {axis!r}")
-    chunk, chunks, smem = _chunking(axis, window)
+        raise ValueError(f"sweep_tile_plan: axis must be vert, horiz or None, got {axis!r}")
+    limit = PIXEL_SMEM_LIMIT if axis is None else SMEM_LIMIT
+    chunk, chunks, smem = _chunking(axis, window, limit)
     th, tw = TILES[axis]
     return {
         "tile": (th, tw), "grid": (-(-w // tw), -(-h // th)),
@@ -309,36 +330,20 @@ def ncc_sweep(
     if dev.type != "cuda":
         raise ValueError(f"ncc_sweep: unsupported device {dev}")
     lib = kernels.library()
-    if axis is None:
-        # The per-pixel form reads the warp's box sums from a plane; the
-        # static forms compute them in their tiles.
-        sw, sww = torch.empty_like(w0), torch.empty_like(w0)
-        tile_h = tile_w = chunk = smem = 0
-    else:
-        sw = sww = None
-        plan = sweep_tile_plan(h, w, window, axis)
-        (tile_h, tile_w), chunk, smem = plan["tile"], plan["chunk"], plan["smem_bytes"]
+    plan = sweep_tile_plan(h, w, window, axis)
+    (tile_h, tile_w), chunk, smem = plan["tile"], plan["chunk"], plan["smem_bytes"]
     corr = torch.empty((h, w), dtype=torch.float32, device=dev)
     bx = torch.empty((h, w), dtype=torch.int32, device=dev)
     by = torch.empty((h, w), dtype=torch.int32, device=dev)
-    # The C entry points launch on the host thread's current device.
+    # The C entry point launches on the host thread's current device.
     with kernels.on_device(dev):
-        stream = kernels.stream_of(dev)
-        if sw is not None:
-            kernels.check(
-                lib.cv_box_sums(w0.data_ptr(), n_o, h + 2 * m_w0, w,
-                                sw.data_ptr(), sww.data_ptr(), stream),
-                "cv_box_sums",
-            )
         kernels.check(
             lib.cv_ncc_sweep(
                 *(t.data_ptr() for t in fields.values()), w0.data_ptr(),
-                None if sw is None else sw.data_ptr(),
-                None if sww is None else sww.data_ptr(), corr.data_ptr(),
-                bx.data_ptr(), by.data_ptr(), h, w, n_o, corridor_size, window,
-                h2, w2, _AXES[axis], float(threshold), float(min_stdev),
-                depth["img1"], depth["center"], m_w0, row0_g, h_total,
-                tile_h, tile_w, chunk, smem, stream,
+                corr.data_ptr(), bx.data_ptr(), by.data_ptr(), h, w, n_o,
+                corridor_size, window, h2, w2, _AXES[axis], float(threshold),
+                float(min_stdev), depth["img1"], depth["center"], m_w0, row0_g,
+                h_total, tile_h, tile_w, chunk, smem, kernels.stream_of(dev),
             ),
             "cv_ncc_sweep",
         )

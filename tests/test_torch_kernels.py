@@ -2,28 +2,33 @@
 
 On the CPU: each wrapper checks its inputs, raises on what its kernel
 does not take, and runs the plain version without counting a launch;
-the launch geometry the wrappers compute (K1's tile plan, K2's split
+the launch geometry the wrappers compute (K1's tile plans, K2's split
 plan) covers its plane or table exactly and fits the card's shared
 memory — K1's at every window, in chunks of offsets beyond 164 ("horiz")
-or 150 ("vert"); the threefry draws (utils.prng) hold their shape and
-range. With a card (tests marked `cuda`, skipped without one): each
-kernel against its plain version on the card, with the tolerances of
-chip_smoke.py — K1 under 0.5 % of valid flags differ, corr within 1e-4,
-over 99.5 % of positions equal; K2 counts equal and sums within rtol
-1e-5; K3 exact — also at shapes that are no multiple of a tile, at the
-window buckets' ends (8, 128), and for K2 at C 50,001 with holes in the
-mask or none set; K1's static forms bit-equal to the plain version at
-windows 192 and 256 (two chunks), and its row-halo form at 192. K1's
-row-halo form (K1s, shards on one card, one of odd height) is held to
-its sharded plain version with K1's tolerances and to the unsharded
-kernel exactly; K3 launches on the caller's current stream; the draws
-on the card equal the CPU's, the --max-points sample and the exact
-cross-check too, and the depth colouring is within 1 level of it; with
-a second card, every kernel launches on cuda:1. At the perspective
-path's shapes: K1's per-pixel form at corridor size 4, K2 at 150,000
-candidates from the 7-point solver, K3 at (13, 7, 50,000) draws. This
-file imports nothing of JAX, so the card tests run
-where JAX is absent:
+or 150 ("vert"), and for the per-pixel form beyond its budget; the
+per-pixel plain version equals the static one on a uniform axis; the
+threefry draws (utils.prng) hold their shape and range. With a card
+(tests marked `cuda`, skipped without one): each kernel against its
+plain version on the card, with the tolerances of chip_smoke.py — K1's
+static forms under 0.5 % of valid flags differ, corr within 1e-4, over
+99.5 % of positions equal, its per-pixel form bit for bit; K2 counts
+equal and sums within rtol 1e-5; K3 exact — also at shapes that are no
+multiple of a tile, at the window buckets' ends (8, 128), and for K2 at
+C 50,001 with holes in the mask or none set; K1's static forms bit-equal
+to the plain version at windows 192 and 256 (two chunks), and its
+row-halo form at 192. K1's per-pixel form bit-equal off the tile grid,
+at windows 8, 128 and 192, on a checkerboard of axes finer than a tile,
+and equal to the static kernel on a uniform axis. K1's row-halo form
+(K1s, shards on one card, one of odd height) is held to its sharded
+plain version (the per-pixel form bit for bit, the static ones with
+K1's tolerances) and to the unsharded kernel exactly; K3 launches on
+the caller's current stream; the draws on the card equal the CPU's, the
+--max-points sample and the exact cross-check too, and the depth
+colouring is within 1 level of it; with a second card, every kernel
+launches on cuda:1. At the perspective path's shapes: K1's per-pixel
+form at corridor size 4, K2 at 150,000 candidates from the 7-point
+solver, K3 at (13, 7, 50,000) draws. This file imports nothing of JAX,
+so the card tests run where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
@@ -196,32 +201,76 @@ def _assert_chunks_cover(chunks, window):
     assert all(a[1] + 1 == b[0] for a, b in zip(chunks, chunks[1:]))
 
 
-@pytest.mark.parametrize("axis", ["horiz", "vert"])
+@pytest.mark.parametrize("axis", ["horiz", "vert", None])
 @pytest.mark.parametrize("window", [192, 256, 512, 1024])
 def test_sweep_tile_plan_chunks_every_wide_window(axis, window):
     """Windows whose whole band does not fit one block (the API's
     corridor_window_fixed or buckets beyond the CLI's 128) sweep in
     chunks of offsets that do, all of one length but the last."""
+    limit = k1.PIXEL_SMEM_LIMIT if axis is None else k1.SMEM_LIMIT
     plan = k1.sweep_tile_plan(1024, 1024, window, axis)
     chunks = plan["chunks"]
-    assert plan["smem_bytes"] <= 232_448 and len(chunks) > 1
+    assert plan["smem_bytes"] <= min(limit, 232_448) and len(chunks) > 1
     _assert_chunks_cover(chunks, window)
     assert {hi - lo + 1 for lo, hi in chunks[:-1]} == {plan["chunk"]}
     assert chunks[-1][1] - chunks[-1][0] + 1 <= plan["chunk"]
     # The fewest chunks that fit: one fewer would not.
     n_off = 2 * window + 1
-    assert k1._tile_smem(axis, -(-n_off // (len(chunks) - 1)) - 1) > 232_448
+    assert k1._tile_smem(axis, -(-n_off // (len(chunks) - 1)) - 1) > limit
 
 
 @pytest.mark.parametrize("axis", ["horiz", "vert"])
 def test_sweep_tile_plan_raises_where_the_band_cannot_fit(axis):
-    """Only the per-pixel form has no tile plan; a static axis fits at
-    any window (256 was refused before the band was chunked)."""
+    """Every form has a tile plan at any window (256 was refused before
+    the band was chunked); only an axis the kernel does not know is
+    refused."""
     plan = k1.sweep_tile_plan(1024, 1024, 256, axis)
     assert plan["smem_bytes"] <= 232_448
     _assert_chunks_cover(plan["chunks"], 256)
     with pytest.raises(ValueError):
-        k1.sweep_tile_plan(1024, 1024, 16, None)
+        k1.sweep_tile_plan(1024, 1024, 16, "diagonal")
+
+
+@pytest.mark.parametrize("h,w", [(1024, 1024), (999, 777), (300, 280), (17, 5), (1, 1)])
+def test_pixel_tile_plan_covers_the_plane(h, w):
+    """The per-pixel form's tiles: square (its bands grow along both
+    axes), four pixels a thread, every pixel in exactly one tile."""
+    plan = k1.sweep_tile_plan(h, w, 32, None)
+    (th, tw), (gx, gy) = plan["tile"], plan["grid"]
+    assert th == tw and th * tw == 4 * plan["threads"]
+    assert gx * tw >= w > (gx - 1) * tw
+    assert gy * th >= h > (gy - 1) * th
+
+
+@pytest.mark.parametrize("window", [8, 16, 24, 32, 64, 128])
+def test_pixel_tile_plan_fits_the_window_buckets_it_can(window):
+    """A window whose two bands of 2 * window + 1 offsets fit the
+    per-pixel form's budget sweeps as one chunk, and its bytes grow with
+    the band; a wider one in the fewest chunks that fit."""
+    plan = k1.sweep_tile_plan(64, 64, window, None)
+    n_off = 2 * window + 1
+    assert plan["smem_bytes"] <= min(k1.PIXEL_SMEM_LIMIT, 232_448)
+    _assert_chunks_cover(plan["chunks"], window)
+    if k1._tile_smem(None, n_off - 1) <= k1.PIXEL_SMEM_LIMIT:
+        assert plan["chunks"] == ((-window, window),) and plan["chunk"] == n_off
+        assert plan["smem_bytes"] > k1.sweep_tile_plan(64, 64, window - 1, None)["smem_bytes"]
+    else:
+        n = len(plan["chunks"])
+        assert n > 1 and k1._tile_smem(None, -(-n_off // (n - 1)) - 1) > k1.PIXEL_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("axis", ["horiz", "vert"])
+def test_per_pixel_plain_equals_the_static_form_on_a_uniform_axis(axis):
+    """With every pixel on one axis, the per-pixel form's plain version
+    is the static form's, bit for bit: the warp of each window element
+    and the hypothesis of each pixel follow that one axis."""
+    fields, kw = _sweep_fields("cpu", axis=axis)
+    fields["vert"] = torch.full_like(fields["vert"], float(axis == "vert"))
+    out = k1.ncc_sweep_plain(*fields.values(), axis=None, **kw)
+    ref = k1.ncc_sweep_plain(*fields.values(), axis=axis, **kw)
+    assert torch.isfinite(ref[0]).float().mean() > 0.3
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("lo,hi", [(0, 1), (0, 13_066), (-7, 9), (5, 5)])
@@ -252,6 +301,21 @@ def test_score_plan_splits_cover_the_matches(c, m):
 # --- the kernels on the card --------------------------------------------------
 
 
+def _mixed_axes(fields, kind, block=16):
+    """The fields with the per-pixel axis set on a checkerboard of
+    `block`-pixel squares, or across the diagonal (a "vert" triangle)."""
+    h, w = fields["avg1"].shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    vert = (yy // block + xx // block) % 2 if kind == "checker" else xx * h > yy * w
+    return dict(fields, vert=torch.as_tensor(vert.astype(np.float32), device=fields["avg1"].device))
+
+
+def _assert_equal_sweeps(out, ref):
+    assert torch.isfinite(ref[0]).float().mean() > 0.2
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
 def _sweeps_agree(out, ref):
     vk, vp = torch.isfinite(out[0]), torch.isfinite(ref[0])
     assert (vk != vp).float().mean() < 0.005
@@ -271,7 +335,10 @@ def test_sweep_kernel_matches_plain(cuda, axis):
     ref = k1.ncc_sweep_plain(*fields.values(), axis=axis, **kw)
     torch.cuda.synchronize()
     assert k1.launches == 1
-    _sweeps_agree(out, ref)
+    if axis is None:
+        _assert_equal_sweeps(out, ref)
+    else:
+        _sweeps_agree(out, ref)
 
 
 @pytest.mark.cuda
@@ -478,12 +545,15 @@ def test_wrappers_raise_on_cuda_tensors_they_cannot_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("axis,h", [("vert", 72), ("horiz", 72), (None, 72), ("vert", 77), ("horiz", 77)])
+@pytest.mark.parametrize("axis,h", [("vert", 72), ("horiz", 72), (None, 72), ("vert", 77), ("horiz", 77), (None, 77)])
 def test_row_halo_sweep_matches_plain_and_equals_unsharded(cuda, axis, h):
     """Four shards on one card: the row-halo kernel against its plain
-    version, and the gathered result against the unsharded kernel. At 77
-    rows the shards are 20, 20, 20 and 17 rows: the last of odd height."""
+    version (the per-pixel form, on a checkerboard of axes, bit for bit),
+    and the gathered result against the unsharded kernel. At 77 rows the
+    shards are 20, 20, 20 and 17 rows: the last of odd height."""
     fields, kw = _sweep_fields(cuda, h=h, axis=axis)
+    if axis is None:
+        fields = _mixed_axes(fields, "checker", block=12)
     mesh = Mesh((cuda,) * 4)
     k1.launches = k1.sharded_launches = 0
     out = [gather_rows(o, cuda) for o in k1.ncc_sweep_sharded(mesh, *fields.values(), axis=axis, **kw)]
@@ -492,7 +562,10 @@ def test_row_halo_sweep_matches_plain_and_equals_unsharded(cuda, axis, h):
     ref = [gather_rows(o, cuda) for o in k1.ncc_sweep_sharded(
         mesh, *fields.values(), axis=axis, plain=True, **kw)]
     assert (k1.launches, k1.sharded_launches) == (4, 1)
-    _sweeps_agree(out, ref)
+    if axis is None:
+        _assert_equal_sweeps(out, ref)
+    else:
+        _sweeps_agree(out, ref)
     single = k1.ncc_sweep(*fields.values(), axis=axis, **kw)
     for a, b in zip(out, single):
         assert torch.equal(a, b)
@@ -565,7 +638,52 @@ def test_per_pixel_sweep_matches_plain_at_corridor_4(cuda):
     ref = k1.ncc_sweep_plain(*fields.values(), axis=None, **kw)
     torch.cuda.synchronize()
     assert k1.launches == k1.pixel_launches == 1
-    _sweeps_agree(out, ref)
+    _assert_equal_sweeps(out, ref)
+
+
+@pytest.mark.cuda
+def test_per_pixel_sweep_equals_plain_off_the_tile_grid(cuda):
+    """999x777 (no multiple of the 32x32 tile) with the axis flipping
+    across the diagonal: ragged tiles, and tiles that stage both bands."""
+    fields, kw = _sweep_fields(cuda, h=999, w=777, axis=None)
+    fields = _mixed_axes(fields, "diagonal")
+    out = k1.ncc_sweep(*fields.values(), axis=None, **kw)
+    _assert_equal_sweeps(out, k1.ncc_sweep_plain(*fields.values(), axis=None, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [8, 128, 192])
+def test_per_pixel_sweep_equals_plain_at_the_window_ends(cuda, window):
+    """The window buckets' ends and 192, whose offsets the per-pixel
+    form cuts into several chunks per tile."""
+    fields, kw = _sweep_fields(cuda, h=300, w=280, axis=None)
+    fields = _mixed_axes(fields, "diagonal")
+    kw = dict(kw, window=window)
+    if window >= 128:
+        assert len(k1.sweep_tile_plan(300, 280, window, None)["chunks"]) > 1
+    out = k1.ncc_sweep(*fields.values(), axis=None, **kw)
+    _assert_equal_sweeps(out, k1.ncc_sweep_plain(*fields.values(), axis=None, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["horiz", "vert"])
+def test_per_pixel_sweep_equals_the_static_kernel_on_a_uniform_axis(cuda, axis):
+    """Every pixel on one axis: the per-pixel kernel equals the static
+    kernel of that axis bit for bit."""
+    fields, kw = _sweep_fields(cuda, h=300, w=280, axis=axis)
+    fields["vert"] = torch.full_like(fields["vert"], float(axis == "vert"))
+    out = k1.ncc_sweep(*fields.values(), axis=None, **kw)
+    _assert_equal_sweeps(out, k1.ncc_sweep(*fields.values(), axis=axis, **kw))
+
+
+@pytest.mark.cuda
+def test_per_pixel_sweep_equals_plain_on_a_fine_checkerboard(cuda):
+    """Squares of 5 pixels, smaller than a tile: every tile mixes both
+    axes among its pixels and its elements."""
+    fields, kw = _sweep_fields(cuda, h=96, w=80, axis=None, corridor_size=4)
+    fields = _mixed_axes(fields, "checker", block=5)
+    out = k1.ncc_sweep(*fields.values(), axis=None, **kw)
+    _assert_equal_sweeps(out, k1.ncc_sweep_plain(*fields.values(), axis=None, **kw))
 
 
 @pytest.mark.cuda
