@@ -65,10 +65,11 @@ Phases, each of which raises on failure:
    bit for bit); its time includes the halo exchange. Then the main path end to end under the mesh (a
    warm-up and three timed runs, phase 3's gates, the launches per run
    checked against the plan: one K1 per shard on each sharded level,
-   one K2 and one K3 per shard per RANSAC round), one more run under
-   the profiler for K1s's device milliseconds per run, and
-   correlate_images under the mesh for the F of an unsharded run, whose delta plane must
-   equal the unsharded one.
+   one K2 and one K3 per shard per RANSAC round; every pyramid level
+   whose rows shard ran row-sharded from resize to cross-check), one
+   more run under the profiler for K1s's device milliseconds per run,
+   and correlate_images under the mesh for the F of an unsharded run,
+   whose delta plane must equal the unsharded one.
 5. Affine lanes, on one card, through reconstruction.reconstruct:
    BASELINE #1 — the 1024x1024 pair to a PNG depth map with
    interpolation none (the fast lane): a cold run, best of 3 warm runs,
@@ -98,7 +99,8 @@ Phases, each of which raises on failure:
    translated along both image axes at once, K the one 43 mm gives),
    whose epipolar lines cross the image at 38-54 degrees, so that no
    level has a uniform sweep axis and K1 runs its per-pixel form. Each:
-   a warm-up run, best of 3 (2 at 1024x820) with launches per run (K1's
+   a warm-up run, best of 2 (1 for the 3 views at 1024x820, 2 for the
+   diagonal pair) with launches per run (K1's
    per-pixel form apart), grouped phase seconds, peak device memory,
    then one profiled run (busy share, top kernels by device time).
    Gates: no RANSAC or dense
@@ -116,6 +118,13 @@ Phases, each of which raises on failure:
    7-point solver and K3 at (13, 7, 50,000) on the 3-view full-width
    run's largest pair table, each against its plain version, timed with
    its bound.
+7. The perspective path under phase 4's mesh: BASELINE #5 (P3P
+   candidates scored in one block per shard: blocks = shards x sharded
+   calls) and the diagonal pair (every K1 launch the per-pixel form,
+   n per sharded sweep), each a warm-up, best of 2 and one profiled run
+   with phase 6's gates and the correlation plan; then the diagonal
+   pair's correlate_images for the F of phase 6's unsharded run, under
+   the mesh and without it, equal bit for bit.
 
 Every phase prints the launches of K1/K2/K3 per run (counts set to 0
 just before a run, read just after). The last two lines of standard
@@ -888,10 +897,7 @@ def phase_ransac_all_rounds(matches, device, counters) -> dict:
         find_fundamental_matrix(matches, aff, float(SIZE), cfg, device=device, mesh=None)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    averages = prof.key_averages()
-    dev_ms = {name: sum(e.self_device_time_total for e in averages
-                        if any(k in e.key for k in KERNEL_NAMES[name])) / 1e3
-              for name in counters}
+    dev_ms = {name: device_ms_by_kernel(prof)[1][name] for name in counters}
     busy = device_busy_us(prof)[0] / 1e3
     print(f"RANSAC, all {rounds} rounds (no early exit): best of 2 {min(secs):.4f} s"
           f" (runs {[round(x, 4) for x in secs]}), launches {launches}; profiled run:"
@@ -1046,9 +1052,25 @@ def check_mesh_launches(e2e: dict, n: int) -> None:
             raise AssertionError(f"{name} launched {got[name]} times over {n} shards")
 
 
+def check_sharded_plan(label: str, plan: dict, shape1, shape2, mesh) -> None:
+    """A correlate_images plan under `mesh`: every level whose rows shard
+    (correlation.prologue_shardable, both images) ran row-sharded from
+    resize to cross-check, the others on the lead; some refine level's
+    sweeps ran as K1s."""
+    from cybervision_tpu_torch.config import CorrelationConfig, pyramid_scales
+    from cybervision_tpu_torch.ops import correlation
+
+    scales = pyramid_scales(shape1[::-1], CorrelationConfig().scale_min_size)
+    want = [all(correlation.prologue_shardable(correlation.resized_shape(sh, s)[0], mesh.size)
+                for sh in (shape1, shape2)) for s in scales]
+    if not (plan["mesh"] and plan["sharded_prologue"] == want and any(plan["sharded_levels"])):
+        raise AssertionError(f"{label}: plan {plan}, want sharded levels {want}")
+
+
 def phase_same_correlation(img1, img2, matches, mesh, device) -> None:
     """correlate_images under the mesh for the F of an unsharded RANSAC
-    run: its delta and word planes equal the unsharded run's."""
+    run: its delta and word planes equal the unsharded run's, and every
+    level deep enough ran row-sharded."""
     import torch
 
     from cybervision_tpu_torch.config import CorrelationConfig, ProjectionMode
@@ -1070,8 +1092,9 @@ def phase_same_correlation(img1, img2, matches, mesh, device) -> None:
     valid = float(((single[0] >> 14) & 1).float().mean())
     print(f"correlate_images under the mesh, F of an unsharded run: delta and"
           f" word planes equal {same} (valid share {valid:.4f}, plan {plan})")
-    if not (same and plan["mesh"] and any(plan["sharded_levels"])):
+    if not same:
         raise AssertionError("the sharded correlation differs from the unsharded one")
+    check_sharded_plan("correlate_images under the mesh", plan, img1.shape, img2.shape, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1202,6 +1225,18 @@ def device_events(prof) -> list[tuple[str, float, float]]:
     ]
 
 
+def device_ms_by_kernel(prof) -> tuple[dict[str, float], dict[str, float]]:
+    """Device milliseconds of a profiled window per kernel name, and per
+    wrapper (KERNEL_NAMES), summed over the raw device events
+    (key_averages over ~10^5 events costs tens of seconds)."""
+    durs: dict[str, float] = {}
+    for name, start, end in device_events(prof):
+        durs[name] = durs.get(name, 0.0) + (end - start) / 1e3
+    per_wrapper = {name: sum(v for k, v in durs.items() if any(n in k for n in keys))
+                   for name, keys in KERNEL_NAMES.items()}
+    return durs, per_wrapper
+
+
 def device_busy_us(prof) -> tuple[float, int]:
     """Microseconds in which the card ran at least one kernel during a
     profiled window (the union of its device events), and their count."""
@@ -1219,7 +1254,7 @@ def profile_end_to_end(img1, img2, mesh=None, label="profile", cfg=None,
     """One warm run of reconstruct under torch.profiler (under `mesh`;
     None: the single-card path), of `cfg` (default: the main path's PLY
     config) to `out_name`: the card's busy share of the run (union of
-    device-event intervals over the host wall time), the ops by self
+    device-event intervals over the host wall time), the kernels by
     device time, and each wrapper's kernels' device milliseconds in the
     run (KERNEL_NAMES)."""
     import torch
@@ -1247,13 +1282,10 @@ def profile_end_to_end(img1, img2, mesh=None, label="profile", cfg=None,
     busy, n_events = device_busy_us(prof)
     print(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms"
           f" ({busy / wall_us:.4f} of the run), {n_events} device events")
-    averages = prof.key_averages()
-    print(averages.table(sort_by="self_device_time_total", row_limit=15))
-    per_kernel = {
-        name: sum(e.self_device_time_total for e in averages
-                  if any(k in e.key for k in keys)) / 1e3
-        for name, keys in KERNEL_NAMES.items()
-    }
+    durs, per_kernel = device_ms_by_kernel(prof)
+    top = sorted(durs.items(), key=lambda kv: -kv[1])[:15]
+    print(f"{label}: device time by kernel (top 15, ms):"
+          f" {json.dumps({k[:100]: round(v, 3) for k, v in top})}")
     print(f"{label}: device ms per run by wrapper {json.dumps(per_kernel)}")
     return per_kernel
 
@@ -1632,8 +1664,9 @@ def _group_phases(phases: dict) -> dict:
 
 
 class _Capture:
-    """Records, during one run, the per-pair RANSAC inputs, the inputs
-    of the largest K1 call (cloned: the finest level's) and the smallest
+    """Records, during one run, the per-pair RANSAC inputs and results,
+    the inputs of the largest K1 call (cloned: the finest level's) and
+    the smallest
     and largest DLT triangulation's inputs, passing every call through."""
 
     def __init__(self):
@@ -1641,6 +1674,7 @@ class _Capture:
 
         self.mods = (correlation, epipolar, sfm)
         self.pairs = None
+        self.results = None
         self.sweep = None
         self.dlt = []
 
@@ -1657,7 +1691,8 @@ class _Capture:
 
         def multi_rec(matches_list, projection, max_dims, *a, **kw):
             self.pairs = (list(matches_list), list(max_dims))
-            return multi(matches_list, projection, max_dims, *a, **kw)
+            self.results = multi(matches_list, projection, max_dims, *a, **kw)
+            return self.results
 
         def dlt_rec(pts, projections, *a, **kw):
             self.dlt.append((pts.copy(), list(projections)))
@@ -1721,18 +1756,11 @@ def perspective_runs(label: str, views, cfg, out: str, counters, warm: int,
         wall_us = (time.perf_counter() - t0) * 1e6
     t_prof = time.perf_counter()
     busy, n_events = device_busy_us(prof)
-    # Each wrapper's kernels' device time from the same device events
-    # (key_averages over ~10^5 events costs tens of seconds).
-    durs: dict[str, float] = {}
-    for name, start, end in device_events(prof):
-        durs[name] = durs.get(name, 0.0) + (end - start)
-    dev_ms = {name: sum(v for k, v in durs.items() if any(n in k for n in keys)) / 1e3
-              for name, keys in KERNEL_NAMES.items()}
-    dev_ms["ncc_sweep_pixel"] = sum(
-        v for k, v in durs.items() if "sweep_pixel_tile_kernel" in k) / 1e3
+    durs, dev_ms = device_ms_by_kernel(prof)
+    dev_ms["ncc_sweep_pixel"] = sum(v for k, v in durs.items() if "sweep_pixel_tile_kernel" in k)
     top = sorted(durs.items(), key=lambda kv: -kv[1])[:8]
     print(f"{label}: device time by kernel (top 8, ms):"
-          f" {json.dumps({k[:100]: round(v / 1e3, 3) for k, v in top})};"
+          f" {json.dumps({k[:100]: round(v, 3) for k, v in top})};"
           f" profile read in {time.perf_counter() - t_prof:.1f} s")
     best_s, rec, launches = min(runs, key=lambda r: r[0])
     if any(r[2] != runs[0][2] for r in runs):
@@ -1910,11 +1938,11 @@ def phase_perspective(device, counters, gen) -> dict:
     with tempfile.TemporaryDirectory() as td:
         for key, label, extra, scale, ext, exif, warm, floors, pose_tol in (
             ("baseline3", "BASELINE #3 (2 views 320x256 -> OBJ)", PERSP_CAMS[:1], 1.0, "obj",
-             True, 3, (2000, None), [POSE_TOL_DEG]),
+             True, 2, (2000, None), [POSE_TOL_DEG]),
             ("baseline5", "BASELINE #5 (3 views 320x256 -> merged PLY)", PERSP_CAMS, 1.0, "ply",
-             False, 3, (2000, 1000), b5_tol),
+             False, 2, (2000, 1000), b5_tol),
             ("full_width", "full width (3 views 1024x820 -> merged PLY)", PERSP_CAMS, FULL_SCALE,
-             "ply", False, 2, (2000, 1000), [POSE_TOL_DEG] * 2),
+             "ply", False, 1, (2000, 1000), [POSE_TOL_DEG] * 2),
             ("diagonal", "full width diagonal (2 views 1024x820 -> OBJ, per-pixel axis)",
              (PERSP_CAM_DIAGONAL,), FULL_SCALE, "obj", False, 2, (2000, None), [POSE_TOL_DEG]),
         ):
@@ -1932,6 +1960,7 @@ def phase_perspective(device, counters, gen) -> dict:
             if key == "diagonal" and r["launches"]["ncc_sweep_pixel"] == 0:
                 raise AssertionError(f"{label}: K1's per-pixel form never launched")
             r["dlt"] = check_dlt_paths(label, r["capture"].dlt, device)
+            r["scene"] = (views, depth1, cams)
             print(f"{label}: phase took {time.perf_counter() - t0:.1f} s")
             out[key] = r
     args, kw = out["diagonal"]["capture"].sweep
@@ -1946,6 +1975,95 @@ def phase_perspective(device, counters, gen) -> dict:
     k2_persp = check_score_perspective(matches_list[pi], max_dims[pi], device, gen)
     k3_persp = check_gather_shape(matches_list[pi], device, gen, 7)
     return {"runs": out, "k1_pixel": k1_pixel, "k2": k2_persp, "k3": k3_persp}
+
+
+def phase_mesh_perspective(mesh, device, counters, persp) -> dict:
+    """Phase 7: the perspective path under phase 4's mesh, through
+    reconstruction.Reconstruction: BASELINE #5 (3 views of 320x256 ->
+    merged PLY), whose third view's pose comes from P3P candidates
+    scored on every shard, and phase 6's diagonal pair at 1024x820
+    (-> OBJ), whose refine levels run K1s's per-pixel form on every
+    shard. Each: a warm-up run, best of 2 with launches per run, one
+    profiled run (busy share, device ms by wrapper), phase 6's gates,
+    and the correlation plan (every level deep enough row-sharded).
+    Then correlate_images of the diagonal pair for the F of phase 6's
+    unsharded run, under the mesh and without it: equal bit for bit."""
+    import torch
+
+    from cybervision_tpu_torch.config import (
+        CorrelationConfig, InterpolationMode, MeshMode, ProjectionMode,
+        ReconstructionConfig,
+    )
+    from cybervision_tpu_torch.images import SourceImage
+    from cybervision_tpu_torch.ops import correlation, ncc_sweep, sfm_device
+    from cybervision_tpu_torch.parallel import use_mesh
+
+    n = mesh.size
+    counters = dict(
+        counters, ncc_sweep_pixel=(ncc_sweep, "pixel_launches"),
+        ncc_sweep_sharded=(ncc_sweep, "sharded_launches"),
+        p3p_score=(sfm_device, "launches"), p3p_score_sharded=(sfm_device, "sharded_launches"),
+    )
+    persp_cfg = dict(projection=ProjectionMode.PERSPECTIVE,
+                     interpolation=InterpolationMode.DELAUNAY, mesh=MeshMode.VERTEX_COLORS,
+                     focal_length=PERSP_FOCAL_35MM)
+    b5_tol = [(r + POSE_MARGIN_DEG, d + POSE_MARGIN_DEG) for r, d in POSE_REF_BASELINE5]
+    out = {}
+    with tempfile.TemporaryDirectory() as td, use_mesh(mesh):
+        for key, label, ext, floors, pose_tol in (
+            ("baseline5", f"BASELINE #5 under the mesh ({mesh.describe()})", "ply",
+             (2000, 1000), b5_tol),
+            ("diagonal", f"full width diagonal under the mesh ({mesh.describe()})", "obj",
+             (2000, None), [POSE_TOL_DEG]),
+        ):
+            t0 = time.perf_counter()
+            views, depth1, cams = persp["runs"][key]["scene"]
+            path = os.path.join(td, f"mesh_{key}.{ext}")
+            r = perspective_runs(label, views, ReconstructionConfig(**persp_cfg), path,
+                                 counters, 2, False)
+            plan = dict(correlation._LAST_PLAN)
+            print(f"{label}: correlation plan of the last pair {plan}")
+            check_pair_failures(label, r["rec"], len(views))
+            r["gates"] = perspective_gates(label, r["rec"], cams, depth1, path, *floors, pose_tol)
+            got = r["launches"]
+            for name in ("ncc_sweep", "score_candidates", "gather_packed"):
+                if got[name] == 0 or (name != "ncc_sweep" and got[name] % n):
+                    raise AssertionError(f"{label}: {name} launched {got[name]} times over {n} shards")
+            if key == "baseline5" and not got["p3p_score"] == n * got["p3p_score_sharded"] > 0:
+                raise AssertionError(
+                    f"{label}: P3P scored {got['p3p_score']} blocks in"
+                    f" {got['p3p_score_sharded']} sharded calls over {n} shards")
+            if key == "diagonal":
+                if not (got["ncc_sweep_pixel"] == got["ncc_sweep"]
+                        >= n * got["ncc_sweep_sharded"] > 0):
+                    raise AssertionError(
+                        f"{label}: K1s per-pixel launches {got['ncc_sweep_pixel']} of"
+                        f" {got['ncc_sweep']}, {got['ncc_sweep_sharded']} sharded sweeps")
+                check_sharded_plan(label, plan, views[0].shape, views[1].shape, mesh)
+            r["plan"] = plan
+            print(f"{label}: phase took {time.perf_counter() - t0:.1f} s")
+            out[key] = r
+
+    views = persp["runs"]["diagonal"]["scene"][0]
+    f = persp["runs"]["diagonal"]["capture"].results[0].f
+    src = [SourceImage(v) for v in views]
+    cc = CorrelationConfig()
+    proj = ProjectionMode.PERSPECTIVE
+    single = correlation.correlate_images(*src, f, proj, cc, device_out=True, device=device,
+                                          mesh=None)
+    sharded = correlation.correlate_images(*src, f, proj, cc, device_out=True, device=device,
+                                           mesh=mesh)
+    plan = correlation._LAST_PLAN
+    torch.cuda.synchronize()
+    same = torch.equal(single, sharded)
+    print(f"correlate_images of the diagonal pair under the mesh, F of phase 6's unsharded"
+          f" run: planes equal {same} (valid share {float(single[:, :, 2].float().mean()):.4f},"
+          f" plan {plan})")
+    if not same:
+        raise AssertionError("the sharded perspective correlation differs from the unsharded one")
+    check_sharded_plan("diagonal correlate_images under the mesh", plan, views[0].shape,
+                       views[1].shape, mesh)
+    return out
 
 
 def main() -> int:
@@ -2012,6 +2130,8 @@ def main() -> int:
         mesh=mesh, label="end to end under the mesh",
     )
     check_mesh_launches(e2e_mesh, mesh.size)
+    check_sharded_plan("end to end under the mesh", e2e_mesh["plan"], img1.shape, img2.shape,
+                       mesh)
     device_ms_mesh = profile_end_to_end(img1, img2, mesh, "profile under the mesh")
     phase_same_correlation(img1, img2, matches, mesh, device)
     print(f"multi-device phase took {time.perf_counter() - t0:.1f} s")
@@ -2026,6 +2146,11 @@ def main() -> int:
     print(f"perspective phase took {time.perf_counter() - t0:.1f} s")
     b3, b5, full, diag = (persp["runs"][k] for k in ("baseline3", "baseline5", "full_width",
                                                      "diagonal"))
+
+    t0 = time.perf_counter()
+    persp_mesh = phase_mesh_perspective(mesh, device, counters, persp)
+    print(f"perspective under the mesh phase took {time.perf_counter() - t0:.1f} s")
+    b5_mesh, diag_mesh = persp_mesh["baseline5"], persp_mesh["diagonal"]
 
     def record(name, source, replaces, main, errs, run=e2e, dev_ms=device_ms,
                dev_name=None, large=None, at_persp=None):
@@ -2098,6 +2223,19 @@ def main() -> int:
         f"device_ms_per_run_{key}_per_pixel": r["device_ms"]["ncc_sweep_pixel"]
         for key, r in (("full_width", full), ("diagonal", diag))
     })
+    # Phase 7: K1s's per-pixel form on the diagonal pair under the mesh
+    # (K1 launches per run, all per-pixel, and the sharded sweeps), its
+    # device ms in the profiled run; K2/K3 and P3P's blocks per run there
+    # and in BASELINE #5 under the mesh.
+    for key, r in (("baseline5", b5_mesh), ("diagonal", diag_mesh)):
+        kernels_line["kernels"][3].update({
+            f"launches_mesh_{key}_per_pixel": r["launches"]["ncc_sweep_pixel"],
+            f"sharded_calls_mesh_{key}": r["launches"]["ncc_sweep_sharded"],
+            f"device_ms_per_run_mesh_{key}_per_pixel": r["device_ms"]["ncc_sweep_pixel"],
+        })
+        for rec in kernels_line["kernels"][1:3]:
+            rec[f"launches_mesh_{key}"] = r["launches"][rec["name"]]
+        kernels_line["kernels"][3][f"p3p_blocks_mesh_{key}"] = r["launches"]["p3p_score"]
     # The per-pixel form at 1024x1024 (phase 2's checkerboard of axes),
     # for K1 and over the mesh for K1s; "*_perspective" above is K1's
     # per-pixel form on the diagonal run's finest fields.
@@ -2110,10 +2248,12 @@ def main() -> int:
           f" {draws['ms']:.4f} ms (torch.randint {draws['torch_randint_ms']:.4f} ms);"
           f" BASELINE #1 (PNG depth map) {depth_map['seconds']:.4f} s, best of 3;"
           f" BASELINE #4 (4032x3024 texture OBJ) {texture_obj['seconds']:.4f} s, best of 2;"
-          f" BASELINE #3 (perspective pair -> OBJ) {b3['seconds']:.4f} s, best of 3;"
-          f" BASELINE #5 (3-view SFM -> PLY) {b5['seconds']:.4f} s, best of 3;"
-          f" 3 views at 1024x820 {full['seconds']:.4f} s, best of 2;"
-          f" diagonal pair at 1024x820 {diag['seconds']:.4f} s, best of 2")
+          f" BASELINE #3 (perspective pair -> OBJ) {b3['seconds']:.4f} s, best of 2;"
+          f" BASELINE #5 (3-view SFM -> PLY) {b5['seconds']:.4f} s, best of 2;"
+          f" 3 views at 1024x820 {full['seconds']:.4f} s, one run;"
+          f" diagonal pair at 1024x820 {diag['seconds']:.4f} s, best of 2;"
+          f" over {mesh.describe()}: BASELINE #5 {b5_mesh['seconds']:.4f} s and the diagonal"
+          f" pair {diag_mesh['seconds']:.4f} s, best of 2")
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -395,9 +395,10 @@ def recover_pose_ransac(
     cfg: TriangulationConfig,
     rng: np.random.RandomState,
     device="cuda",
+    mesh=None,
 ) -> Camera | None:
     """P3P RANSAC (triangulation.rs:1033-1144), candidates scored on
-    `device`.
+    `device`, or over the shards of `mesh` (sfm_device.p3p_score).
 
     pts2d: (T, 2) this image's observations of the linked tracks;
     pts3d: (T, 3) their triangulated points; const_err: (T,) the max
@@ -448,6 +449,7 @@ def recover_pose_ransac(
             inlier_t,
             points_t,
             device=device,
+            mesh=mesh,
         )
         counts = np.where(ok, counts, 0)
         if not counts.any():
@@ -724,10 +726,13 @@ class SfmPipeline:
 
     def __init__(
         self, images, cfg: ReconstructionConfig, quiet=False, device="cuda",
-        phases: dict[str, float] | None = None,
+        phases: dict[str, float] | None = None, mesh=None,
     ):
         self.cfg = cfg
         self.device = device
+        # A parallel.Mesh the P3P candidates are scored over (None: on
+        # `device`).
+        self.mesh = mesh
         # Phase phrase -> seconds (complete()'s finalize split).
         self.phases = phases
         self.tcfg = cfg.triangulation
@@ -846,6 +851,7 @@ class SfmPipeline:
                 self.tcfg,
                 self.rng,
                 self.device,
+                self.mesh,
             )
             if cam is None:
                 continue

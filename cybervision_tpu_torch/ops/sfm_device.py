@@ -15,14 +15,27 @@
 The JAX package pads the track and hypothesis axes to power-of-two
 buckets to reuse compiled programs; torch has no compile step, so the
 port runs the real lengths (padding never counts in either).
+
+Under a parallel.Mesh the candidate axis of P3P scoring is cut into
+mesh.size contiguous blocks, block i scored on mesh.devices[i] (the JAX
+package's _p3p_score_sharded, cybervision_tpu/ops/sfm_device.py:
+118-170).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 F32 = torch.float32
+
+# p3p_score's scored blocks since the counter was last set to 0: one per
+# call without a mesh, one per shard that scored candidates under one.
+# sharded_launches counts the calls under a mesh.
+launches = 0
+sharded_launches = 0
 
 # cuSOLVER's batched eigh (cusolverDnXsyevBatched under torch 2.11 and
 # CUDA 12.8 on the H100) refuses 32,767 matrices and more with
@@ -60,9 +73,11 @@ def p3p_score(
     points_t: float,
     chunk: int = 256,
     device="cuda",
+    mesh=None,
 ):
     """Scores P3P candidates on `device` (sfm_device.p3p_score of the JAX
-    package). proj (B, 3, 4) candidate K[R|t] (NaN where invalid);
+    package), or over the shards of `mesh`. proj (B, 3, 4) candidate
+    K[R|t] (NaN where invalid);
     s2d/s3d (B, 3, 2|3) each candidate's sampled observations/points;
     pts3d (T, 3), pts2d (T, 2), const_err (T,) the linked tracks.
 
@@ -71,29 +86,59 @@ def p3p_score(
     of tracks whose error max(reprojection, const_err) is under points_t,
     and the largest such error (triangulation.rs:1119-1135). float32 on
     the device, `chunk` candidates at a time. Returns numpy
-    (count (B,), err_max (B,), sample_ok (B,))."""
-    dev = torch.device(device)
+    (count (B,), err_max (B,), sample_ok (B,)).
+
+    Under a mesh block i holds candidates [i * per, (i + 1) * per), per a
+    multiple of chunk (and of 128, so that every chunk's operands sit at
+    the unsharded run's alignment), scored on mesh.devices[i]; the
+    results concatenate in block order. Each candidate's chunk is the
+    unsharded run's, and its count, error and gate come from its own
+    row, so the result equals the unsharded one exactly. A block that
+    starts past B is empty and its shard scores nothing: `launches`
+    counts the blocks scored, so a caller sees a call that did not
+    reach every shard."""
+    global launches, sharded_launches
     b = len(proj)
+    if mesh is None:
+        blocks = [(torch.device(device), 0, b)]
+    else:
+        step = math.lcm(chunk, 128)
+        per = -(-b // (step * mesh.size)) * step
+        blocks = [(d, i * per, min((i + 1) * per, b)) for i, d in enumerate(mesh.devices)]
+        sharded_launches += 1
     t = len(pts3d)
-    p3 = torch.as_tensor(np.asarray(pts3d, np.float32), device=dev)
-    h3 = torch.cat([p3, torch.ones((t, 1), dtype=F32, device=dev)], dim=1)
-    p2 = torch.as_tensor(np.asarray(pts2d, np.float32), device=dev)
-    cerr = torch.as_tensor(np.asarray(const_err, np.float32), device=dev)
-    proj_t = torch.as_tensor(np.asarray(proj, np.float32), device=dev)
-    s2d_t = torch.as_tensor(np.asarray(s2d, np.float32), device=dev)
-    s3d_t = torch.as_tensor(np.asarray(s3d, np.float32), device=dev)
-    inl = torch.tensor(inlier_t, dtype=F32, device=dev)
-    pts_t = torch.tensor(points_t, dtype=F32, device=dev)
-    outs = [
-        _p3p_score_chunk(
-            proj_t[c0 : c0 + chunk], s2d_t[c0 : c0 + chunk], s3d_t[c0 : c0 + chunk],
-            h3, p2, cerr, inl, pts_t,
+    tracks = {}
+    for dev in dict.fromkeys(d for d, _, _ in blocks):
+        p3 = torch.as_tensor(np.asarray(pts3d, np.float32), device=dev)
+        tracks[dev] = (
+            torch.cat([p3, torch.ones((t, 1), dtype=F32, device=dev)], dim=1),
+            torch.as_tensor(np.asarray(pts2d, np.float32), device=dev),
+            torch.as_tensor(np.asarray(const_err, np.float32), device=dev),
+            torch.tensor(inlier_t, dtype=F32, device=dev),
+            torch.tensor(points_t, dtype=F32, device=dev),
         )
-        for c0 in range(0, b, chunk)
-    ]
+    outs = []
+    for dev, lo, hi in blocks:
+        if lo >= hi:
+            continue
+        proj_t, s2d_t, s3d_t = (
+            torch.as_tensor(np.asarray(a[lo:hi], np.float32), device=dev)
+            for a in (proj, s2d, s3d)
+        )
+        chunks = [
+            _p3p_score_chunk(
+                proj_t[c0 : c0 + chunk], s2d_t[c0 : c0 + chunk],
+                s3d_t[c0 : c0 + chunk], *tracks[dev],
+            )
+            for c0 in range(0, hi - lo, chunk)
+        ]
+        outs.append([torch.cat(parts) for parts in zip(*chunks)])
+        launches += 1
     if not outs:
         return np.zeros(0, np.int64), np.zeros(0, np.float32), np.zeros(0, bool)
-    count, err_max, ok = (torch.cat(parts).cpu().numpy() for parts in zip(*outs))
+    count, err_max, ok = (
+        np.concatenate([p.cpu().numpy() for p in parts]) for parts in zip(*outs)
+    )
     return count, err_max, ok
 
 

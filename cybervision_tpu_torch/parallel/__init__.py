@@ -10,23 +10,29 @@ from cybervision_tpu_torch.parallel.mesh import (
 )
 from cybervision_tpu_torch.parallel.sharding import (
     RowShards,
+    all_gather_rows,
     assert_spans_mesh,
     gather_rows,
     halo,
     replicate,
+    row_window,
     shard_rows,
+    tree_sum,
 )
 
 __all__ = [
     "AUTO",
     "Mesh",
     "RowShards",
+    "all_gather_rows",
     "assert_spans_mesh",
     "gather_rows",
     "halo",
     "pipeline_mesh",
     "replicate",
     "resolve_mesh",
+    "row_window",
     "shard_rows",
+    "tree_sum",
     "use_mesh",
 ]

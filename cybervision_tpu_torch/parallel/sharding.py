@@ -6,8 +6,16 @@ the mesh size divides it) and puts block i on the mesh's device i;
 `halo` attaches to every block the rows of its neighbours, with zero rows
 at the global top and bottom — what jax.lax.ppermute's zero fill gives
 the JAX kernel, and the zero padding the unsharded sweep sees there;
-`gather_rows` brings the blocks back to the lead device. The modules
-that shard own their sharded variants and call these primitives.
+`gather_rows` brings the blocks back to the lead device. For a level
+that lives row-sharded (the counterparts of constrain_rows and of what
+GSPMD inserts around it, cybervision_tpu/parallel/sharding.py:41-52):
+`all_gather_rows` puts the whole tensor on every shard's device, one
+copy per distinct device, for operands read at arbitrary rows;
+`row_window` brings any global row range to one device (a halo of any
+depth, `fill` outside the tensor); `tree_sum` reduces in one fixed
+pairwise order, so that per-row partials sum to the same bits however
+the rows were cut. The modules that shard own their sharded variants
+and call these primitives.
 """
 
 from __future__ import annotations
@@ -58,8 +66,59 @@ def replicate(mesh: Mesh, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
 def gather_rows(shards: RowShards, device) -> torch.Tensor:
     """The h-row tensor on `device`: the blocks concatenated, the padding
     rows cut away."""
-    full = torch.cat([p.to(device) for p in shards.parts], dim=shards.axis)
+    parts = [p.to(device) for p in shards.parts]
+    full = parts[0] if len(parts) == 1 else torch.cat(parts, dim=shards.axis)
     return full.narrow(shards.axis, 0, shards.h)
+
+
+def all_gather_rows(shards: RowShards, mesh: Mesh) -> tuple[torch.Tensor, ...]:
+    """The h-row tensor on every mesh device, for the shards that read
+    it at arbitrary rows: one copy per distinct device (on a one-card
+    mesh one copy in all), entry i on mesh.devices[i]."""
+    assert_spans_mesh(shards, mesh)
+    copies = {d: gather_rows(shards, d) for d in dict.fromkeys(mesh.devices)}
+    return tuple(copies[d] for d in mesh.devices)
+
+
+def row_window(shards: RowShards, lo: int, hi: int, device, fill=0) -> torch.Tensor:
+    """Global rows [lo, hi) along the shard axis on `device`: the rows
+    inside [0, h) copied from the blocks that hold them, `fill` for the
+    rows outside (above the top, and below row h, where the last block's
+    padding rows count as outside)."""
+    ax, hs = shards.axis, shards.hs
+    pieces = []
+    if lo < 0:
+        pieces.append(_fill_rows(shards.parts[0], min(hi, 0) - lo, ax, fill, device))
+    a, b = max(lo, 0), min(hi, shards.h)
+    while a < b:
+        i = a // hs
+        e = min(b, (i + 1) * hs)
+        pieces.append(shards.parts[i].narrow(ax, a - i * hs, e - a).to(device))
+        a = e
+    if hi > max(shards.h, lo):
+        pieces.append(_fill_rows(shards.parts[0], hi - max(shards.h, lo), ax, fill, device))
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=ax)
+
+
+def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum along `dim` in a fixed pairwise order: zero-pad the axis to a
+    power of two, then add its halves until one element is left. Each
+    output element's additions depend only on the values along `dim`,
+    never on the other axes' sizes, the device or a library's choice of
+    reduction tree, so partial sums cut at any rows reduce to the same
+    bits. `dim` is removed."""
+    n = x.shape[dim]
+    p = 1
+    while p < n:
+        p *= 2
+    if p > n:
+        shape = list(x.shape)
+        shape[dim] = p - n
+        x = torch.cat([x, x.new_zeros(shape)], dim=dim)
+    while p > 1:
+        p //= 2
+        x = x.narrow(dim, 0, p) + x.narrow(dim, p, p)
+    return x.squeeze(dim)
 
 
 def halo(shards: RowShards, m: int) -> tuple[torch.Tensor, ...]:
@@ -76,20 +135,20 @@ def halo(shards: RowShards, m: int) -> tuple[torch.Tensor, ...]:
     for i, p in enumerate(parts):
         top = (
             parts[i - 1].narrow(ax, shards.hs - m, m).to(p.device)
-            if i > 0 else _zero_rows(p, m, ax)
+            if i > 0 else _fill_rows(p, m, ax, 0, p.device)
         )
         bot = (
             parts[i + 1].narrow(ax, 0, m).to(p.device)
-            if i + 1 < len(parts) else _zero_rows(p, m, ax)
+            if i + 1 < len(parts) else _fill_rows(p, m, ax, 0, p.device)
         )
         out.append(torch.cat([top, p, bot], dim=ax))
     return tuple(out)
 
 
-def _zero_rows(p: torch.Tensor, m: int, axis: int) -> torch.Tensor:
+def _fill_rows(p: torch.Tensor, m: int, axis: int, fill, device) -> torch.Tensor:
     shape = list(p.shape)
     shape[axis] = m
-    return p.new_zeros(shape)
+    return torch.full(shape, fill, dtype=p.dtype, device=device)
 
 
 def assert_spans_mesh(shards: RowShards, mesh: Mesh) -> None:

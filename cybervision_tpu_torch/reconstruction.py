@@ -15,8 +15,10 @@ Device: `--mode=gpu` (the default) and `gpu-low-power` run on CUDA and
 fail when no CUDA device is present; `--mode=cpu` runs on the CPU with
 each kernel's plain PyTorch version. A run reads parallel.pipeline_mesh()
 once: with a mesh (several cards, or parallel.use_mesh) matching,
-RANSAC and the refine sweeps shard over it and everything else runs on
-its lead device; without one the single-device path is unchanged.
+RANSAC (per pair), P3P candidate scoring and every pyramid level of the
+dense correlation (resize to cross-check) shard over it, and everything
+else runs on its lead device; without one the single-device path is
+unchanged.
 """
 
 from __future__ import annotations
@@ -363,7 +365,7 @@ class Reconstruction:
         n = len(self.filenames)
         pipeline = sfm.SfmPipeline(
             [self.image(i) for i in range(n)], self.cfg, quiet=self.quiet,
-            device=self.device, phases=self.phases,
+            device=self.device, phases=self.phases, mesh=self.mesh,
         )
         pair_list: list[tuple[int, int, np.ndarray]] = []
         for i in range(n - 1):

@@ -25,7 +25,10 @@ K1's tolerances) and to the unsharded kernel exactly; K3 launches on
 the caller's current stream; the draws on the card equal the CPU's, the
 --max-points sample and the exact cross-check too, and the depth
 colouring is within 1 level of it; with a second card, every kernel
-launches on cuda:1. At the perspective path's shapes: K1's per-pixel
+launches on cuda:1. Every pyramid level over four row shards on one
+card equals the unsharded level bit for bit, at the 1024x1024 SEM pair
+and at the diagonal perspective pair (K1s's per-pixel form). At the
+perspective path's shapes: K1's per-pixel
 form at corridor size 4, K2 at 150,000 candidates from the 7-point
 solver, K3 at (13, 7, 50,000) draws. This file imports nothing of JAX,
 so the card tests run where JAX is absent:
@@ -569,6 +572,88 @@ def test_row_halo_sweep_matches_plain_and_equals_unsharded(cuda, axis, h):
     single = k1.ncc_sweep(*fields.values(), axis=axis, **kw)
     for a, b in zip(out, single):
         assert torch.equal(a, b)
+
+
+def _levels_on_the_card(cuda, img1, img2, f, proj, n=4):
+    """The pyramid of an image pair run unsharded on the card, every level
+    also run over n shards on the card from the same previous states:
+    [(level, unsharded states, sharded states)], the finest level's
+    windows from its reach, as correlate_images picks them."""
+    from cybervision_tpu_torch.config import CorrelationConfig, pyramid_scales
+
+    cc = CorrelationConfig()
+    params = (cc.threshold(proj), cc.min_stdev(proj), cc.corridor_min_range(proj),
+              cc.corridor_extend_range(proj), cc.corridor_size(proj))
+    f = corr.normalize_f(f)
+    pair = corr._Pair((cuda,), img1, img2, f)
+    levels = [corr._plan_level(f, s, img1.shape, img2.shape)
+              for s in pyramid_scales(img1.shape[::-1], cc.scale_min_size)]
+    mesh = Mesh((cuda,) * n)
+    corr._LAST_PLAN = {"mesh": True, "sharded_levels": [], "sharded_prologue": [], "windows": []}
+    prev, out = (None, None), []
+    for i, lv in enumerate(levels):
+        wins = (16, 16)
+        if i == len(levels) - 1:
+            wins = tuple(max(16, corr._bucket(r, cc))
+                         for r in corr._reach_pair(pair, *prev, lv, params, None))
+        single = corr._level_step(pair, *prev, lv, params, *wins, i == 0)
+        sharded = corr._level_step(pair, *prev, lv, params, *wins, i == 0, mesh)
+        out.append((lv, single, sharded))
+        prev = single
+    torch.cuda.synchronize()
+    return out, corr._LAST_PLAN
+
+
+def _assert_levels_equal(levels, cuda):
+    for _, single, sharded in levels:
+        for a, b in zip(single, sharded):
+            for x, y in zip(corr.gather_state(a, cuda), corr.gather_state(b, cuda)):
+                assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_sharded_levels_on_the_card_equal_unsharded_at_1024_sem(cuda):
+    """The 1024x1024 SEM pair (chip_smoke.synth_sem_pair, horizontal
+    disparity): every pyramid level over four shards on one card equals
+    the unsharded level bit for bit, resize to cross-check, its finest
+    refine level's sweeps as K1s."""
+    import chip_smoke
+    from cybervision_tpu_torch.config import ProjectionMode
+
+    img1, img2, _ = chip_smoke.synth_sem_pair(1024, 1024)
+    levels, plan = _levels_on_the_card(cuda, img1, img2, F_HSHIFT, ProjectionMode.AFFINE)
+    # Each level ran twice (unsharded, sharded): the plan's odd entries.
+    assert all(plan["sharded_prologue"][1::2]) and plan["sharded_levels"][-1], plan
+    _assert_levels_equal(levels, cuda)
+    assert float(corr.gather_state(levels[-1][1][0], cuda).valid.float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+def test_sharded_levels_on_the_card_equal_unsharded_at_the_diagonal_pair(cuda):
+    """chip_smoke's diagonal pair at 1024x819 with the F of its cameras:
+    no level has a uniform sweep axis, so the refine levels' K1s runs
+    its per-pixel form on four shards on one card; every level equals
+    the unsharded one bit for bit."""
+    import chip_smoke
+    from cybervision_tpu_torch.config import ProjectionMode
+
+    w = round(chip_smoke.PERSP_W * chip_smoke.FULL_SCALE)
+    h = round(chip_smoke.PERSP_H * chip_smoke.FULL_SCALE)
+    views, _, k, cams = chip_smoke.render_perspective(w, h, (chip_smoke.PERSP_CAM_DIAGONAL,))
+    r, t = cams[0].r_matrix, cams[0].t
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    k_inv = np.linalg.inv(k)
+    f = k_inv.T @ tx @ r @ k_inv
+    k1.pixel_launches = k1.sharded_launches = 0
+    levels, plan = _levels_on_the_card(cuda, views[0], views[1], f, ProjectionMode.PERSPECTIVE)
+    assert all(lv.fv_f is None and lv.fv_r is None for lv, _, _ in levels[1:])
+    sharded = sum(plan["sharded_levels"][1::2])
+    assert sharded and k1.sharded_launches == 2 * sharded
+    assert k1.pixel_launches >= 4 * k1.sharded_launches
+    _assert_levels_equal(levels, cuda)
+    # Not an empty scene: its finest level keeps 0.236 of its pixels on
+    # an H100.
+    assert float(corr.gather_state(levels[-1][1][0], cuda).valid.float().mean()) > 0.2
 
 
 @pytest.mark.cuda
