@@ -167,7 +167,14 @@ Phases, each of which raises on failure:
        (--interpolation=none), each file equal to imageio.rgba_encode on
        the RGBA of the in-memory run on the decoded planes. Every decoded
        plane of (h) and (i) has the committed SHA-256 of Pillow's
-       (instrument_files, FORMATS_SHA256).
+       (instrument_files, FORMATS_SHA256);
+   (j) with Pillow blocked as well: phase 3's pair as 8-bit gray GIFs
+       (write_gif, one interlaced) -> PLY, byte-equal to reconstruct's on
+       the arrays; the full-width pair as committed lossy WebPs (ALPH,
+       VP8 and EXIF chunks) and BASELINE #3's views as committed lossless
+       WebPs (VP8L, EXIF) -> OBJ, no --focal-length, with (f)'s gates;
+       every plane has the committed SHA-256 of Pillow's ("gif_webp"),
+       every WebP's EXIF focal length is 43.
    One JSON record per run: seconds, phases, decode seconds per file and
    plane, encode (and write) seconds per depth map, launches, the card's
    name and power limit.
@@ -179,7 +186,7 @@ the device record ({"ok": true, ...}).
 The script exits non-zero, printing neither, when there is no CUDA device
 or any phase fails. It imports nothing of JAX and nothing of the JAX
 package, and needs no Pillow: images are built in memory or written by
-its own writers (write_tiff, write_bmp, writers.encode_png).
+its own writers (write_tiff, write_bmp, write_gif, writers.encode_png).
 """
 
 from __future__ import annotations
@@ -2153,6 +2160,12 @@ PERSP_DECODED = os.path.join(ROOT, "tests", "fixtures", "torch_persp_decoded.npz
 PERSP_FULL_JPEGS = [os.path.join(ROOT, "tests", "fixtures", f"torch_persp_full_v{i}.jpg")
                     for i in range(2)]
 PERSP_FULL_TWINS = [p[: -len(".jpg")] + "_baseline.jpg" for p in PERSP_FULL_JPEGS]
+# Phase 8 (j): the full-width pair as lossy WebPs (VP8X: ALPH, VP8, EXIF)
+# and BASELINE #3's views as lossless ones (VP8L, EXIF), written by
+# tests/gen_torch_formats_fixture.py.
+PERSP_FULL_WEBPS = [p[: -len(".jpg")] + ".webp" for p in PERSP_FULL_JPEGS]
+PERSP_WEBPS_LOSSLESS = [os.path.join(ROOT, "tests", "fixtures", f"torch_persp_v{i}_lossless.webp")
+                        for i in range(2)]
 FORMATS_SHA256 = os.path.join(ROOT, "tests", "fixtures", "torch_formats_sha256.json")
 TIFF_TILE = 256  # phase 8 (g)'s tiled layout
 JPEG_TIFF_ROWS = 64  # phase 8 (i)'s JPEG-in-TIFF rows per strip
@@ -2347,6 +2360,73 @@ def write_bmp(path: str, img: np.ndarray, rle: bool = False) -> None:
         fh.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 1 if rle else 0, len(data), 3780, 3780,
                              256, 0))
         fh.write(palette.tobytes() + data)
+
+
+def gif_lzw(indices: np.ndarray, min_size: int, deferred_clear: bool = False) -> bytes:
+    """A GIF frame's image data after its minimum code size byte: the
+    indices (all below 2^min_size) LZW-coded with codes LSB first, a clear
+    code first, the code width growing once code 2^k is defined, up to 12
+    bits; when the table is full a clear code restarts it, or, with
+    `deferred_clear`, the full table stays in use. In sub-blocks of 255
+    bytes, then the end code and the block terminator."""
+    clear = 1 << min_size
+    width, nxt, table = min_size + 1, clear + 2, {}
+    codes, widths = [clear], [width]
+    data = indices.ravel().tolist()
+    w = data[0]
+    for c in data[1:]:
+        key = (w << 12) | c
+        hit = table.get(key)
+        if hit is not None:
+            w = hit
+            continue
+        codes.append(w)
+        widths.append(width)
+        if nxt < 4096:
+            table[key] = nxt
+            nxt += 1
+            if nxt - 1 == 1 << width and width < 12:
+                width += 1
+        elif not deferred_clear:
+            codes.append(clear)
+            widths.append(width)
+            width, nxt, table = min_size + 1, clear + 2, {}
+        w = c
+    codes += [w, clear + 1]
+    widths += [width, width]
+    out, acc, bits = bytearray(), 0, 0
+    for code, n in zip(codes, widths):
+        acc |= code << bits
+        bits += n
+        while bits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            bits -= 8
+    if bits:
+        out.append(acc)
+    blocks = b"".join(bytes([len(out[i : i + 255])]) + out[i : i + 255]
+                      for i in range(0, len(out), 255))
+    return blocks + b"\0"
+
+
+def interlaced_rows(h: int) -> np.ndarray:
+    """A GIF's interlaced row order: every 8th row from 0, from 4, every
+    4th from 2, every 2nd from 1."""
+    return np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8), np.arange(2, h, 4),
+                           np.arange(1, h, 2)])
+
+
+def write_gif(path: str, img: np.ndarray, interlace: bool = False) -> None:
+    """A GIF89a of the gray image: a global table of the 256 grays (entry
+    i = (i, i, i): Pillow opens it as "L"), one frame, its rows LZW-coded
+    (gif_lzw), in the interlaced pass order when asked."""
+    h, w = img.shape
+    rows = img[interlaced_rows(h)] if interlace else img
+    table = np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+    with open(path, "wb") as fh:
+        fh.write(b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0) + table)
+        fh.write(b"," + struct.pack("<HHHHB", 0, 0, w, h, 0x40 if interlace else 0) + b"\x08")
+        fh.write(gif_lzw(rows, 8) + b";")
 
 
 def encoder_cases() -> list[tuple[str, np.ndarray]]:
@@ -2690,6 +2770,7 @@ def phase_cli_files(counters, smi: str, texture_obj_sha: str) -> dict:
         records.update(cli_progressive_pair(cap, smi, td))
         records.update(cli_tiff_layouts(cap, smi, td, img1, img2, ref_sha))
         records.update(cli_instrument_files(cap, smi, td, img1, img2))
+        records.update(cli_gif_webp(cap, smi, td, img1, img2))
     torch.cuda.empty_cache()
     return records
 
@@ -2744,7 +2825,7 @@ def cli_jpeg_depth_map(cap, smi: str, td: str, tifs: list[str], timed_rgb: dict)
 
 def cli_exif_jpeg_pair(cap, smi: str, td: str, run: str, label: str, paths: list[str], srcs,
                        checks: dict, size: tuple[int, int]) -> dict:
-    """Phase 8 (c) and (f): a JPEG pair of phase 6's scene at `size`,
+    """Phase 8 (c), (f) and (j): a JPEG or WebP pair of phase 6's scene at `size`,
     EXIF 41989 = 43 and no --focal-length -> OBJ. `checks` holds the
     caller's gates on the decoded planes (`srcs`); K must be the 43 mm K,
     the OBJ the in-memory run's on the decoded planes, and phase 6's
@@ -2851,6 +2932,15 @@ def instrument_files(td: str, img1, img2) -> dict[str, list[str]]:
     return files
 
 
+def gif_pair(td: str, img1, img2) -> list[str]:
+    """Phase 8 (j)'s GIF pair: phase 3's images as 8-bit gray GIFs
+    (write_gif), the first in row order, the second interlaced."""
+    paths = [os.path.join(td, f"gif_{k}.gif") for k in range(2)]
+    write_gif(paths[0], img1)
+    write_gif(paths[1], img2, interlace=True)
+    return paths
+
+
 class _NoPillow:
     """A sys.meta_path finder under which every import of Pillow raises,
     while a `with` block runs (Pillow's modules already loaded are set
@@ -2953,6 +3043,71 @@ def cli_instrument_files(cap, smi: str, td: str, img1, img2) -> dict:
               f" port's writer on the in-memory run's RGBA {same}")
         if not same:
             raise AssertionError(f"{label}: the depth map differs from the in-memory run's")
+    return records
+
+
+def cli_gif_webp(cap, smi: str, td: str, img1, img2) -> dict:
+    """Phase 8 (j), with every import of Pillow blocked (_NoPillow): (1)
+    phase 3's pair as gray GIFs (gif_pair) -> PLY, equal to reconstruct's
+    on the arrays; (2) the full-width pair as the committed lossy WebPs
+    (ALPH, VP8, EXIF) and (3) BASELINE #3's views as the committed
+    lossless WebPs (VP8L, EXIF) -> OBJ, no --focal-length, with
+    cli_exif_jpeg_pair's gates. Every decoded plane has the committed
+    SHA-256 of Pillow's ("gif_webp"); the GIF planes are the arrays and
+    every WebP's EXIF focal length is 43."""
+    from cybervision_tpu_torch.config import MeshMode, ProjectionMode, ReconstructionConfig
+    from cybervision_tpu_torch.images import SourceImage, read_metadata
+    from cybervision_tpu_torch.reconstruction import reconstruct
+
+    with open(FORMATS_SHA256) as fh:
+        committed = json.load(fh)["gif_webp"]
+    t0 = time.perf_counter()
+    gifs = gif_pair(td, img1, img2)
+    written = time.perf_counter() - t0
+    records = {}
+    with _NoPillow():
+        srcs = {}
+        for kind, paths in (("gif", gifs), ("lossy webp", PERSP_FULL_WEBPS),
+                            ("lossless webp", PERSP_WEBPS_LOSSLESS)):
+            srcs[kind] = [SourceImage.load(p) for p in paths]
+            ok = all(_plane_sha(s.img) == committed[os.path.basename(p)]["l"]
+                     and _plane_sha(s.load_rgb_plane()) == committed[os.path.basename(p)]["rgb"]
+                     for s, p in zip(srcs[kind], paths))
+            focal = [read_metadata(p).focal_length_35mm for p in paths]
+            print(f"(j) {kind} files {[os.path.getsize(p) for p in paths]} bytes: planes equal to"
+                  f" Pillow's (SHA-256) {ok}; EXIF focal lengths {focal}")
+            if not ok or focal != ([None, None] if kind == "gif" else [PERSP_FOCAL_35MM] * 2):
+                raise AssertionError(f"(j) {kind}: the planes are not Pillow's or the focal"
+                                     " length is not the file's")
+        lossless = all(np.array_equal(s.img, im) for s, im in zip(srcs["gif"], (img1, img2)))
+        label = f"(j) gray GIF pair {SIZE}x{SIZE} -> PLY"
+        print(f"{label}: written in {written:.2f} s (write_gif); gray planes equal to the arrays"
+              f" {lossless}")
+        if not lossless:
+            raise AssertionError(f"{label}: the GIF planes are not the arrays")
+        ref_ply, out = os.path.join(td, "mem_j.ply"), os.path.join(td, "gif.ply")
+        reconstruct(["a", "b"], ref_ply, ReconstructionConfig(
+            projection=ProjectionMode.AFFINE, mesh=MeshMode.VERTEX_COLORS), quiet=True,
+            images=[SourceImage(im) for im in (img1, img2)])
+        run = cap.main(["--projection=parallel", "--mesh=vertex-colors", *gifs, out])
+        records["gif ply"] = cli_record("(j) gray GIF", run["seconds"], run["rec"].phases,
+                                        run["decode"], run["launches"], smi)
+        same = _sha(out) == _sha(ref_ply)
+        print(f"{label}: PLY equal to the in-memory run's {same}")
+        if not same:
+            raise AssertionError(f"{label}: the PLY differs from the in-memory run's")
+        w, h = round(PERSP_W * FULL_SCALE), round(PERSP_H * FULL_SCALE)
+        records["lossy webp"] = cli_exif_jpeg_pair(
+            cap, smi, td, "(j) lossy WebP pair", f"(j) lossy WebP pair {w}x{h} -> OBJ",
+            PERSP_FULL_WEBPS, srcs["lossy webp"], {}, (w, h))
+        records["lossless webp"] = cli_exif_jpeg_pair(
+            cap, smi, td, "(j) lossless WebP pair",
+            f"(j) lossless WebP pair {PERSP_W}x{PERSP_H} -> OBJ", PERSP_WEBPS_LOSSLESS,
+            srcs["lossless webp"], {}, (PERSP_W, PERSP_H))
+        pil = any(m == "PIL" or m.startswith("PIL.") for m in sys.modules)
+    print(f"(j) Pillow imported during the runs {pil}")
+    if pil:
+        raise AssertionError("(j): Pillow was imported")
     return records
 
 

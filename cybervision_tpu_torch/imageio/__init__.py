@@ -2,17 +2,18 @@
 1-16 bits included), TIFF (the FEI SEM format; strips or tiles, chunky
 or planar, 1 to 32-bit integer and float samples, CCITT and JPEG
 strips, classic or BigTIFF), JPEG (sequential or progressive; gray,
-YCbCr, RGB, CMYK or YCCK) and BMP (palettes, 16 to 32 bits, bit fields,
-RLE), giving what the JAX package reads through Pillow — the SEM
-metadata tag, the EXIF focal length, and the planes of convert("L") and
-convert("RGB"), bit for bit. The writers of the depth maps are
-jpeg_encode (JPEG) and rgba_encode (TIFF, BMP).
+YCbCr, RGB, CMYK or YCCK), BMP (palettes, 16 to 32 bits, bit fields,
+RLE), GIF (the first frame) and WebP (lossless, lossy with alpha, VP8X
+with EXIF, an animation's first frame), giving what the JAX package
+reads through Pillow — the SEM metadata tag, the EXIF focal length, and
+the planes of convert("L") and convert("RGB"), bit for bit. The writers
+of the depth maps are jpeg_encode (JPEG) and rgba_encode (TIFF, BMP).
 
 The containers are parsed here in Python; the pixel loops run in the
-native library (native/imagedecode.cpp), built at first use. PNG,
-uncompressed BMP and uncompressed, PackBits or Deflate TIFF have a numpy
-path for when it cannot be built; JPEG, LZW, CCITT and JPEG-in-TIFF and
-RLE BMP then raise NativeDecoderError.
+native library (native/imagedecode.cpp, native/webpdecode.cpp), built at
+first use. PNG, uncompressed BMP and uncompressed, PackBits or Deflate
+TIFF have a numpy path for when it cannot be built; JPEG, LZW, CCITT,
+JPEG-in-TIFF, RLE BMP, GIF and WebP then raise NativeDecoderError.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import dataclasses
 
 import numpy as np
 
-from cybervision_tpu_torch.imageio import bmp, exif, jpeg, png, tiff
+from cybervision_tpu_torch.imageio import bmp, exif, gif, jpeg, png, tiff, webp
 from cybervision_tpu_torch.imageio.convert import to_l, to_rgb
 from cybervision_tpu_torch.imageio.errors import (
     CorruptImageError,
@@ -66,7 +67,7 @@ class ImageFile:
         JAX package's getexif() or int() would."""
         if self.format == "TIFF":
             return self.parsed.focal_length_35mm()
-        if self.format == "BMP":
+        if self.format in ("BMP", "GIF"):
             return None
         if self.format == "PNG":
             block = self.parsed.exif
@@ -81,7 +82,8 @@ class ImageFile:
 
     def decode(self) -> tuple[str, np.ndarray, np.ndarray | None]:
         """(mode, pixels, palette); see the format modules."""
-        module = {"PNG": png, "TIFF": tiff, "JPEG": jpeg, "BMP": bmp}[self.format]
+        module = {"PNG": png, "TIFF": tiff, "JPEG": jpeg, "BMP": bmp, "GIF": gif,
+                  "WebP": webp}[self.format]
         return module.decode(self.parsed, _native())
 
 
@@ -94,10 +96,12 @@ def sniff(data: bytes) -> str:
         return "JPEG"
     if data.startswith(b"BM"):
         return "BMP"
-    kind = ("GIF" if data.startswith(b"GIF8")
-            else "WebP" if data[:4] == b"RIFF" and data[8:12] == b"WEBP" else "this file format")
-    raise UnsupportedImageError(f"{kind} input is not supported yet: the readers take PNG, TIFF,"
-                                " JPEG and BMP")
+    if data[:6] in gif.SIGNATURES:
+        return "GIF"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in webp.FIRST_CHUNKS:
+        return "WebP"
+    raise UnsupportedImageError("this file format is not supported: the readers take PNG, TIFF,"
+                                " JPEG, BMP, GIF and WebP")
 
 
 def open_image(path: str, metadata_only: bool = False) -> ImageFile:
@@ -112,6 +116,10 @@ def open_image(path: str, metadata_only: bool = False) -> ImageFile:
         parsed = tiff.parse(data)
     elif fmt == "BMP":
         parsed = bmp.parse(data)
+    elif fmt == "GIF":
+        parsed = gif.parse(data)
+    elif fmt == "WebP":
+        parsed = webp.parse(data)
     else:
         parsed = jpeg.parse(data, metadata_only=metadata_only)
     return ImageFile(fmt, parsed)

@@ -3,7 +3,8 @@ bit, from the modes the readers return:
   * "L" from RGB: (R*19595 + G*38470 + B*7471 + 0x8000) >> 16, also for
     a palette's entries and with RGBA's alpha dropped;
   * "L" and "RGB" from 16-bit gray ("I;16", "I;16B") clip to 255;
-  * "RGB" from gray repeats it; LA and RGBA drop their alpha;
+  * "RGB" from gray repeats it, or, for an "L" GIF frame that carries a
+    palette, maps it; LA and RGBA drop their alpha;
   * "1" (a 1-bit PNG, BMP or TIFF) is stored as 0 and 255, as Pillow's
     bit2l gives it;
   * "I" (32-bit signed) clips to 0-255 (i2l, i2rgb); "F" (float32)
@@ -65,6 +66,8 @@ def to_l(mode: str, px: np.ndarray, palette: np.ndarray | None) -> np.ndarray:
 
 def to_rgb(mode: str, px: np.ndarray, palette: np.ndarray | None) -> np.ndarray:
     """(H, W, 3) uint8: Pillow's convert("RGB")."""
+    if mode == "L" and palette is not None:
+        return palette[px]  # a GIF's "L" frame over a "P" image (imageio.gif)
     gray = _gray(mode, px)
     if gray is not None:
         return np.repeat(gray[:, :, None], 3, axis=2)

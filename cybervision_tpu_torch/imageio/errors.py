@@ -27,3 +27,15 @@ def native_missing(what: str) -> NativeDecoderError:
     return NativeDecoderError(
         f"{what} needs the native decoder, which could not be built"
         " (the native library needs make and a C++ compiler, g++)")
+
+
+# Pillow's Image.open refuses an image of more than twice
+# Image.MAX_IMAGE_PIXELS (its decompression-bomb check).
+BOMB_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
+
+
+def bomb_check(size: tuple[int, int], what: str) -> None:
+    """Raise where Pillow's decompression-bomb check refuses `size`."""
+    if size[0] * size[1] > BOMB_PIXELS:
+        raise CorruptImageError(f"{what} of {size[0]}x{size[1]} is past Pillow's"
+                                " decompression-bomb limit")

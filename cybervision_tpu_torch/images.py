@@ -8,7 +8,7 @@ Mirrors the reference's SourceImage (reconstruction.rs:23-186):
   * EXIF FocalLengthIn35mmFilm (reconstruction.rs:138-142)
 
 Files are read by the port's own readers (cybervision_tpu_torch.imageio:
-PNG, TIFF, baseline JPEG), not by Pillow, with the JAX package's
+PNG, TIFF, JPEG, BMP, GIF and WebP), not by Pillow, with the JAX package's
 semantics (cybervision_tpu/images.py:36-112,180-207): the same metadata
 and the same planes as Pillow's convert("L") and convert("RGB"). The
 pyramid resize runs on the tensor device (ops.correlation.device_resize),

@@ -1,19 +1,20 @@
 """ctypes bindings for the native host library: the writers and meshers
-(native.cpp), the image readers' pixel loops (imagedecode.cpp) and the
-JPEG writer's (imageencode.cpp).
+(native.cpp), the image readers' pixel loops (imagedecode.cpp and, for
+WebP, webpdecode.cpp) and the JPEG writer's (imageencode.cpp).
 
 native.cpp is a copy of cybervision_tpu/native/native.cpp; every entry
 point is bound here: the affine lanes' writers and meshers and the SFM
 track merge. imagedecode.cpp is the port's own: PNG unfiltering, TIFF
-PackBits, LZW and CCITT, BMP RLE, baseline and progressive JPEG
-(cybervision_tpu_torch.imageio); imageencode.cpp the JPEG writer's scan
+PackBits, LZW and CCITT, BMP RLE, GIF LZW, baseline and progressive JPEG
+(cybervision_tpu_torch.imageio); webpdecode.cpp WebP's VP8L, VP8 and
+ALPH bitstreams; imageencode.cpp the JPEG writer's scan
 (imageio.jpeg_encode).
 The shared library builds with make into this directory at its first
 use, not at import. `load` raises ImportError when it cannot be built or
 loaded (no toolchain): callers ask `available()` and then take their
 numpy paths, as the JAX package's callers do when its native module
-fails to import (JPEG, LZW, CCITT and BMP RLE have none: the readers
-raise).
+fails to import (JPEG, LZW, CCITT, BMP RLE, GIF and WebP have none: the
+readers raise).
 """
 
 from __future__ import annotations
@@ -62,10 +63,14 @@ _SIGNATURES = {
     "tiff_lzw": ([_U8P, _L, _U8P, _L], _L),
     "tiff_ccitt": ([_U8P, _L, _L, _L, _L, _U8P], _L),
     "bmp_rle": ([_U8P, _L, _L, _L, _L, _L, _U8P], _L),
+    "gif_lzw": ([_U8P, _L, _L, _L, _L, _L, _U8P], _L),
     "jpeg_decode": ([_U8P, _L, _I32P, _U16P, _I32P, _L, _U8P, _U8P], _L),
     "jpeg_encode_scan": ([_U8P, _L, _L, _L, _U16P, _U8P, _U8P, _L], _L),
+    "webp_vp8l_decode": ([_U8P, _L, _L, _L, ctypes.POINTER(ctypes.c_uint32)], _L),
+    "webp_vp8_decode": ([_U8P, _L, _L, _L, _U8P], _L),
+    "webp_alph_decode": ([_U8P, _L, _L, _L, _U8P], _L),
 }
-_SOURCES = ("native.cpp", "imagedecode.cpp", "imageencode.cpp", "Makefile")
+_SOURCES = ("native.cpp", "imagedecode.cpp", "imageencode.cpp", "webpdecode.cpp", "Makefile")
 
 
 def load() -> ctypes.CDLL:
@@ -394,6 +399,19 @@ def bmp_rle(src: bytes, start: int, width: int, height: int, rle4: bool) -> tupl
     return out, int(n)
 
 
+def gif_lzw(src: bytes, bits: int, interlace: bool, width: int, height: int) -> np.ndarray:
+    """A GIF frame's LZW data, from the byte after its minimum code size
+    `bits` to the file's end (imagedecode.cpp's gif_lzw): (height, width)
+    uint8 indices, interlaced rows put in place."""
+    sptr, _keep = _bytes_ptr(src)
+    out = np.zeros((height, width), np.uint8)
+    code = load().gif_lzw(sptr, len(src), bits, int(interlace), width, height,
+                          _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "gif_lzw")
+    return out
+
+
 def jpeg_decode(data: bytes, frame: np.ndarray, quant: np.ndarray, scans: np.ndarray,
                 huff: np.ndarray, channels: int) -> np.ndarray:
     """Pixels of a sequential or progressive JPEG whose markers
@@ -441,3 +459,36 @@ def jpeg_encode_scan(pixels: np.ndarray, quant: np.ndarray, huff: np.ndarray) ->
     if n < 0:
         raise ValueError(f"jpeg_encode_scan refused the image (code {n})")
     return out[:n].tobytes()
+
+
+def webp_vp8l_decode(data: bytes, width: int, height: int) -> np.ndarray:
+    """A VP8L bitstream, its header included (webpdecode.cpp's
+    webp_vp8l_decode): (height, width) uint32 0xAARRGGBB."""
+    dptr, _keep = _bytes_ptr(data)
+    out = np.empty((height, width), np.uint32)
+    code = load().webp_vp8l_decode(dptr, len(data), width, height, _ptr(out, ctypes.c_uint32))
+    if code < 0:
+        _decode_error(code, "webp_vp8l_decode")
+    return out
+
+
+def webp_vp8_decode(data: bytes, width: int, height: int) -> np.ndarray:
+    """A VP8 key frame (webpdecode.cpp's webp_vp8_decode): (height, width,
+    3) uint8 RGB as libwebp's RGBA output gives it."""
+    dptr, _keep = _bytes_ptr(data)
+    out = np.empty((height, width, 3), np.uint8)
+    code = load().webp_vp8_decode(dptr, len(data), width, height, _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "webp_vp8_decode")
+    return out
+
+
+def webp_alph_decode(data: bytes, width: int, height: int) -> np.ndarray:
+    """An ALPH chunk's payload (webpdecode.cpp's webp_alph_decode):
+    (height, width) uint8 alpha."""
+    dptr, _keep = _bytes_ptr(data)
+    out = np.empty((height, width), np.uint8)
+    code = load().webp_alph_decode(dptr, len(data), width, height, _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "webp_alph_decode")
+    return out

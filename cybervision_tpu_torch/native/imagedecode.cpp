@@ -4,6 +4,7 @@
 // port parses the containers in Python and runs the per-pixel work here:
 //   * PNG row unfiltering (None/Sub/Up/Average/Paeth), 8 and 16 bits;
 //   * TIFF PackBits, LZW and CCITT (T.4 / T.6) strips;
+//   * GIF LZW (Pillow's GifDecode.c);
 //   * BMP RLE8 and RLE4;
 //   * baseline and progressive JPEG (jdhuff.c, jdphuff.c): Huffman
 //     decoding with restart intervals, every progressive scan kind into
@@ -922,6 +923,136 @@ long tiff_lzw(const uint8_t *src, long n, uint8_t *dst, long cap) {
     if (next + 1 >= (1 << width) && width < 12) width++;
   }
   return o;
+}
+
+// GIF LZW: the image data of one frame, from the byte after its minimum
+// code size `bits` to the end of the file, into the (ysize, xsize) frame
+// `out`, as Pillow's GifDecode.c decodes it for the first frame: codes
+// LSB first in length-prefixed sub-blocks, starting at bits + 1 wide and
+// widening after code 2^k - 1 is defined, up to 12 bits; a full table
+// waits for a clear code; interlaced rows in the passes 8/8/4/2. The
+// image is done when its last pixel is written (the rest of the data is
+// not read). Pillow feeds the decoder 64 KiB at a time and raises when
+// the file ends before the image does; an end code before the last pixel
+// only pauses it, so it goes on with the next 64 KiB if there is one.
+// Returns 0, kTruncated, kCorrupt (a code past the table) or
+// kUnsupported (bits above 12).
+long gif_lzw(const uint8_t *src, long n, long bits, long interlace, long xsize, long ysize,
+             uint8_t *out) {
+  constexpr int kTable = 4096, kBits = 12;
+  constexpr long kBlock = 65536;
+  if (bits < 0 || bits > kBits) return kUnsupported;
+  if (xsize <= 0 || ysize <= 0) return kCorrupt;
+  std::vector<uint8_t> data(kTable), buffer(kTable);
+  std::vector<uint16_t> link(kTable);
+  const int clear = 1 << bits, end = clear + 1;
+  int pass = interlace ? 1 : 0, step = interlace ? 8 : 1;
+  int state = 1, next = 0, codesize = 0, codemask = 0, bufferindex = kTable;
+  uint32_t bitbuffer = 0;
+  int bitcount = 0, blocksize = 0, lastcode = 0;
+  uint8_t lastdata = 0;
+  long x = 0, y = 0, pos = 0, fed = std::min(n, kBlock);
+  for (;;) {
+    if (state == 1) {
+      next = clear + 2;
+      codesize = (int)bits + 1;
+      codemask = (1 << codesize) - 1;
+      bufferindex = kTable;
+      state = 2;
+    }
+    const uint8_t *p;
+    int len;
+    if (bufferindex < kTable) {
+      len = kTable - bufferindex;
+      p = &buffer[bufferindex];
+      bufferindex = kTable;
+    } else {
+      bool pause = false;
+      while (bitcount < codesize) {
+        if (blocksize > 0) {
+          bitbuffer |= (uint32_t)src[pos++] << bitcount;
+          bitcount += 8;
+          blocksize--;
+        } else if (fed - pos < 1 || fed - pos < (long)src[pos] + 1) {
+          pause = true;  // only whole sub-blocks are decoded
+          break;
+        } else {
+          blocksize = src[pos++];
+        }
+      }
+      int c = pause ? end : (int)(bitbuffer & (uint32_t)codemask);
+      if (!pause) {
+        bitbuffer >>= codesize;
+        bitcount -= codesize;
+      }
+      if (c == clear) {
+        if (state != 2) state = 1;
+        continue;
+      }
+      if (c == end) {
+        // Pillow's decode call returns here; its next read of the file
+        // either feeds more data or ends the load as truncated.
+        if (fed == n) return kTruncated;
+        fed = std::min(n, fed + kBlock);
+        continue;
+      }
+      len = 1;
+      p = &lastdata;
+      if (state == 2) {
+        if (c > clear) return kCorrupt;
+        lastdata = (uint8_t)c;
+        lastcode = c;
+        state = 3;
+      } else {
+        const int thiscode = c;
+        if (c > next) return kCorrupt;
+        if (c == next) {
+          if (bufferindex <= 0) return kCorrupt;
+          buffer[--bufferindex] = lastdata;
+          c = lastcode;
+        }
+        while (c >= clear) {
+          if (bufferindex <= 0 || c >= kTable) return kCorrupt;
+          buffer[--bufferindex] = data[c];
+          c = link[c];
+        }
+        lastdata = (uint8_t)c;
+        if (next < kTable) {
+          data[next] = (uint8_t)c;
+          link[next] = (uint16_t)lastcode;
+          if (next == codemask && codesize < kBits) {
+            codesize++;
+            codemask = (1 << codesize) - 1;
+          }
+          next++;
+        }
+        lastcode = thiscode;
+      }
+    }
+    if (y >= ysize) return kCorrupt;
+    for (int k = 0; k < len; k++) {
+      out[y * xsize + x] = p[k];
+      if (++x < xsize) continue;
+      x = 0;
+      y += step;
+      while (y >= ysize) {
+        if (pass == 1) {
+          y = 4;
+          pass = 2;
+        } else if (pass == 2) {
+          step = 4;
+          y = 2;
+          pass = 3;
+        } else if (pass == 3) {
+          step = 2;
+          y = 1;
+          pass = 0;
+        } else {
+          return 0;  // the last pixel is written
+        }
+      }
+    }
+  }
 }
 
 // Baseline (sequential) or progressive Huffman JPEG with 1, 3 or 4

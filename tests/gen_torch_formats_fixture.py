@@ -13,16 +13,24 @@
   ("decoder"), of Pillow's default JPEG bytes of each of
   chip_smoke.encoder_cases()'s arrays ("encoder"), and of Pillow's
   planes of the BMP, float TIFF, JPEG-in-TIFF and RLE8 BMP files that
-  chip_smoke.instrument_files writes from phase 3's SEM pair ("phase8").
+  chip_smoke.instrument_files writes from phase 3's SEM pair ("phase8"),
+  and of the GIF and WebP files of phase 8 (j) ("gif_webp");
+* tests/fixtures/torch_persp_full_v{0,1}.webp: the full-width pair as
+  lossy WebPs at Pillow's default quality (80), with an alpha plane
+  that is not all opaque (so the encoder writes an ALPH chunk) and the
+  EXIF block above (a VP8X file with ALPH, VP8 and EXIF chunks);
+* tests/fixtures/torch_persp_v{0,1}_lossless.webp: BASELINE #3's two
+  320x256 views (tests/gen_torch_persp_fixture.py's tint) as lossless
+  WebPs (VP8L) with the same EXIF block.
 
 Run from the repo root:
 
     python -m tests.gen_torch_formats_fixture
 
 The port must decode the files to those planes and encode the arrays to
-those bytes (tests/test_torch_images.py, tests/test_torch_jpeg_encode.py
-here; chip_smoke.py phase 8 (e), (f), (h) and (i) on the card, which
-has no Pillow).
+those bytes (tests/test_torch_images.py, tests/test_torch_jpeg_encode.py,
+tests/test_torch_gif_webp.py here; chip_smoke.py phase 8 (e), (f) and
+(h)-(j) on the card, with Pillow blocked).
 """
 
 import hashlib
@@ -52,38 +60,72 @@ def phase8_planes() -> dict:
     """{file name: {"l", "rgb": SHA-256 of Pillow's planes}} of the files
     chip_smoke.instrument_files writes from phase 3's pair."""
     img1, img2, _ = chip_smoke.synth_sem_pair(chip_smoke.SIZE, chip_smoke.SIZE)
-    planes = {}
+    out = {}
     with tempfile.TemporaryDirectory() as td:
         for paths in chip_smoke.instrument_files(td, img1, img2).values():
             for path in paths:
-                with Image.open(path) as im:
-                    planes[os.path.basename(path)] = {
-                        "l": sha256(np.asarray(im.convert("L")).tobytes()),
-                        "rgb": sha256(np.asarray(im.convert("RGB")).tobytes()),
-                    }
-    return planes
+                out[os.path.basename(path)] = planes(path)
+    return out
+
+
+def planes(path: str) -> dict:
+    """SHA-256 of Pillow's convert("L") and convert("RGB") planes."""
+    with Image.open(path) as im:
+        return {"l": sha256(np.asarray(im.convert("L")).tobytes()),
+                "rgb": sha256(np.asarray(im.convert("RGB")).tobytes())}
+
+
+def focal_exif() -> bytes:
+    exif = Image.Exif()
+    exif.get_ifd(0x8769)[41989] = chip_smoke.PERSP_FOCAL_35MM
+    return exif.tobytes()
+
+
+def webp_fixtures(full_views) -> None:
+    """Write the four WebP fixtures (module docstring)."""
+    rng = np.random.RandomState(14)
+    for view, path in zip(full_views, chip_smoke.PERSP_FULL_WEBPS):
+        rgba = np.empty(view.shape + (4,), np.uint8)
+        rgba[:, :, :3] = tinted(view)
+        rgba[:, :, 3] = 255
+        rgba[-64:, -96:, 3] = rng.randint(160, 256, (64, 96))
+        Image.fromarray(rgba).save(path, exif=focal_exif())
+        print(path, os.path.getsize(path), "bytes")
+    views, _, _, _ = chip_smoke.render_perspective(
+        chip_smoke.PERSP_W, chip_smoke.PERSP_H, chip_smoke.PERSP_CAMS[:1], exact_focal=True)
+    for view, path in zip(views, chip_smoke.PERSP_WEBPS_LOSSLESS):
+        Image.fromarray(tinted(view)).save(path, lossless=True, exif=focal_exif())
+        print(path, os.path.getsize(path), "bytes")
+
+
+def gif_webp_planes() -> dict:
+    """{file name: Pillow's plane hashes} of phase 8 (j)'s files: the GIFs
+    chip_smoke.gif_pair writes from phase 3's pair and the WebP fixtures."""
+    img1, img2, _ = chip_smoke.synth_sem_pair(chip_smoke.SIZE, chip_smoke.SIZE)
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        for path in chip_smoke.gif_pair(td, img1, img2):
+            out[os.path.basename(path)] = planes(path)
+    for path in chip_smoke.PERSP_FULL_WEBPS + chip_smoke.PERSP_WEBPS_LOSSLESS:
+        out[os.path.basename(path)] = planes(path)
+    return out
 
 
 def main():
     w, h = round(chip_smoke.PERSP_W * chip_smoke.FULL_SCALE), round(chip_smoke.PERSP_H * chip_smoke.FULL_SCALE)
     views, _, _, _ = chip_smoke.render_perspective(w, h, chip_smoke.PERSP_CAMS[:1], exact_focal=True)
-    exif = Image.Exif()
-    exif.get_ifd(0x8769)[41989] = chip_smoke.PERSP_FOCAL_35MM
     decoder = {}
     for view, prog, twin in zip(views, chip_smoke.PERSP_FULL_JPEGS, chip_smoke.PERSP_FULL_TWINS):
         for path, progressive in ((prog, True), (twin, False)):
             Image.fromarray(tinted(view)).save(path, quality=75, subsampling=2,
-                                               progressive=progressive, exif=exif.tobytes())
+                                               progressive=progressive, exif=focal_exif())
             print(path, os.path.getsize(path), "bytes")
-        with Image.open(prog) as im:
-            decoder[os.path.basename(prog)] = {
-                "l": sha256(np.asarray(im.convert("L")).tobytes()),
-                "rgb": sha256(np.asarray(im.convert("RGB")).tobytes()),
-            }
+        decoder[os.path.basename(prog)] = planes(prog)
+    webp_fixtures(views)
     encoder = {name: sha256(pillow_jpeg(px)) for name, px in chip_smoke.encoder_cases()}
     with open(chip_smoke.FORMATS_SHA256, "w") as fh:
-        json.dump({"decoder": decoder, "encoder": encoder, "phase8": phase8_planes()}, fh,
-                  indent=1, sort_keys=True)
+        json.dump({"decoder": decoder, "encoder": encoder, "phase8": phase8_planes(),
+                   "gif_webp": gif_webp_planes()}, fh, indent=1, sort_keys=True)
         fh.write("\n")
     print(chip_smoke.FORMATS_SHA256, len(encoder), "encoder cases")
 

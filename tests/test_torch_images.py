@@ -1075,8 +1075,6 @@ def _sof_rewritten(path, rng, marker: int, precision: int = 8):
 
 # kind -> (extension, whether Pillow reads the file)
 UNSUPPORTED = {
-    "gif": ("gif", True),
-    "webp": ("webp", True),
     "arithmetic-coded jpeg": ("jpg", False),
     "12-bit jpeg": ("jpg", False),
     "lossless jpeg": ("jpg", False),
@@ -1108,6 +1106,20 @@ def test_unsupported_formats_raise_their_named_error(tmp_path, kind):
             im.load()
     with pytest.raises(UnsupportedImageError, match="not supported yet"):
         timages.SourceImage.load(path)
+
+
+@pytest.mark.parametrize("kind", ["gif", "webp"])
+def test_formats_once_refused_decode_to_pillows_planes(tmp_path, kind):
+    """GIF and WebP, which the readers refused by name until they took
+    them (tests/test_torch_gif_webp.py holds them in depth): the same
+    24x24 file now reads as the JAX package reads it."""
+    path = str(tmp_path / f"u.{kind}")
+    _unsupported(kind, path)
+    (src_j, rgb_j) = _jax_load(path)
+    src_t = timages.SourceImage.load(path)
+    np.testing.assert_array_equal(src_t.img, src_j.img)
+    np.testing.assert_array_equal(src_t.load_rgb_plane(), rgb_j)
+    assert _meta(timages.read_metadata(path)) == _meta(jimages.read_metadata(path))
 
 
 def _jpeg_scans(data: bytes) -> list[tuple[int, int]]:
