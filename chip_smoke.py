@@ -174,7 +174,14 @@ Phases, each of which raises on failure:
        VP8 and EXIF chunks) and BASELINE #3's views as committed lossless
        WebPs (VP8L, EXIF) -> OBJ, no --focal-length, with (f)'s gates;
        every plane has the committed SHA-256 of Pillow's ("gif_webp"),
-       every WebP's EXIF focal length is 43.
+       every WebP's EXIF focal length is 43;
+   (k) with Pillow blocked as well (raster_files): phase 3's pair as
+       16-bit binary PGMs (P5, maxval 65535) -> PLY and as little-endian
+       SPIDER files -> PNG depth map, each byte-equal to reconstruct's
+       on the arrays; BASELINE #3's views as RLE TGAs -> OBJ with
+       --focal-length=43 and (f)'s gates; the tinted pair as CMYK TIFFs
+       -> PLY, byte-equal to reconstruct's on the decoded planes; every
+       plane has the committed SHA-256 of Pillow's ("raster").
    One JSON record per run: seconds, phases, decode seconds per file and
    plane, encode (and write) seconds per depth map, launches, the card's
    name and power limit.
@@ -186,7 +193,9 @@ the device record ({"ok": true, ...}).
 The script exits non-zero, printing neither, when there is no CUDA device
 or any phase fails. It imports nothing of JAX and nothing of the JAX
 package, and needs no Pillow: images are built in memory or written by
-its own writers (write_tiff, write_bmp, write_gif, writers.encode_png).
+its own writers (write_tiff, write_bmp, write_gif, write_pgm16,
+write_spider, write_tga_rle, writers.encode_png). It prints whether
+Pillow is installed on the card's machine.
 """
 
 from __future__ import annotations
@@ -194,6 +203,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import hashlib
+import importlib.util
 import io
 import json
 import os
@@ -2244,13 +2254,15 @@ def write_tiff(path: str, img: np.ndarray, sem_text: str | None, layout: str = "
     PlanarConfiguration 2: its L and RGB planes are the gray image's),
     "bigtiff" (one strip, BigTIFF's 8-byte offsets and 20-byte entries),
     "float" (ImageJ's 32-bit save: float32 `img`, big-endian, SampleFormat
-    3, one strip) and "jpeg" (RGB `img` as JPEG-compressed YCbCr 4:2:0 in
-    strips, jpeg_tiff_strips)."""
+    3, one strip), "jpeg" (RGB `img` as JPEG-compressed YCbCr 4:2:0 in
+    strips, jpeg_tiff_strips) and "cmyk" ((H, W, 4) `img` as one
+    uncompressed strip of 8-bit CMYK, photometric 5)."""
     h, w = img.shape[:2]
     big = layout == "bigtiff"
     endian = ">" if layout == "float" else "<"
-    spp = 3 if layout in ("planar", "jpeg") else 1
-    photometric, bps, compression, rows_per_strip, extra = (2 if spp == 3 else 1), 8, 1, h, []
+    spp = {"planar": 3, "jpeg": 3, "cmyk": 4}.get(layout, 1)
+    photometric = {3: 2, 4: 5}.get(spp, 1)
+    bps, compression, rows_per_strip, extra = 8, 1, h, []
     if layout == "tiled":
         t = TIFF_TILE
         pad = np.zeros((-(-h // t) * t, -(-w // t) * t), np.uint8)
@@ -2771,6 +2783,7 @@ def phase_cli_files(counters, smi: str, texture_obj_sha: str) -> dict:
         records.update(cli_tiff_layouts(cap, smi, td, img1, img2, ref_sha))
         records.update(cli_instrument_files(cap, smi, td, img1, img2))
         records.update(cli_gif_webp(cap, smi, td, img1, img2))
+        records.update(cli_raster_files(cap, smi, td, img1, img2))
     torch.cuda.empty_cache()
     return records
 
@@ -2824,18 +2837,19 @@ def cli_jpeg_depth_map(cap, smi: str, td: str, tifs: list[str], timed_rgb: dict)
 
 
 def cli_exif_jpeg_pair(cap, smi: str, td: str, run: str, label: str, paths: list[str], srcs,
-                       checks: dict, size: tuple[int, int]) -> dict:
-    """Phase 8 (c), (f) and (j): a JPEG or WebP pair of phase 6's scene at `size`,
-    EXIF 41989 = 43 and no --focal-length -> OBJ. `checks` holds the
-    caller's gates on the decoded planes (`srcs`); K must be the 43 mm K,
-    the OBJ the in-memory run's on the decoded planes, and phase 6's
+                       checks: dict, size: tuple[int, int], focal_arg: int | None = None) -> dict:
+    """Phase 8 (c), (f), (j) and (k): a JPEG, WebP or TGA pair of phase 6's
+    scene at `size` -> OBJ, with EXIF 41989 = 43 and no --focal-length, or
+    with --focal-length=`focal_arg` (a file without EXIF). `checks` holds
+    the caller's gates on the decoded planes (`srcs`); K must be the 43 mm
+    K, the OBJ the in-memory run's on the decoded planes, and phase 6's
     camera and depth gates must hold."""
     from cybervision_tpu_torch.config import ReconstructionConfig
     from cybervision_tpu_torch.images import SourceImage
     from cybervision_tpu_torch.reconstruction import Reconstruction
 
     _, depth1, k_true, cams = render_perspective(*size, PERSP_CAMS[:1], exact_focal=True)
-    checks["K equal to the 43 mm K"] = all(np.array_equal(s.calibration_matrix(), k_true)
+    checks["K equal to the 43 mm K"] = all(np.array_equal(s.calibration_matrix(focal_arg), k_true)
                                            for s in srcs)
     print(f"{label}: " + "; ".join(f"{k} {v}" for k, v in checks.items()))
     if not all(checks.values()):
@@ -2847,7 +2861,7 @@ def cli_exif_jpeg_pair(cap, smi: str, td: str, run: str, label: str, paths: list
         mem.append(src)
     ref_obj, out = os.path.join(td, "mem_pair.obj"), os.path.join(td, "pair.obj")
     Reconstruction(["v0", "v1"], ref_obj, ReconstructionConfig(), quiet=True, images=mem).run()
-    cli = cap.main([*paths, out])
+    cli = cap.main([*([f"--focal-length={focal_arg}"] if focal_arg else []), *paths, out])
     rec = cli_record(run, cli["seconds"], cli["rec"].phases, cli["decode"], cli["launches"], smi)
     same = _sha(out) == _sha(ref_obj)
     print(f"{label}: OBJ equal to the in-memory run's {same}")
@@ -2975,8 +2989,6 @@ def cli_instrument_files(cap, smi: str, td: str, img1, img2) -> dict:
     run on the decoded planes. Every decoded plane has the committed
     SHA-256 of Pillow's; the lossless files' gray planes are the arrays.
     The cli.main runs have every import of Pillow blocked (_NoPillow)."""
-    import importlib.util
-
     from cybervision_tpu_torch.config import (
         InterpolationMode, MeshMode, ProjectionMode, ReconstructionConfig,
     )
@@ -3111,6 +3123,185 @@ def cli_gif_webp(cap, smi: str, td: str, img1, img2) -> dict:
     return records
 
 
+def write_pgm16(path: str, img: np.ndarray) -> None:
+    """A 16-bit binary PGM (P5, maxval 65535) of the gray values, unscaled:
+    Pillow opens it as "I" and convert("L") clips, so its plane is the
+    image."""
+    h, w = img.shape
+    with open(path, "wb") as fh:
+        fh.write(b"P5\n%d %d\n65535\n" % (w, h) + np.ascontiguousarray(img, ">u2").tobytes())
+
+
+def write_spider(path: str, img: np.ndarray) -> None:
+    """A little-endian SPIDER 2D image (iform 1) of float32 `img`: a
+    header of whole records of 4 * width bytes, at least 1024 bytes, as
+    SPIDER writes it (nslice 1, nrow, iform, nsam, labrec, labbyt,
+    lenbyt)."""
+    h, w = img.shape
+    lenbyt = 4 * w
+    labrec = -(-1024 // lenbyt)
+    fields = np.zeros(labrec * lenbyt // 4, "<f4")
+    fields[[0, 1, 4, 11, 12, 21, 22]] = (1, h, 1, w, labrec, labrec * lenbyt, lenbyt)
+    with open(path, "wb") as fh:
+        fh.write(fields.tobytes() + np.ascontiguousarray(img, "<f4").tobytes())
+
+
+def _tga_rle_row(px: np.ndarray) -> bytes:
+    """One row of (W, 3) BGR pixels as TGA RLE packets: runs of 2-128
+    equal pixels, the rest as literals of up to 128."""
+    out, w, i = bytearray(), len(px), 0
+    same = np.all(px[1:] == px[:-1], axis=1)
+    while i < w:
+        k = 1
+        while i + k < w and k < 128 and same[i + k - 1]:
+            k += 1
+        if k > 1:
+            out += bytes([0x80 | (k - 1)]) + px[i].tobytes()
+        else:
+            while i + k < w and k < 128 and not same[i + k - 1]:
+                k += 1
+            if i + k < w and k > 1:
+                k -= 1  # leave the run's first pixel to the run
+            out += bytes([k - 1]) + px[i : i + k].tobytes()
+        i += k
+    return bytes(out)
+
+
+def write_tga_rle(path: str, rgb: np.ndarray) -> None:
+    """An RLE true-colour TGA (image type 10, 24-bit BGR, rows bottom-up)
+    of (H, W, 3) RGB, each row's packets within the row."""
+    h, w = rgb.shape[:2]
+    bgr = np.ascontiguousarray(rgb[::-1, :, ::-1])
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, w, h, 24, 0))
+        fh.write(b"".join(_tga_rle_row(row) for row in bgr))
+
+
+def cmyk(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 4) CMYK of (H, W, 3) RGB by plain grey-component
+    replacement: K the least of 255 - R, G, B, the rest of each ink in C,
+    M and Y."""
+    inks = 255 - rgb.astype(np.int16)
+    k = inks.min(axis=2, keepdims=True)
+    return np.concatenate([inks - k, k], axis=2).astype(np.uint8)
+
+
+def raster_files(td: str, img1, img2) -> dict[str, list[str]]:
+    """Phase 8 (k)'s inputs: phase 3's pair as 16-bit binary PGMs
+    (write_pgm16), as little-endian SPIDER files (write_spider: the gray
+    values plus a seeded fraction below 0.99, which convert("L")
+    truncates away) and as CMYK TIFFs of the tinted pair (write_tiff
+    "cmyk"); BASELINE #3's views (render_perspective at 320x256, the 43 mm
+    focal length, tinted) as RLE TGAs (write_tga_rle).
+    tests/gen_torch_formats_fixture.py writes the same files and commits
+    the SHA-256 of Pillow's planes of them ("raster")."""
+    rng = np.random.RandomState(62)
+    files: dict[str, list[str]] = {"pgm": [], "spider": [], "tga": [], "cmyk tiff": []}
+    views, _, _, _ = render_perspective(PERSP_W, PERSP_H, PERSP_CAMS[:1], exact_focal=True)
+    for k, (img, view) in enumerate(zip((img1, img2), views)):
+        base = os.path.join(td, f"raster_{k}")
+        files["pgm"].append(base + ".pgm")
+        write_pgm16(files["pgm"][-1], img)
+        files["spider"].append(base + ".spi")
+        frac = rng.uniform(0, 0.99, img.shape).astype(np.float32)
+        write_spider(files["spider"][-1], img.astype(np.float32) + frac)
+        files["tga"].append(base + ".tga")
+        write_tga_rle(files["tga"][-1], tint(view))
+        files["cmyk tiff"].append(base + "_cmyk.tif")
+        write_tiff(files["cmyk tiff"][-1], cmyk(tint(img)), None, "cmyk")
+    return files
+
+
+def cli_raster_files(cap, smi: str, td: str, img1, img2) -> dict:
+    """Phase 8 (k), with every import of Pillow blocked (_NoPillow):
+    raster_files' pairs through cli.main. The PGMs -> PLY and the SPIDER
+    files -> PNG depth map (--interpolation=none), each equal to
+    reconstruct's on the arrays; the RLE TGAs -> OBJ with
+    --focal-length=43 (TGA carries no EXIF), with cli_exif_jpeg_pair's
+    gates; the CMYK TIFFs -> PLY, equal to reconstruct's on the decoded
+    planes. Every decoded plane has the committed SHA-256 of Pillow's
+    ("raster"); the PGM and SPIDER gray planes are the arrays."""
+    from cybervision_tpu_torch.config import (
+        InterpolationMode, MeshMode, ProjectionMode, ReconstructionConfig,
+    )
+    from cybervision_tpu_torch.images import SourceImage
+    from cybervision_tpu_torch.reconstruction import reconstruct
+
+    with open(FORMATS_SHA256) as fh:
+        committed = json.load(fh)["raster"]
+    t0 = time.perf_counter()
+    files = raster_files(td, img1, img2)
+    written = time.perf_counter() - t0
+    aff = ProjectionMode.AFFINE
+    ply_cfg = ReconstructionConfig(projection=aff, mesh=MeshMode.VERTEX_COLORS)
+    records = {}
+    with _NoPillow():
+        srcs, hashes = {}, {}
+        for kind, paths in files.items():
+            srcs[kind] = [SourceImage.load(p) for p in paths]
+            hashes[kind] = all(
+                _plane_sha(s.img) == committed[os.path.basename(p)]["l"]
+                and _plane_sha(s.load_rgb_plane()) == committed[os.path.basename(p)]["rgb"]
+                for s, p in zip(srcs[kind], paths))
+        lossless = all(np.array_equal(s.img, im) for kind in ("pgm", "spider")
+                       for s, im in zip(srcs[kind], (img1, img2)))
+        print(f"(k) files written in {written:.2f} s"
+              f" ({[os.path.getsize(p) for ps in files.values() for p in ps]} bytes); planes equal"
+              f" to Pillow's (SHA-256) {hashes}; PGM and SPIDER gray planes equal to the arrays"
+              f" {lossless}")
+        if not all(hashes.values()) or not lossless:
+            raise AssertionError("(k): the decoded planes are not Pillow's")
+        plain = [SourceImage(im) for im in (img1, img2)]
+
+        label = f"(k) 16-bit PGM pair {SIZE}x{SIZE} -> PLY"
+        ref_ply, out = os.path.join(td, "mem_k.ply"), os.path.join(td, "pgm.ply")
+        reconstruct(["a", "b"], ref_ply, ply_cfg, quiet=True, images=plain)
+        run = cap.main(["--projection=parallel", "--mesh=vertex-colors", *files["pgm"], out])
+        records["pgm ply"] = cli_record("(k) 16-bit PGM", run["seconds"], run["rec"].phases,
+                                        run["decode"], run["launches"], smi)
+        same = _sha(out) == _sha(ref_ply)
+        print(f"{label}: PLY equal to the in-memory run's {same}")
+        if not same:
+            raise AssertionError(f"{label}: the PLY differs from the in-memory run's")
+
+        label = f"(k) SPIDER pair {SIZE}x{SIZE} -> PNG depth map"
+        ref_png, out = os.path.join(td, "mem_k.png"), os.path.join(td, "spider.png")
+        reconstruct(["a", "b"], ref_png, ReconstructionConfig(
+            projection=aff, interpolation=InterpolationMode.NONE), quiet=True, images=plain)
+        run = cap.main(["--projection=parallel", "--interpolation=none", *files["spider"], out])
+        records["spider png"] = cli_record("(k) SPIDER", run["seconds"], run["rec"].phases,
+                                           run["decode"], run["launches"], smi, run["encode"])
+        same = _sha(out) == _sha(ref_png)
+        print(f"{label}: PNG equal to the in-memory run's {same}")
+        if not same:
+            raise AssertionError(f"{label}: the PNG differs from the in-memory run's")
+
+        records["tga obj"] = cli_exif_jpeg_pair(
+            cap, smi, td, "(k) RLE TGA pair", f"(k) RLE TGA pair {PERSP_W}x{PERSP_H} -> OBJ",
+            files["tga"], srcs["tga"], {}, (PERSP_W, PERSP_H), focal_arg=PERSP_FOCAL_35MM)
+
+        label = f"(k) CMYK TIFF pair {SIZE}x{SIZE} -> PLY"
+        mem = []
+        for s in srcs["cmyk tiff"]:
+            src = SourceImage(s.img)
+            src.load_rgb_plane = functools.partial(np.array, s.load_rgb_plane())
+            mem.append(src)
+        ref_ply, out = os.path.join(td, "mem_k_cmyk.ply"), os.path.join(td, "cmyk.ply")
+        reconstruct(["a", "b"], ref_ply, ply_cfg, quiet=True, images=mem)
+        run = cap.main(["--projection=parallel", "--mesh=vertex-colors", *files["cmyk tiff"], out])
+        records["cmyk tiff ply"] = cli_record("(k) CMYK TIFF", run["seconds"], run["rec"].phases,
+                                              run["decode"], run["launches"], smi)
+        same = _sha(out) == _sha(ref_ply)
+        print(f"{label}: PLY equal to the in-memory run on the decoded planes {same}")
+        if not same:
+            raise AssertionError(f"{label}: the PLY differs from the in-memory run's")
+        pil = any(m == "PIL" or m.startswith("PIL.") for m in sys.modules)
+    print(f"(k) Pillow imported during the runs {pil}")
+    if pil:
+        raise AssertionError("(k): Pillow was imported")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -3126,6 +3317,8 @@ def main() -> int:
     smi = nvidia_smi_line()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda};"
           f" fp32 matmul TF32 {torch.backends.cuda.matmul.allow_tf32}")
+    print(f"Pillow installed on this machine: {importlib.util.find_spec('PIL') is not None}"
+          " (the port reads its files without it)")
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmul is on: first_pass needs full fp32")
     t0 = time.perf_counter()
@@ -3314,7 +3507,9 @@ def main() -> int:
           f" {[round(cli_files[f'tiff {k}']['seconds'], 4) for k in ('tiled', 'planar', 'bigtiff')]} s;"
           f" gray-palette BMPs {cli_files['bmp ply']['seconds']:.4f} s; float TIFF, JPEG-in-TIFF"
           f" and RLE8 BMP depth maps"
-          f" {[round(cli_files[k]['seconds'], 4) for k in ('float tiff', 'jpeg tiff', 'rle8 bmp')]} s")
+          f" {[round(cli_files[k]['seconds'], 4) for k in ('float tiff', 'jpeg tiff', 'rle8 bmp')]} s;"
+          f" 16-bit PGM, SPIDER, RLE TGA and CMYK TIFF pairs"
+          f" {[round(cli_files[k]['seconds'], 4) for k in ('pgm ply', 'spider png', 'tga obj', 'cmyk tiff ply')]} s")
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -1,32 +1,41 @@
 """Readers for the CLI's input files, without Pillow: PNG (Adam7 and
 1-16 bits included), TIFF (the FEI SEM format; strips or tiles, chunky
-or planar, 1 to 32-bit integer and float samples, CCITT and JPEG
-strips, classic or BigTIFF), JPEG (sequential or progressive; gray,
-YCbCr, RGB, CMYK or YCCK), BMP (palettes, 16 to 32 bits, bit fields,
-RLE), GIF (the first frame) and WebP (lossless, lossy with alpha, VP8X
-with EXIF, an animation's first frame), giving what the JAX package
-reads through Pillow — the SEM metadata tag, the EXIF focal length, and
-the planes of convert("L") and convert("RGB"), bit for bit. The writers
-of the depth maps are jpeg_encode (JPEG) and rgba_encode (TIFF, BMP).
+or planar, 1 to 32-bit integer and float samples, gray, palette, RGB, LA,
+PA and CMYK, CCITT and JPEG strips, classic or BigTIFF), JPEG
+(sequential or progressive; gray, YCbCr, RGB, CMYK or YCCK), BMP
+(palettes, 16 to 32 bits, bit fields, RLE), GIF (the first frame), WebP
+(lossless, lossy with alpha, VP8X with EXIF, an animation's first
+frame), Netpbm (PBM, PGM, PPM, PFM, plain or binary), SPIDER, TGA, SGI,
+PCX and QOI, giving what the JAX package reads through Pillow — the SEM
+metadata tag, the EXIF focal length, and the planes of convert("L") and
+convert("RGB"), bit for bit. A file goes to the reader of the plugin
+Pillow's Image.open would pick (identify). The writers of the depth maps
+are jpeg_encode (JPEG) and rgba_encode (TIFF, BMP).
 
 The containers are parsed here in Python; the pixel loops run in the
 native library (native/imagedecode.cpp, native/webpdecode.cpp), built at
-first use. PNG, uncompressed BMP and uncompressed, PackBits or Deflate
-TIFF have a numpy path for when it cannot be built; JPEG, LZW, CCITT,
-JPEG-in-TIFF, RLE BMP, GIF and WebP then raise NativeDecoderError.
+first use. PNG, uncompressed BMP, TGA and SGI, Netpbm, SPIDER and
+uncompressed, PackBits or Deflate TIFF have a numpy path for when it
+cannot be built; JPEG, LZW, CCITT, JPEG-in-TIFF, RLE BMP, TGA and SGI,
+PCX, QOI, GIF and WebP then raise NativeDecoderError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
+import struct
 
 import numpy as np
 
-from cybervision_tpu_torch.imageio import bmp, exif, gif, jpeg, png, tiff, webp
+from cybervision_tpu_torch.imageio import (
+    bmp, exif, gif, jpeg, netpbm, pcx, png, qoi, sgi, spider, tga, tiff, webp,
+)
 from cybervision_tpu_torch.imageio.convert import to_l, to_rgb
 from cybervision_tpu_torch.imageio.errors import (
     CorruptImageError,
     NativeDecoderError,
+    NotThisFormat,
     TruncatedImageError,
     UnsupportedImageError,
 )
@@ -67,7 +76,7 @@ class ImageFile:
         JAX package's getexif() or int() would."""
         if self.format == "TIFF":
             return self.parsed.focal_length_35mm()
-        if self.format in ("BMP", "GIF"):
+        if self.format not in ("PNG", "JPEG", "WebP"):
             return None
         if self.format == "PNG":
             block = self.parsed.exif
@@ -82,26 +91,217 @@ class ImageFile:
 
     def decode(self) -> tuple[str, np.ndarray, np.ndarray | None]:
         """(mode, pixels, palette); see the format modules."""
-        module = {"PNG": png, "TIFF": tiff, "JPEG": jpeg, "BMP": bmp, "GIF": gif,
-                  "WebP": webp}[self.format]
+        module = {"PNG": png, "TIFF": tiff, "JPEG": jpeg, "BMP": bmp, "GIF": gif, "WebP": webp,
+                  "PPM": netpbm, "PCX": pcx, "QOI": qoi, "SGI": sgi, "SPIDER": spider,
+                  "TGA": tga}[self.format]
         return module.decode(self.parsed, _native())
 
 
-def sniff(data: bytes) -> str:
-    if data.startswith(png.SIGNATURE):
-        return "PNG"
-    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
-        return "TIFF"
-    if data.startswith(b"\xff\xd8\xff"):
-        return "JPEG"
-    if data.startswith(b"BM"):
-        return "BMP"
-    if data[:6] in gif.SIGNATURES:
-        return "GIF"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in webp.FIRST_CHUNKS:
-        return "WebP"
-    raise UnsupportedImageError("this file format is not supported: the readers take PNG, TIFF,"
-                                " JPEG, BMP, GIF and WebP")
+# -- Pillow's plugin order ----------------------------------------------------
+#
+# Image.open tries its plugins in Image.ID order (the order they registered:
+# preinit's BMP, GIF, JPEG, PPM and PNG, then init's list, in a process like
+# the JAX package's CLI, which imports no plugin module itself), each first
+# through its accept test on the file's first 16 bytes, then through its
+# open, where a SyntaxError (or an IndexError, KeyError, TypeError or
+# struct.error) passes the file on to the next plugin. TGA and SPIDER have
+# no accept test, so which plugin claims a file depends on the order;
+# identify follows it. The formats the readers do not take are refused by
+# name where their magic claims the file; the plugins before TGA without an
+# accept test (IM, IMT, IPTC, PCD) and those with a loose one (GBR, CUR,
+# ICO) get their open checks too, so that a TGA or SPIDER file reaches its
+# reader only where Pillow's would.
+
+
+def _u32(data: bytes, at: int, endian: str = "<") -> int | None:
+    return struct.unpack_from(endian + "I", data, at)[0] if len(data) >= at + 4 else None
+
+
+def _u16(data: bytes, at: int) -> int | None:
+    return struct.unpack_from("<H", data, at)[0] if len(data) >= at + 2 else None
+
+
+def _entries(data: bytes) -> bool:
+    """CUR and ICO: a directory of at least one 16-byte entry, all there."""
+    n = _u16(data, 4)
+    return bool(n) and len(data) >= 6 + 16 * n
+
+
+def _gbr(data: bytes) -> bool:
+    """GbrImagePlugin's accept test and open checks."""
+    head = [_u32(data, 4 * k, ">") for k in range(5)]
+    if None in head[:2] or head[0] < 20 or head[1] not in (1, 2):
+        return False
+    if None in head or head[2] == 0 or head[3] == 0 or head[4] not in (1, 4):
+        return False
+    return head[1] == 1 or data[20:24] == b"GIMP"
+
+
+_IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
+_IM_TAGS = ("Comment", "Date", "Digitalization equipment", "File size (no of images)", "Lut",
+            "Name", "Scale (x,y)", "Image size (x*y)", "Image type")
+
+
+def _im(data: bytes) -> bool:
+    """ImImagePlugin's open: "key: value" header lines up to a NUL or ^Z,
+    one of them a known key, then the ^Z the image data follows."""
+    if b"\n" not in data[:100]:
+        return False
+    pos, known = 0, 0
+    while True:
+        s = data[pos : pos + 1]
+        pos += len(s)
+        if s == b"\r":
+            continue
+        if not s or s in (b"\0", b"\x1a"):
+            break
+        end = data.find(b"\n", pos)
+        end = len(data) if end < 0 else end + 1
+        s, pos = s + data[pos:end], end
+        if len(s) > 100:
+            return False
+        s = s[:-2] if s.endswith(b"\r\n") else s[:-1] if s.endswith(b"\n") else s
+        m = _IM_LINE.match(s)
+        if not m:
+            return False
+        known += m.group(1).decode("latin-1", "replace") in _IM_TAGS
+    return known > 0 and (s.startswith(b"\x1a") or b"\x1a" in data[pos:])
+
+
+_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
+
+
+def _imt(data: bytes) -> bool:
+    """ImtImagePlugin's open: "key value" lines with a width, a height and
+    "pixel n8" (the open's mode and size checks)."""
+    buffer, pos = data[:100], 100
+    if b"\n" not in buffer:
+        return False
+    width = height = 0
+    gray = False
+    while True:
+        if buffer:
+            s, buffer = buffer[:1], buffer[1:]
+        else:
+            s, pos = data[pos : pos + 1], pos + 1
+        if not s or s == b"\x0c":
+            break
+        if b"\n" not in buffer:
+            buffer, pos = buffer + data[pos : pos + 100], pos + 100
+        lines = buffer.split(b"\n")
+        s += lines.pop(0)
+        buffer = b"\n".join(lines)
+        if len(s) == 1 or len(s) > 100:
+            break
+        if s[0] == ord("*"):
+            continue
+        m = _IMT_FIELD.match(s)
+        if not m:
+            break
+        key, value = m.group(1, 2)
+        try:
+            if key == b"width":
+                width = int(value)
+            elif key == b"height":
+                height = int(value)
+        except ValueError:
+            return True  # Pillow's open fails on the file
+        gray |= key == b"pixel" and value == b"n8"
+    return gray and width > 0 and height > 0
+
+
+def _iptc(data: bytes) -> bool:
+    s = data[:5]
+    return len(s) >= 3 and s[0] == 0x1C and s[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240)
+
+
+def _avif(prefix: bytes) -> bool:
+    return prefix[4:8] == b"ftyp" and prefix[8:12] in (b"avif", b"avis", b"mif1", b"msf1")
+
+
+# (Pillow's format name, its test on the file, the reader's format or the
+# refusal: a name the readers do not take yet, or, as a (name, why) pair,
+# a format Pillow opens without reading its pixels).
+_PLUGINS = (
+    ("BMP", lambda d: d.startswith(b"BM"), "BMP"),
+    ("DIB", lambda d: _u32(d, 0) in (12, 40, 52, 56, 64, 108, 124),
+     "a headerless Windows bitmap (DIB)"),
+    ("GIF", lambda d: d[:6] in gif.SIGNATURES, "GIF"),
+    ("JPEG", lambda d: d.startswith(b"\xff\xd8\xff"), "JPEG"),
+    ("PPM", netpbm.accept, "PPM"),
+    ("PNG", lambda d: d.startswith(png.SIGNATURE), "PNG"),
+    ("AVIF", _avif, "AVIF/HEIF"),
+    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")), "BLP (Blizzard texture)"),
+    ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC")),
+     ("BUFR", "Pillow names it but reads no pixels")),
+    ("CUR", lambda d: d.startswith(b"\0\0\2\0") and _entries(d), "CUR (Windows cursor)"),
+    ("PCX", pcx.accept, "PCX"),
+    ("DCX", lambda d: _u32(d, 0) == 0x3ADE68B1, "DCX (multi-page PCX)"),
+    ("DDS", lambda d: d.startswith(b"DDS "), "DDS"),
+    ("EPS", lambda d: d.startswith(b"%!PS") or _u32(d, 0) == 0xC6D3D0C5,
+     "EPS (PostScript, which Pillow renders through Ghostscript)"),
+    ("FITS", lambda d: d.startswith(b"SIMPLE"), "FITS"),
+    ("FLI", lambda d: len(d) >= 16 and _u16(d, 4) in (0xAF11, 0xAF12) and _u16(d, 14) in (0, 3),
+     "FLI/FLC animation"),
+    ("FTEX", lambda d: d.startswith(b"FTEX"), "FTEX texture"),
+    ("GBR", _gbr, "GBR (GIMP brush)"),
+    ("GRIB", lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1,
+     ("GRIB", "Pillow names it but reads no pixels")),
+    ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n"),
+     ("HDF5", "Pillow names it but reads no pixels")),
+    ("JPEG2000", lambda d: d.startswith((b"\xff\x4f\xff\x51", b"\0\0\0\x0cjP  \r\n\x87\n")),
+     "JPEG 2000"),
+    ("ICNS", lambda d: d.startswith(b"icns"), "ICNS (macOS icon)"),
+    ("ICO", lambda d: d.startswith(b"\0\0\1\0") and _entries(d), "ICO (Windows icon)"),
+    ("IM", _im, "IM (LabEye IFUNC)"),
+    ("IMT", _imt, "IM Tools"),
+    ("IPTC", _iptc, "IPTC/NAA"),
+    ("MCIDAS", lambda d: d.startswith(b"\0\0\0\0\0\0\0\x04"), "McIdas area"),
+    ("MPEG", lambda d: d.startswith(b"\0\0\x01\xb3"),
+     ("MPEG", "Pillow identifies the stream but reads no pixels")),
+    ("TIFF", lambda d: d[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"), "TIFF"),
+    ("MSP", lambda d: d.startswith((b"DanM", b"LinS")), "MSP (Windows Paint)"),
+    ("PCD", lambda d: len(d) >= 2048 + 1539 and d[2048:2052] == b"PCD_", "Kodak Photo CD"),
+    ("PIXAR", lambda d: d.startswith(b"\x80\xe8\0\0"), "PIXAR raster"),
+    ("PSD", lambda d: d.startswith(b"8BPS"), "PSD (Photoshop)"),
+    ("QOI", lambda d: d.startswith(qoi.MAGIC), "QOI"),
+    ("SGI", sgi.accept, "SGI"),
+    ("SPIDER", lambda d: True, "SPIDER"),
+    ("SUN", lambda d: _u32(d, 0, ">") == 0x59A66A95, "Sun raster"),
+    ("TGA", lambda d: True, "TGA"),
+    ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP" and d[12:16] in webp.FIRST_CHUNKS,
+     "WebP"),
+    ("WMF", lambda d: d.startswith((b"\xd7\xcd\xc6\x9a\0\0", b"\x01\0\0\0")),
+     ("WMF/EMF", "Pillow draws it only through a handler registered on Windows")),
+    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define"), "XBM (X11 bitmap)"),
+    ("XPM", lambda d: d.startswith(b"/* XPM */"), "XPM (X11 pixmap)"),
+    ("XVTHUMB", lambda d: d.startswith(b"P7 332"), "XV thumbnail"),
+)
+_PARSERS = {"PNG": png.parse, "TIFF": tiff.parse, "BMP": bmp.parse, "GIF": gif.parse,
+            "WebP": webp.parse, "PPM": netpbm.parse, "PCX": pcx.parse, "QOI": qoi.parse,
+            "SGI": sgi.parse, "SPIDER": spider.parse, "TGA": tga.parse}
+
+
+def identify(data: bytes, metadata_only: bool = False) -> tuple[str, object]:
+    """(format, parsed container) of the first plugin in Pillow's order
+    that claims the file; the refusal of a format the readers do not take;
+    or, when none claims it, the error Pillow's "cannot identify" stands
+    for."""
+    for _, test, target in _PLUGINS:
+        if not test(data):
+            continue
+        if isinstance(target, tuple):
+            raise UnsupportedImageError(f"{target[0]} is not supported: {target[1]}")
+        if target == "JPEG":
+            return target, jpeg.parse(data, metadata_only=metadata_only)
+        if target not in _PARSERS:
+            raise UnsupportedImageError(f"{target} is not supported yet")
+        try:
+            return target, _PARSERS[target](data)
+        except NotThisFormat:
+            continue
+    raise UnsupportedImageError("this file format is not supported: no reader, and no Pillow"
+                                " plugin, takes it")
 
 
 def open_image(path: str, metadata_only: bool = False) -> ImageFile:
@@ -109,17 +309,4 @@ def open_image(path: str, metadata_only: bool = False) -> ImageFile:
     up to its first scan, as Pillow does on open."""
     with open(path, "rb") as fh:
         data = fh.read()
-    fmt = sniff(data)
-    if fmt == "PNG":
-        parsed = png.parse(data)
-    elif fmt == "TIFF":
-        parsed = tiff.parse(data)
-    elif fmt == "BMP":
-        parsed = bmp.parse(data)
-    elif fmt == "GIF":
-        parsed = gif.parse(data)
-    elif fmt == "WebP":
-        parsed = webp.parse(data)
-    else:
-        parsed = jpeg.parse(data, metadata_only=metadata_only)
-    return ImageFile(fmt, parsed)
+    return ImageFile(*identify(data, metadata_only))

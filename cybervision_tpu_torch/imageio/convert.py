@@ -3,8 +3,9 @@ bit, from the modes the readers return:
   * "L" from RGB: (R*19595 + G*38470 + B*7471 + 0x8000) >> 16, also for
     a palette's entries and with RGBA's alpha dropped;
   * "L" and "RGB" from 16-bit gray ("I;16", "I;16B") clip to 255;
-  * "RGB" from gray repeats it, or, for an "L" GIF frame that carries a
-    palette, maps it; LA and RGBA drop their alpha;
+  * "RGB" from gray repeats it, or, for an "L" image that carries a
+    palette (a GIF frame, a gray TGA with a colour map), maps it; LA and
+    RGBA drop their alpha; "PA" maps its index through the palette;
   * "1" (a 1-bit PNG, BMP or TIFF) is stored as 0 and 255, as Pillow's
     bit2l gives it;
   * "I" (32-bit signed) clips to 0-255 (i2l, i2rgb); "F" (float32)
@@ -57,8 +58,8 @@ def to_l(mode: str, px: np.ndarray, palette: np.ndarray | None) -> np.ndarray:
         return np.ascontiguousarray(gray)
     if mode in ("RGB", "RGBA"):
         return _luma(px)
-    if mode == "P":
-        return _luma(palette)[px]
+    if mode in ("P", "PA"):
+        return _luma(palette)[px if mode == "P" else px[:, :, 0]]
     if mode == "CMYK":
         return _luma(_cmyk_rgb(px))
     raise UnsupportedImageError(f"no conversion to L from {mode}")
@@ -67,7 +68,7 @@ def to_l(mode: str, px: np.ndarray, palette: np.ndarray | None) -> np.ndarray:
 def to_rgb(mode: str, px: np.ndarray, palette: np.ndarray | None) -> np.ndarray:
     """(H, W, 3) uint8: Pillow's convert("RGB")."""
     if mode == "L" and palette is not None:
-        return palette[px]  # a GIF's "L" frame over a "P" image (imageio.gif)
+        return palette[px]  # a GIF's "L" frame over a "P" image, a TGA's "L" with a map
     gray = _gray(mode, px)
     if gray is not None:
         return np.repeat(gray[:, :, None], 3, axis=2)
@@ -75,8 +76,8 @@ def to_rgb(mode: str, px: np.ndarray, palette: np.ndarray | None) -> np.ndarray:
         return px
     if mode == "RGBA":
         return np.ascontiguousarray(px[:, :, :3])
-    if mode == "P":
-        return palette[px]
+    if mode in ("P", "PA"):
+        return palette[px if mode == "P" else px[:, :, 0]]
     if mode == "CMYK":
         return _cmyk_rgb(px)
     raise UnsupportedImageError(f"no conversion to RGB from {mode}")

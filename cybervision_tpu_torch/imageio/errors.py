@@ -16,6 +16,12 @@ class UnsupportedImageError(ImageError):
     """A format or an encoding the readers do not support yet."""
 
 
+class NotThisFormat(CorruptImageError):
+    """The file fails a format's open checks where Pillow's plugin raises
+    SyntaxError (or an error it takes as one), so Pillow tries the next
+    plugin: imageio.identify does the same."""
+
+
 class NativeDecoderError(ImageError):
     """The encoding is decoded only by the native library, which could not
     be built or loaded."""

@@ -20,14 +20,22 @@ never inverted) and from 12-bit little-endian gray, "I" from signed 16
 and 32-bit and little-endian unsigned 32-bit gray, "F" from 32-bit
 float, "L" from signed 8-bit (read unsigned), "RGB" (and "RGBX", and
 YCbCr through JPEG), "RGBA", 16-bit RGB, RGBA and RGBX as their samples'
-high bytes ("RGB;16L/B", "RGBA;16L/B", "RGBX;16L/B"), and "P" at 1, 2,
-4 and 8 bits with its colour map's high bytes.
+high bytes ("RGB;16L/B", "RGBA;16L/B", "RGBX;16L/B"), "P" at 1, 2,
+4 and 8 bits with its colour map's high bytes (and "PX", its extra
+sample dropped), "LA" (8-bit gray with unassociated alpha), "PA" (an
+8-bit palette index with alpha), and "CMYK" from 8-bit CMYK, with one or
+two unnamed extra samples dropped, and from 16-bit CMYK as its samples'
+high bytes. Uncompressed YCbCr and CIELAB, which Pillow misreads or
+cannot convert, are refused.
 
 Where Pillow 12.1 misreads a valid file of these layouts (a big-endian
 BigTIFF it cannot open, an uncompressed planar file with 16-bit or
 min-is-white samples, a planar 16-bit RGBX file, big-endian float or
 signed samples through a codec, which libtiff hands Pillow in the
-host's byte order), the port reads it as the TIFF specification says.
+host's byte order; uncompressed planar LA, PA and CMYK with extra
+samples, which it cannot load, planar CMYK with extra samples through a
+codec, and uncompressed planar 16-bit CMYK), the port reads it as the
+TIFF specification says.
 Where Pillow has no raw mode for a layout (uncompressed fill order 2 in
 min-is-white 8-bit or a 1, 2 or 4-bit palette), the port refuses it
 too.
@@ -172,8 +180,23 @@ def _mode(t: TiffFile, compression: int) -> _Layout:
         return _Layout("L", 1, 8, np.dtype(np.uint8))
     if photometric == 6 and spp == 3 and formats == (1,) and bps == (8,) * 3 and not extra:
         if compression != _JPEG:
-            raise UnsupportedImageError("YCbCr TIFF without JPEG compression is not supported yet")
+            raise UnsupportedImageError(
+                "YCbCr TIFF without JPEG compression is not supported: Pillow reads its three"
+                " samples a pixel as four (raw mode RGBX), so it misreads or runs out of data")
         return _Layout("RGB", 3, 8, np.dtype(np.uint8))
+    if photometric == 8:
+        raise UnsupportedImageError("CIELAB TIFF is not supported: Pillow opens it as LAB, which"
+                                    " it cannot convert to L or RGB")
+    u8 = np.dtype(np.uint8)
+    if photometric == 1 and formats == (1,) and bps == (8, 8) and extra == (2,):
+        return _Layout("LA", 2, 8, u8)
+    if photometric == 3 and formats == (1,) and bps == (8, 8) and extra in ((0,), (2,)):
+        return _Layout("PA" if extra == (2,) else "PX", 2, 8, u8)
+    if photometric == 5 and formats == (1,):
+        if (bps, extra) in (((8,) * 4, ()), ((8,) * 5, (0,)), ((8,) * 6, (0, 0))):
+            return _Layout("CMYK", spp, 8, u8)
+        if bps == (16,) * 4 and not extra:
+            return _Layout("CMYK", 4, 16, np.dtype(t.endian + "u2"))
     if photometric == 2 and formats == (1,) and bps in ((8,) * spp, (16,) * spp):
         nbytes = bps[0] // 8
         dtype = np.dtype(t.endian + "u2") if nbytes == 2 else np.dtype(np.uint8)
@@ -385,8 +408,8 @@ def decode(t: TiffFile, native) -> tuple[str, np.ndarray, np.ndarray | None]:
 
 def _finish(t: TiffFile, lay: _Layout, px: np.ndarray):
     mode, palette = lay.mode, None
-    if lay.bits == 16 and mode in ("RGB", "RGBA", "RGBX"):
-        px = (px >> 8).astype(np.uint8)  # "RGB;16L/B": each sample's high byte
+    if lay.bits == 16 and mode in ("RGB", "RGBA", "RGBX", "CMYK"):
+        px = (px >> 8).astype(np.uint8)  # "RGB;16L/B", "CMYK;16L/B": each sample's high byte
     if mode in ("1", "1;I", "L;I", "L") and lay.bits < 8:
         top = (1 << lay.bits) - 1
         if mode.endswith(";I"):
@@ -397,15 +420,19 @@ def _finish(t: TiffFile, lay: _Layout, px: np.ndarray):
         mode, px = "L", 255 - px
     elif mode == "RGBX":
         mode, px = "RGB", px[:, :, :3]
+    elif mode == "CMYK":
+        px = px[:, :, :4]  # "CMYKX", "CMYKXX": the extra samples dropped
     elif mode == "I":
         px = px.astype(np.int32)
-    elif mode == "P":
+    if mode in ("P", "PA", "PX"):
         cmap = np.asarray(t.values(_COLORMAP, ()), np.int64)
         n = 1 << lay.bits
         if cmap.size != 3 * n:
             raise CorruptImageError(f"TIFF palette without a {n}-entry colour map")
         palette = np.zeros((256, 3), np.uint8)
         palette[:n] = cmap.reshape(3, n).T // 256
-    if lay.spp == 1:
+        if mode == "PX":
+            mode, px = "P", px[:, :, :1]
+    if px.shape[2] == 1:
         px = px[:, :, 0]
     return mode, np.ascontiguousarray(px), palette

@@ -5,16 +5,16 @@ WebP, webpdecode.cpp) and the JPEG writer's (imageencode.cpp).
 native.cpp is a copy of cybervision_tpu/native/native.cpp; every entry
 point is bound here: the affine lanes' writers and meshers and the SFM
 track merge. imagedecode.cpp is the port's own: PNG unfiltering, TIFF
-PackBits, LZW and CCITT, BMP RLE, GIF LZW, baseline and progressive JPEG
-(cybervision_tpu_torch.imageio); webpdecode.cpp WebP's VP8L, VP8 and
+PackBits, LZW and CCITT, BMP RLE, GIF LZW, TGA, SGI and PCX RLE, QOI,
+baseline and progressive JPEG (cybervision_tpu_torch.imageio); webpdecode.cpp WebP's VP8L, VP8 and
 ALPH bitstreams; imageencode.cpp the JPEG writer's scan
 (imageio.jpeg_encode).
 The shared library builds with make into this directory at its first
 use, not at import. `load` raises ImportError when it cannot be built or
 loaded (no toolchain): callers ask `available()` and then take their
 numpy paths, as the JAX package's callers do when its native module
-fails to import (JPEG, LZW, CCITT, BMP RLE, GIF and WebP have none: the
-readers raise).
+fails to import (JPEG, LZW, CCITT, the RLE formats, QOI, GIF and WebP
+have none: the readers raise).
 """
 
 from __future__ import annotations
@@ -64,6 +64,10 @@ _SIGNATURES = {
     "tiff_ccitt": ([_U8P, _L, _L, _L, _L, _U8P], _L),
     "bmp_rle": ([_U8P, _L, _L, _L, _L, _L, _U8P], _L),
     "gif_lzw": ([_U8P, _L, _L, _L, _L, _L, _U8P], _L),
+    "tga_rle": ([_U8P, _L, _L, _L, _L, _U8P], _L),
+    "sgi_rle": ([_U8P, _L, _L, _L, _L, _L, _U8P], _L),
+    "pcx_rle": ([_U8P, _L, _L, _L, _U8P], _L),
+    "qoi_decode": ([_U8P, _L, _L, _L, _L, _U8P], _L),
     "jpeg_decode": ([_U8P, _L, _I32P, _U16P, _I32P, _L, _U8P, _U8P], _L),
     "jpeg_encode_scan": ([_U8P, _L, _L, _L, _U16P, _U8P, _U8P, _L], _L),
     "webp_vp8l_decode": ([_U8P, _L, _L, _L, ctypes.POINTER(ctypes.c_uint32)], _L),
@@ -409,6 +413,51 @@ def gif_lzw(src: bytes, bits: int, interlace: bool, width: int, height: int) -> 
                           _ptr(out, ctypes.c_uint8))
     if code < 0:
         _decode_error(code, "gif_lzw")
+    return out
+
+
+def tga_rle(src: bytes, depth: int, row_bytes: int, height: int) -> np.ndarray:
+    """A TGA's RLE pixel data (imagedecode.cpp's tga_rle; `depth` bytes a
+    pixel): (height, row_bytes) uint8 rows in the file's order."""
+    sptr, _keep = _bytes_ptr(src)
+    out = np.zeros((height, row_bytes), np.uint8)
+    code = load().tga_rle(sptr, len(src), depth, row_bytes, height, _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "tga_rle")
+    return out
+
+
+def sgi_rle(data: bytes, xsize: int, ysize: int, zsize: int, bpc: int) -> np.ndarray:
+    """An SGI RLE file's data after its 512-byte header (imagedecode.cpp's
+    sgi_rle): (ysize, xsize * zsize * bpc) uint8, top row first, channels
+    interleaved, 16-bit samples big-endian."""
+    dptr, _keep = _bytes_ptr(data)
+    out = np.zeros((ysize, xsize * zsize * bpc), np.uint8)
+    code = load().sgi_rle(dptr, len(data), xsize, ysize, zsize, bpc, _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "sgi_rle")
+    return out
+
+
+def pcx_rle(src: bytes, line_bytes: int, height: int) -> np.ndarray:
+    """A PCX's run-length coded lines (imagedecode.cpp's pcx_rle):
+    (height, line_bytes) uint8."""
+    sptr, _keep = _bytes_ptr(src)
+    out = np.zeros((height, line_bytes), np.uint8)
+    code = load().pcx_rle(sptr, len(src), line_bytes, height, _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "pcx_rle")
+    return out
+
+
+def qoi_decode(src: bytes, width: int, height: int, channels: int) -> np.ndarray:
+    """QOI ops from the byte after the header (imagedecode.cpp's
+    qoi_decode): (height, width, channels) uint8."""
+    sptr, _keep = _bytes_ptr(src)
+    out = np.zeros((height, width, channels), np.uint8)
+    code = load().qoi_decode(sptr, len(src), width, height, channels, _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "qoi_decode")
     return out
 
 

@@ -6,6 +6,8 @@
 //   * TIFF PackBits, LZW and CCITT (T.4 / T.6) strips;
 //   * GIF LZW (Pillow's GifDecode.c);
 //   * BMP RLE8 and RLE4;
+//   * the run-length codes of TGA (TgaRleDecode.c), SGI (SgiRleDecode.c)
+//     and PCX (PcxDecode.c), and QOI's op stream (QoiImagePlugin.py);
 //   * baseline and progressive JPEG (jdhuff.c, jdphuff.c): Huffman
 //     decoding with restart intervals, every progressive scan kind into
 //     one coefficient buffer, dequantisation, libjpeg's accurate integer
@@ -1338,6 +1340,224 @@ long tiff_ccitt(const uint8_t *src, long n, long width, long rows, long mode, ui
     if (mode == 2) br.align();
   }
   return rows;
+}
+
+// TGA RLE (image types 9, 10, 11), as Pillow's TgaRleDecode.c reads it:
+// a packet header, then one pixel repeated (bit 7 set) or `count` literal
+// pixels; a run must end within its row (else Pillow reports an overrun),
+// a literal flows on into the next rows. depth: bytes a pixel (Pillow's
+// depth / 8: at 0, a 1-bit image, every packet is consumed without
+// filling a row, so the data runs out). Writes `height` rows of
+// `row_bytes` in the file's order (the caller flips them). Returns 0, or
+// kCorrupt (a run past its row) or kTruncated (the data ends first).
+long tga_rle(const uint8_t *src, long n, long depth, long row_bytes, long height,
+             uint8_t *out) {
+  if (depth <= 0 || row_bytes <= 0) return kTruncated;
+  long x = 0, rows = 0, i = 0;
+  uint8_t *row = out;
+  while (rows < height) {
+    if (i >= n) return kTruncated;
+    long bytes = depth * ((src[i] & 0x7f) + 1);
+    if (src[i] & 0x80) {
+      if (n - i < 1 + depth) return kTruncated;
+      if (x + bytes > row_bytes) return kCorrupt;
+      for (long k = 0; k < bytes; k += depth) std::memcpy(row + x + k, src + i + 1, depth);
+      i += 1 + depth;
+      x += bytes;
+      if (x >= row_bytes) {
+        x = 0;
+        row += row_bytes;
+        rows++;
+      }
+    } else {
+      if (n - i < 1 + bytes) return kTruncated;
+      const uint8_t *p = src + i + 1;
+      i += 1 + bytes;
+      while (bytes > 0 && rows < height) {
+        const long k = std::min(bytes, row_bytes - x);
+        std::memcpy(row + x, p, k);
+        x += k;
+        p += k;
+        bytes -= k;
+        if (x >= row_bytes) {
+          x = 0;
+          row += row_bytes;
+          rows++;
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"
+
+namespace {
+
+// One SGI RLE row of 8-bit (bpc 1) or 16-bit (bpc 2) samples into every
+// z-th sample of `dest`, as SgiRleDecode.c's expandrow / expandrow2: n is
+// the row's length from the table, taken as a count of packets; `end` is
+// the last byte of the data. Returns 0, 1 (a last packet that is not the
+// zero terminator: Pillow stops decoding, without an error) or -1 (an
+// overrun).
+int sgi_row(uint8_t *dest, const uint8_t *src, const uint8_t *end, long n, long z, long xsize,
+            long bpc) {
+  long x = 0;
+  const long step = z * bpc;
+  for (; n > 0; n--) {
+    uint8_t pixel;
+    if (bpc == 1) {
+      if (src > end) return -1;
+      pixel = *src++;
+    } else {
+      if (src + 1 > end) return -1;
+      pixel = src[1];
+      src += 2;
+    }
+    if (n == 1 && pixel != 0) return 1;
+    long count = pixel & 0x7f;
+    if (!count) return 0;
+    if (x + count > xsize) return -1;
+    x += count;
+    if (pixel & 0x80) {
+      if (src + bpc * count > end) return -1;
+      while (count--) {
+        std::memcpy(dest, src, bpc);
+        src += bpc;
+        dest += step;
+      }
+    } else {
+      if (bpc == 1 ? src > end : src + 2 > end) return -1;
+      while (count--) {
+        std::memcpy(dest, src, bpc);
+        dest += step;
+      }
+      src += bpc;
+    }
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// SGI RLE (storage 1), as SgiRleDecode.c reads it: `data` is the file
+// after its 512-byte header (its length `n`); the start and length tables
+// (zsize * ysize big-endian words each, channel-major) lead it. Each row
+// decodes its channels into one interleaved row buffer that carries over
+// from row to row (a short row keeps the previous row's tail, as in
+// Pillow); rows are written bottom-up into `out` (ysize rows of
+// xsize * zsize * bpc bytes, big-endian samples at bpc 2). Returns 0, or
+// kCorrupt where Pillow reports an overrun.
+long sgi_rle(const uint8_t *data, long n, long xsize, long ysize, long zsize, long bpc,
+             uint8_t *out) {
+  const long tablen = zsize * ysize;
+  if (n < 8 * tablen || n <= 0) return kCorrupt;
+  const long row_bytes = xsize * zsize * bpc;
+  std::vector<uint8_t> buffer(row_bytes, 0);
+  auto word = [&](long at) {
+    return (uint32_t)data[at] << 24 | (uint32_t)data[at + 1] << 16 | (uint32_t)data[at + 2] << 8 |
+           data[at + 3];
+  };
+  const uint8_t *end = data + n - 1;
+  for (long rowno = 0; rowno < ysize; rowno++) {
+    for (long ch = 0; ch < zsize; ch++) {
+      const long at = rowno + ch * ysize;
+      long offset = word(4 * at);
+      const long length = word(4 * (tablen + at));
+      if (offset < 512) return kCorrupt;
+      offset -= 512;
+      // A row past the data fails sgi_row's first read, as in Pillow.
+      const uint8_t *src = offset < n ? data + offset : end + 1;
+      const int status =
+          sgi_row(buffer.data() + ch * bpc, src, end, (int)length, zsize, xsize, bpc);
+      if (status == -1) return kCorrupt;
+      if (status == 1) return 0;
+    }
+    std::memcpy(out + (ysize - 1 - rowno) * row_bytes, buffer.data(), row_bytes);
+  }
+  return 0;
+}
+
+// PCX's run-length code, as PcxDecode.c reads it (whatever the header's
+// encoding byte): a byte with its two top bits set repeats the next byte
+// (its low six bits times), any other byte is itself. Fills `height`
+// lines of `line_bytes` (the planes of a row one after another). Returns
+// 0, kCorrupt for a run past its line (Pillow's overrun) or kTruncated.
+long pcx_rle(const uint8_t *src, long n, long line_bytes, long height, uint8_t *out) {
+  if (line_bytes <= 0) return kCorrupt;
+  const long total = line_bytes * height;
+  long len = 0, x = 0, i = 0;
+  while (len < total) {
+    if (i >= n) return kTruncated;
+    if ((src[i] & 0xC0) == 0xC0) {
+      if (i + 2 > n) return kTruncated;
+      const long count = src[i] & 0x3F;
+      if (x + count > line_bytes) return kCorrupt;
+      std::memset(out + len, src[i + 1], count);
+      len += count;
+      x += count;
+      i += 2;
+    } else {
+      out[len++] = src[i++];
+      x++;
+    }
+    if (x >= line_bytes) x = 0;
+  }
+  return 0;
+}
+
+// QOI, as Pillow's QoiDecoder reads it: the ops INDEX, DIFF, LUMA, RUN,
+// RGB and RGBA from the byte after the 14-byte header, the previous
+// pixel starting at (0, 0, 0, 255) and an index slot not yet written
+// reading as (0, 0, 0, 0); a run does not write the index; the end marker
+// is not read. Writes width * height pixels of `channels` (3 or 4) bytes.
+// Returns 0, or kTruncated when the ops end before the last pixel.
+long qoi_decode(const uint8_t *src, long n, long width, long height, long channels,
+                uint8_t *out) {
+  uint8_t prev[4] = {0, 0, 0, 255};
+  uint8_t index[64][4] = {};
+  const long total = width * height;
+  long px = 0, i = 0;
+  while (px < total) {
+    if (i >= n) return kTruncated;
+    const uint8_t b = src[i++];
+    uint8_t v[4];
+    if (b == 0xFE) {
+      if (n - i < 3) return kTruncated;
+      v[0] = src[i], v[1] = src[i + 1], v[2] = src[i + 2], v[3] = prev[3];
+      i += 3;
+    } else if (b == 0xFF) {
+      if (n - i < 4) return kTruncated;
+      std::memcpy(v, src + i, 4);
+      i += 4;
+    } else if (b >> 6 == 0) {
+      std::memcpy(v, index[b & 63], 4);
+    } else if (b >> 6 == 1) {
+      v[0] = (uint8_t)(prev[0] + ((b >> 4) & 3) - 2);
+      v[1] = (uint8_t)(prev[1] + ((b >> 2) & 3) - 2);
+      v[2] = (uint8_t)(prev[2] + (b & 3) - 2);
+      v[3] = prev[3];
+    } else if (b >> 6 == 2) {
+      if (i >= n) return kTruncated;
+      const uint8_t b2 = src[i++];
+      const int dg = (b & 63) - 32;
+      v[0] = (uint8_t)(prev[0] + dg + (b2 >> 4) - 8);
+      v[1] = (uint8_t)(prev[1] + dg);
+      v[2] = (uint8_t)(prev[2] + dg + (b2 & 15) - 8);
+      v[3] = prev[3];
+    } else {
+      for (long run = (b & 63) + 1; run > 0 && px < total; run--, px++)
+        std::memcpy(out + px * channels, prev, channels);
+      continue;
+    }
+    std::memcpy(prev, v, 4);
+    std::memcpy(index[(v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64], v, 4);
+    std::memcpy(out + px * channels, v, channels);
+    px++;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -14,7 +14,9 @@
   chip_smoke.encoder_cases()'s arrays ("encoder"), and of Pillow's
   planes of the BMP, float TIFF, JPEG-in-TIFF and RLE8 BMP files that
   chip_smoke.instrument_files writes from phase 3's SEM pair ("phase8"),
-  and of the GIF and WebP files of phase 8 (j) ("gif_webp");
+  of the GIF and WebP files of phase 8 (j) ("gif_webp"), and of the
+  16-bit PGM, SPIDER, RLE TGA and CMYK TIFF files of phase 8 (k)
+  (chip_smoke.raster_files, "raster");
 * tests/fixtures/torch_persp_full_v{0,1}.webp: the full-width pair as
   lossy WebPs at Pillow's default quality (80), with an alpha plane
   that is not all opaque (so the encoder writes an ALPH chunk) and the
@@ -29,8 +31,9 @@ Run from the repo root:
 
 The port must decode the files to those planes and encode the arrays to
 those bytes (tests/test_torch_images.py, tests/test_torch_jpeg_encode.py,
-tests/test_torch_gif_webp.py here; chip_smoke.py phase 8 (e), (f) and
-(h)-(j) on the card, with Pillow blocked).
+tests/test_torch_gif_webp.py and tests/test_torch_raster_formats.py
+here; chip_smoke.py phase 8 (e), (f) and (h)-(k) on the card, with
+Pillow blocked).
 """
 
 import hashlib
@@ -111,6 +114,18 @@ def gif_webp_planes() -> dict:
     return out
 
 
+def raster_planes() -> dict:
+    """{file name: Pillow's plane hashes} of phase 8 (k)'s files, which
+    chip_smoke.raster_files writes."""
+    img1, img2, _ = chip_smoke.synth_sem_pair(chip_smoke.SIZE, chip_smoke.SIZE)
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        for paths in chip_smoke.raster_files(td, img1, img2).values():
+            for path in paths:
+                out[os.path.basename(path)] = planes(path)
+    return out
+
+
 def main():
     w, h = round(chip_smoke.PERSP_W * chip_smoke.FULL_SCALE), round(chip_smoke.PERSP_H * chip_smoke.FULL_SCALE)
     views, _, _, _ = chip_smoke.render_perspective(w, h, chip_smoke.PERSP_CAMS[:1], exact_focal=True)
@@ -125,7 +140,8 @@ def main():
     encoder = {name: sha256(pillow_jpeg(px)) for name, px in chip_smoke.encoder_cases()}
     with open(chip_smoke.FORMATS_SHA256, "w") as fh:
         json.dump({"decoder": decoder, "encoder": encoder, "phase8": phase8_planes(),
-                   "gif_webp": gif_webp_planes()}, fh, indent=1, sort_keys=True)
+                   "gif_webp": gif_webp_planes(), "raster": raster_planes()}, fh, indent=1,
+                  sort_keys=True)
         fh.write("\n")
     print(chip_smoke.FORMATS_SHA256, len(encoder), "encoder cases")
 
