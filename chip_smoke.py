@@ -181,7 +181,20 @@ Phases, each of which raises on failure:
        on the arrays; BASELINE #3's views as RLE TGAs -> OBJ with
        --focal-length=43 and (f)'s gates; the tinted pair as CMYK TIFFs
        -> PLY, byte-equal to reconstruct's on the decoded planes; every
-       plane has the committed SHA-256 of Pillow's ("raster").
+       plane has the committed SHA-256 of Pillow's ("raster");
+   (l) with Pillow blocked as well (codec_files, icon_files): phase 3's
+       pair as LZMA TIFFs (write_tiff "lzma", predictor 2) -> PLY and as
+       headerless DIBs (write_bmp dib) -> PNG depth map, each byte-equal
+       to reconstruct's on the arrays; BASELINE #3's views as the
+       committed zstd TIFFs (tests/fixtures/torch_persp_v{0,1}_zstd.tif)
+       -> OBJ with --focal-length=43, and as PNGs whose only EXIF is a
+       "Raw profile type exif" zTXt chunk after the image data
+       (write_png_text_exif) -> OBJ with no --focal-length (the 43 mm K
+       from the chunk), both with (f)'s gates; ICO (8-bit with an AND
+       mask, 32-bit, PNG), CUR and ICNS (RLE it32 with t8mk, PNG) icons
+       decoded only. Every plane has the committed SHA-256 of Pillow's
+       ("codecs", "icons"); it fails by name where Python's lzma module
+       does not import.
    One JSON record per run: seconds, phases, decode seconds per file and
    plane, encode (and write) seconds per depth map, launches, the card's
    name and power limit.
@@ -194,8 +207,9 @@ The script exits non-zero, printing neither, when there is no CUDA device
 or any phase fails. It imports nothing of JAX and nothing of the JAX
 package, and needs no Pillow: images are built in memory or written by
 its own writers (write_tiff, write_bmp, write_gif, write_pgm16,
-write_spider, write_tga_rle, writers.encode_png). It prints whether
-Pillow is installed on the card's machine.
+write_spider, write_tga_rle, write_png_text_exif, icon_files,
+writers.encode_png) and the committed fixtures. It prints whether Pillow
+is installed on the card's machine.
 """
 
 from __future__ import annotations
@@ -2176,6 +2190,11 @@ PERSP_FULL_TWINS = [p[: -len(".jpg")] + "_baseline.jpg" for p in PERSP_FULL_JPEG
 PERSP_FULL_WEBPS = [p[: -len(".jpg")] + ".webp" for p in PERSP_FULL_JPEGS]
 PERSP_WEBPS_LOSSLESS = [os.path.join(ROOT, "tests", "fixtures", f"torch_persp_v{i}_lossless.webp")
                         for i in range(2)]
+# Phase 8 (l): BASELINE #3's views (tint) as zstd-compressed RGB TIFFs
+# with horizontal differencing, written by Pillow's libtiff through
+# tests/gen_torch_formats_fixture.py (this script may use no zstd encoder).
+PERSP_ZSTD_TIFFS = [os.path.join(ROOT, "tests", "fixtures", f"torch_persp_v{i}_zstd.tif")
+                    for i in range(2)]
 FORMATS_SHA256 = os.path.join(ROOT, "tests", "fixtures", "torch_formats_sha256.json")
 TIFF_TILE = 256  # phase 8 (g)'s tiled layout
 JPEG_TIFF_ROWS = 64  # phase 8 (i)'s JPEG-in-TIFF rows per strip
@@ -2255,8 +2274,10 @@ def write_tiff(path: str, img: np.ndarray, sem_text: str | None, layout: str = "
     "bigtiff" (one strip, BigTIFF's 8-byte offsets and 20-byte entries),
     "float" (ImageJ's 32-bit save: float32 `img`, big-endian, SampleFormat
     3, one strip), "jpeg" (RGB `img` as JPEG-compressed YCbCr 4:2:0 in
-    strips, jpeg_tiff_strips) and "cmyk" ((H, W, 4) `img` as one
-    uncompressed strip of 8-bit CMYK, photometric 5)."""
+    strips, jpeg_tiff_strips), "cmyk" ((H, W, 4) `img` as one
+    uncompressed strip of 8-bit CMYK, photometric 5) and "lzma" (one
+    strip of 8-bit gray with horizontal differencing, predictor 2, as an
+    xz stream: compression 34925, what libtiff-based writers save)."""
     h, w = img.shape[:2]
     big = layout == "bigtiff"
     endian = ">" if layout == "float" else "<"
@@ -2275,6 +2296,13 @@ def write_tiff(path: str, img: np.ndarray, sem_text: str | None, layout: str = "
         tables, chunks = jpeg_tiff_strips(img)
         photometric, compression, rows_per_strip = 6, 7, JPEG_TIFF_ROWS
         extra = [(347, 7, tables), (530, 3, [2, 2])]
+    elif layout == "lzma":
+        import lzma
+
+        diff = np.array(img, np.uint8)
+        diff[:, 1:] = img[:, 1:] - img[:, :-1]  # each sample less its left neighbour, mod 256
+        chunks, compression = [lzma.compress(diff.tobytes(), format=lzma.FORMAT_XZ)], 34925
+        extra = [(317, 3, [2])]
     else:
         chunks = [np.ascontiguousarray(img).tobytes()] * (3 if layout == "planar" else 1)
     head = 16 if big else 8
@@ -2350,11 +2378,13 @@ def _rle8_literal(px: np.ndarray) -> bytes:
     return bytes(out)
 
 
-def write_bmp(path: str, img: np.ndarray, rle: bool = False) -> None:
+def write_bmp(path: str, img: np.ndarray, rle: bool = False, dib: bool = False) -> None:
     """An 8-bit BMP of the gray image with a gray palette (entry i = (i,
     i, i): Pillow opens it as "L"), what JEOL and Hitachi SEMs save: the
     40-byte header, rows bottom-up, uncompressed or RLE8 (_rle8_row, an
-    end of line after each row, the end of bitmap after the last)."""
+    end of line after each row, the end of bitmap after the last); with
+    `dib`, without the 14-byte file header (a headerless DIB, the pixels
+    right after the palette)."""
     h, w = img.shape
     rows = np.ascontiguousarray(img[::-1])
     if rle:
@@ -2368,7 +2398,8 @@ def write_bmp(path: str, img: np.ndarray, rle: bool = False) -> None:
     palette[3::4] = 0
     offset = 14 + 40 + 1024
     with open(path, "wb") as fh:
-        fh.write(b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0, offset))
+        if not dib:
+            fh.write(b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0, offset))
         fh.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 1 if rle else 0, len(data), 3780, 3780,
                              256, 0))
         fh.write(palette.tobytes() + data)
@@ -2784,6 +2815,7 @@ def phase_cli_files(counters, smi: str, texture_obj_sha: str) -> dict:
         records.update(cli_instrument_files(cap, smi, td, img1, img2))
         records.update(cli_gif_webp(cap, smi, td, img1, img2))
         records.update(cli_raster_files(cap, smi, td, img1, img2))
+        records.update(cli_codecs_icons(cap, smi, td, img1, img2))
     torch.cuda.empty_cache()
     return records
 
@@ -3299,6 +3331,270 @@ def cli_raster_files(cap, smi: str, td: str, img1, img2) -> dict:
     print(f"(k) Pillow imported during the runs {pil}")
     if pil:
         raise AssertionError("(k): Pillow was imported")
+    return records
+
+
+def exif_focal_block(focal: int) -> bytes:
+    """A little-endian EXIF block (TIFF header and IFD0) with
+    FocalLengthIn35mmFilm (41989, SHORT) = `focal`."""
+    return (b"II*\0" + struct.pack("<IHHHIHH", 8, 1, 41989, 3, 1, focal, 0) + b"\0" * 4)
+
+
+def write_png_text_exif(path: str, rgb: np.ndarray, focal: int) -> None:
+    """writers.encode_png of (H, W, 3) RGB, with the photo's EXIF (41989 =
+    `focal`) only as ImageMagick carries it into a PNG: a "Raw profile
+    type exif" zTXt chunk after the image data (a blank line, "exif", the
+    length, then the hex of "Exif\\0\\0" and the block, 72 digits a line)."""
+    from cybervision_tpu_torch.output.writers import _png_chunk, encode_png
+
+    block = b"Exif\0\0" + exif_focal_block(focal)
+    digits = block.hex()
+    text = "\nexif\n" + f"{len(block):8d}\n" + "\n".join(
+        digits[k : k + 72] for k in range(0, len(digits), 72)) + "\n"
+    chunk = _png_chunk(b"zTXt", b"Raw profile type exif\0\0" + zlib.compress(text.encode()))
+    data = encode_png(np.ascontiguousarray(rgb))
+    with open(path, "wb") as fh:
+        fh.write(data[:-12] + chunk + data[-12:])  # before IEND
+
+
+def icon_dib(px: np.ndarray, bits: int, mask: np.ndarray | None,
+             palette: np.ndarray | None = None) -> bytes:
+    """The bitmap of an ICO or CUR entry: a 40-byte info header whose
+    height counts the XOR bitmap and the AND mask, the palette (8 bits),
+    the rows bottom-up (8-bit indices, 24-bit BGR or 32-bit BGRA), then
+    the 1-bit AND mask (set bits transparent, rows padded to 32 bits)."""
+    h, w = px.shape[:2]
+    if bits == 8:
+        rows, pal = px, np.concatenate([palette[:, ::-1], np.zeros((256, 1), np.uint8)], axis=1)
+    else:
+        rows, pal = px[:, :, [2, 1, 0, 3][: bits // 8]], np.zeros((0, 4), np.uint8)
+    stride = (w * bits // 8 + 3) & ~3
+    xor = np.zeros((h, stride), np.uint8)
+    xor[:, : w * bits // 8] = rows.reshape(h, -1)
+    data = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0, 0, 0, 0, len(pal), 0)
+    data += pal.tobytes() + xor[::-1].tobytes()
+    if mask is not None:
+        packed = np.packbits(mask.astype(np.uint8), axis=1)
+        and_rows = np.zeros((h, (w + 31) // 32 * 4), np.uint8)
+        and_rows[:, : packed.shape[1]] = packed
+        data += and_rows[::-1].tobytes()
+    return data
+
+
+def icon_directory(magic: int, entries) -> bytes:
+    """An ICO (magic 1) or CUR (2) file of (width, height, bpp, data)
+    entries, the data after the directory in order."""
+    out = struct.pack("<HHH", 0, magic, len(entries))
+    offset, body = 6 + 16 * len(entries), b""
+    for w, h, bpp, data in entries:
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, 0, 0, 1, bpp, len(data),
+                           offset + len(body))
+        body += data
+    return out + body
+
+
+def icns_rle_plane(plane: bytes) -> bytes:
+    """One plane of an ICNS 24-bit icon run-length coded
+    (IcnsImagePlugin.read_32): runs of 3-130 equal bytes as 0x80 + n - 3
+    and the byte, the rest as literals of up to 128 bytes."""
+    out, i, n = bytearray(), 0, len(plane)
+    while i < n:
+        run = 1
+        while i + run < n and run < 130 and plane[i + run] == plane[i]:
+            run += 1
+        if run >= 3:
+            out += bytes([run + 125, plane[i]])
+            i += run
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and plane[j] == plane[j + 1] == plane[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + plane[i:j]
+        i = j
+    return bytes(out)
+
+
+def icns_file(entries) -> bytes:
+    body = b"".join(kind + struct.pack(">I", 8 + len(data)) + data for kind, data in entries)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def icon_files(td: str) -> list[str]:
+    """Phase 8 (l)'s icons, cut from BASELINE #3's first view (tint): an
+    ICO of an 8-bit palette entry with an AND mask (beside a smaller
+    32-bit one), an ICO of a 32-bit entry (alpha in every fourth byte), an
+    ICO of a PNG entry, a CUR of a 24-bit bitmap with an AND mask, an ICNS
+    of an RLE it32 icon with its t8mk mask (beside a smaller PNG) and an
+    ICNS whose 128x128 entry is a PNG. tests/gen_torch_formats_fixture.py
+    writes the same files and commits the SHA-256 of Pillow's planes of
+    them ("icons")."""
+    from cybervision_tpu_torch.output.writers import encode_png
+
+    views, _, _, _ = render_perspective(PERSP_W, PERSP_H, PERSP_CAMS[:1], exact_focal=True)
+    rgb = tint(views[0])
+    rng = np.random.RandomState(63)
+    yy, xx = np.mgrid[:128, :128]
+    disc = (yy - 64) ** 2 + (xx - 64) ** 2 > 60**2  # transparent outside a disc
+
+    def alpha(n):
+        return rng.randint(0, 256, (n, n)).astype(np.uint8)
+
+    def rgba(y, x, n):
+        return np.dstack([rgb[y : y + n, x : x + n], alpha(n)])
+
+    gray = rgb[40:88, 100:148].mean(axis=2).astype(np.uint8)
+    ramp = np.stack([np.arange(256), 255 - np.arange(256), np.arange(256) // 2], 1).astype(np.uint8)
+    files = {
+        "icon_bmp8.ico": icon_directory(1, [
+            (48, 48, 8, icon_dib(gray, 8, disc[:48, :48], ramp)),
+            (24, 24, 32, icon_dib(rgba(0, 0, 24), 32, None))]),
+        "icon_bmp32.ico": icon_directory(1, [(32, 32, 32, icon_dib(rgba(120, 60, 32), 32, None))]),
+        "icon_png.ico": icon_directory(1, [(64, 64, 32, encode_png(rgba(90, 200, 64)))]),
+        "cursor.cur": icon_directory(2, [(32, 32, 24, icon_dib(rgb[10:42, 250:282], 24,
+                                                               disc[40:72, 40:72]))]),
+        "icon_rle.icns": icns_file([
+            (b"it32", b"\0\0\0\0" + b"".join(icns_rle_plane(
+                np.ascontiguousarray(rgb[100:228, 50:178, k] // 8 * 8).tobytes()) for k in range(3))),
+            (b"t8mk", alpha(128).tobytes()),
+            (b"icp5", encode_png(rgb[0:32, 0:32]))]),
+        "icon_png.icns": icns_file([(b"ic07", encode_png(rgb[60:188, 150:278])),
+                                    (b"is32", rgb[0:16, 0:16].tobytes())]),
+    }
+    paths = []
+    for name, data in files.items():
+        paths.append(os.path.join(td, name))
+        with open(paths[-1], "wb") as fh:
+            fh.write(data)
+    return paths
+
+
+def codec_files(td: str, img1, img2) -> dict[str, list[str]]:
+    """Phase 8 (l)'s pairs: phase 3's as LZMA TIFFs (write_tiff "lzma")
+    and as headerless DIBs (write_bmp dib), BASELINE #3's views (tint) as
+    PNGs whose only EXIF is a "Raw profile type exif" zTXt chunk after
+    the image data (write_png_text_exif, 43 mm), and the committed zstd
+    TIFFs of the same views."""
+    views, _, _, _ = render_perspective(PERSP_W, PERSP_H, PERSP_CAMS[:1], exact_focal=True)
+    files: dict[str, list[str]] = {"lzma tiff": [], "dib": [], "text exif png": [],
+                                   "zstd tiff": list(PERSP_ZSTD_TIFFS)}
+    for k, (img, view) in enumerate(zip((img1, img2), views)):
+        base = os.path.join(td, f"codec_{k}")
+        files["lzma tiff"].append(base + "_lzma.tif")
+        write_tiff(files["lzma tiff"][-1], img, None, "lzma")
+        files["dib"].append(base + ".dib")
+        write_bmp(files["dib"][-1], img, dib=True)
+        files["text exif png"].append(base + "_text_exif.png")
+        write_png_text_exif(files["text exif png"][-1], tint(view), PERSP_FOCAL_35MM)
+    return files
+
+
+def cli_codecs_icons(cap, smi: str, td: str, img1, img2) -> dict:
+    """Phase 8 (l), with every import of Pillow blocked (_NoPillow):
+    codec_files' pairs through cli.main. The LZMA TIFFs -> PLY and the
+    DIBs -> PNG depth map (--interpolation=none), each equal to
+    reconstruct's on the arrays; the zstd TIFFs -> OBJ with
+    --focal-length=43 and the text-EXIF PNGs -> OBJ with no
+    --focal-length (the 43 mm K from the zTXt profile), each with
+    cli_exif_jpeg_pair's gates. Then icon_files, decoded only. Every
+    plane has the committed SHA-256 of Pillow's ("codecs", "icons"); the
+    LZMA, DIB and PNG planes are the arrays."""
+    from cybervision_tpu_torch.config import (
+        InterpolationMode, MeshMode, ProjectionMode, ReconstructionConfig,
+    )
+    from cybervision_tpu_torch.images import SourceImage, read_metadata
+    from cybervision_tpu_torch.reconstruction import reconstruct
+
+    lzma_ok = importlib.util.find_spec("lzma") is not None
+    if lzma_ok:
+        try:
+            import lzma  # noqa: F401 - the module may exist without its _lzma
+        except ImportError:
+            lzma_ok = False
+    print(f"(l) Python's lzma module imports on this machine: {lzma_ok}")
+    if not lzma_ok:
+        raise AssertionError("(l): Python's lzma module does not import: LZMA TIFF cannot be read")
+    with open(FORMATS_SHA256) as fh:
+        committed = json.load(fh)
+    t0 = time.perf_counter()
+    files = codec_files(td, img1, img2)
+    icons = icon_files(td)
+    written = time.perf_counter() - t0
+    views, _, _, _ = render_perspective(PERSP_W, PERSP_H, PERSP_CAMS[:1], exact_focal=True)
+    aff = ProjectionMode.AFFINE
+    plain = [SourceImage(im) for im in (img1, img2)]
+    records = {}
+    with _NoPillow():
+        srcs, hashes = {}, {}
+        for kind, paths in files.items():
+            srcs[kind] = [SourceImage.load(p) for p in paths]
+            hashes[kind] = all(
+                _plane_sha(s.img) == committed["codecs"][os.path.basename(p)]["l"]
+                and _plane_sha(s.load_rgb_plane()) == committed["codecs"][os.path.basename(p)]["rgb"]
+                for s, p in zip(srcs[kind], paths))
+        lossless = all(np.array_equal(s.img, im) for kind in ("lzma tiff", "dib")
+                       for s, im in zip(srcs[kind], (img1, img2)))
+        lossless &= all(np.array_equal(s.load_rgb_plane(), tint(v))
+                        for s, v in zip(srcs["text exif png"], views))
+        focal = [read_metadata(p).focal_length_35mm for p in files["text exif png"]]
+        print(f"(l) files written in {written:.2f} s"
+              f" ({[os.path.getsize(p) for ps in files.values() for p in ps]} bytes); planes equal"
+              f" to Pillow's (SHA-256) {hashes}; LZMA, DIB and PNG planes equal to the arrays"
+              f" {lossless}; the text-EXIF PNGs' focal lengths {focal}")
+        if not all(hashes.values()) or not lossless or focal != [PERSP_FOCAL_35MM] * 2:
+            raise AssertionError("(l): the decoded planes are not Pillow's, or the PNG text"
+                                 " profile's focal length was not read")
+
+        label = f"(l) LZMA TIFF pair {SIZE}x{SIZE} -> PLY"
+        ref_ply, out = os.path.join(td, "mem_l.ply"), os.path.join(td, "lzma.ply")
+        reconstruct(["a", "b"], ref_ply, ReconstructionConfig(
+            projection=aff, mesh=MeshMode.VERTEX_COLORS), quiet=True, images=plain)
+        run = cap.main(["--projection=parallel", "--mesh=vertex-colors", *files["lzma tiff"], out])
+        records["lzma tiff ply"] = cli_record("(l) LZMA TIFF", run["seconds"], run["rec"].phases,
+                                              run["decode"], run["launches"], smi)
+        same = _sha(out) == _sha(ref_ply)
+        print(f"{label}: PLY equal to the in-memory run's {same}")
+        if not same:
+            raise AssertionError(f"{label}: the PLY differs from the in-memory run's")
+
+        records["zstd tiff obj"] = cli_exif_jpeg_pair(
+            cap, smi, td, "(l) zstd TIFF pair", f"(l) zstd TIFF pair {PERSP_W}x{PERSP_H} -> OBJ",
+            files["zstd tiff"], srcs["zstd tiff"], {}, (PERSP_W, PERSP_H),
+            focal_arg=PERSP_FOCAL_35MM)
+        records["text exif png obj"] = cli_exif_jpeg_pair(
+            cap, smi, td, "(l) text-EXIF PNG pair",
+            f"(l) PNG pair with a zTXt EXIF profile {PERSP_W}x{PERSP_H} -> OBJ",
+            files["text exif png"], srcs["text exif png"], {}, (PERSP_W, PERSP_H))
+
+        label = f"(l) DIB pair {SIZE}x{SIZE} -> PNG depth map"
+        ref_png, out = os.path.join(td, "mem_l.png"), os.path.join(td, "dib.png")
+        reconstruct(["a", "b"], ref_png, ReconstructionConfig(
+            projection=aff, interpolation=InterpolationMode.NONE), quiet=True, images=plain)
+        run = cap.main(["--projection=parallel", "--interpolation=none", *files["dib"], out])
+        records["dib png"] = cli_record("(l) DIB", run["seconds"], run["rec"].phases,
+                                        run["decode"], run["launches"], smi, run["encode"])
+        same = _sha(out) == _sha(ref_png)
+        print(f"{label}: PNG equal to the in-memory run's {same}")
+        if not same:
+            raise AssertionError(f"{label}: the PNG differs from the in-memory run's")
+
+        decode = {}
+        for p in icons:
+            t0 = time.perf_counter()
+            s = SourceImage.load(p)
+            rgb_plane = s.load_rgb_plane()
+            decode[os.path.basename(p)] = time.perf_counter() - t0
+            hashes[os.path.basename(p)] = (
+                _plane_sha(s.img) == committed["icons"][os.path.basename(p)]["l"]
+                and _plane_sha(rgb_plane) == committed["icons"][os.path.basename(p)]["rgb"])
+        icon_ok = {k: hashes[k] for k in decode}
+        print(f"(l) icons {[os.path.getsize(p) for p in icons]} bytes: planes equal to Pillow's"
+              f" (SHA-256) {icon_ok}; decode seconds {json.dumps({k: round(v, 4) for k, v in decode.items()})}")
+        if not all(icon_ok.values()):
+            raise AssertionError("(l): the icons' planes are not Pillow's")
+        pil = any(m == "PIL" or m.startswith("PIL.") for m in sys.modules)
+    print(f"(l) Pillow imported during the runs {pil}")
+    if pil:
+        raise AssertionError("(l): Pillow was imported")
     return records
 
 

@@ -1,23 +1,26 @@
 """Readers for the CLI's input files, without Pillow: PNG (Adam7 and
-1-16 bits included), TIFF (the FEI SEM format; strips or tiles, chunky
-or planar, 1 to 32-bit integer and float samples, gray, palette, RGB, LA,
-PA and CMYK, CCITT and JPEG strips, classic or BigTIFF), JPEG
-(sequential or progressive; gray, YCbCr, RGB, CMYK or YCCK), BMP
-(palettes, 16 to 32 bits, bit fields, RLE), GIF (the first frame), WebP
-(lossless, lossy with alpha, VP8X with EXIF, an animation's first
-frame), Netpbm (PBM, PGM, PPM, PFM, plain or binary), SPIDER, TGA, SGI,
-PCX and QOI, giving what the JAX package reads through Pillow — the SEM
-metadata tag, the EXIF focal length, and the planes of convert("L") and
-convert("RGB"), bit for bit. A file goes to the reader of the plugin
-Pillow's Image.open would pick (identify). The writers of the depth maps
-are jpeg_encode (JPEG) and rgba_encode (TIFF, BMP).
+1-16 bits included, EXIF from eXIf or a "Raw profile type exif" text
+chunk), TIFF (the FEI SEM format; strips or tiles, chunky or planar, 1 to
+32-bit integer and float samples, gray, palette, RGB, LA, PA and CMYK,
+LZW, Deflate, LZMA, zstd, CCITT and JPEG strips, classic or BigTIFF),
+JPEG (sequential or progressive; gray, YCbCr, RGB, CMYK or YCCK), BMP
+and headerless DIB (palettes, 16 to 32 bits, bit fields, RLE), GIF (the
+first frame), WebP (lossless, lossy with alpha, VP8X with EXIF, an
+animation's first frame), Netpbm (PBM, PGM, PPM, PFM, plain or binary),
+ICO and CUR (PNG or BMP entries), ICNS (PNG entries, 24-bit RLE icons
+and their masks), SPIDER, TGA, SGI, PCX and QOI, giving what the JAX
+package reads through Pillow — the SEM metadata tag, the EXIF focal
+length, and the planes of convert("L") and convert("RGB"), bit for bit.
+A file goes to the reader of the plugin Pillow's Image.open would pick
+(identify). The writers of the depth maps are jpeg_encode (JPEG) and
+rgba_encode (TIFF, BMP).
 
 The containers are parsed here in Python; the pixel loops run in the
 native library (native/imagedecode.cpp, native/webpdecode.cpp), built at
 first use. PNG, uncompressed BMP, TGA and SGI, Netpbm, SPIDER and
-uncompressed, PackBits or Deflate TIFF have a numpy path for when it
-cannot be built; JPEG, LZW, CCITT, JPEG-in-TIFF, RLE BMP, TGA and SGI,
-PCX, QOI, GIF and WebP then raise NativeDecoderError.
+uncompressed, PackBits, Deflate or LZMA TIFF have a numpy path for when
+it cannot be built; JPEG, LZW, zstd, CCITT, JPEG-in-TIFF, RLE BMP, TGA,
+SGI and ICNS, PCX, QOI, GIF and WebP then raise NativeDecoderError.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import struct
 import numpy as np
 
 from cybervision_tpu_torch.imageio import (
-    bmp, exif, gif, jpeg, netpbm, pcx, png, qoi, sgi, spider, tga, tiff, webp,
+    bmp, exif, gif, icns, ico, jpeg, netpbm, pcx, png, qoi, sgi, spider, tga, tiff, webp,
 )
 from cybervision_tpu_torch.imageio.convert import to_l, to_rgb
 from cybervision_tpu_torch.imageio.errors import (
@@ -64,6 +67,9 @@ class ImageFile:
 
     format: str
     parsed: object
+    # decode()'s result, kept: a PNG's EXIF may need its rows decoded first,
+    # and Pillow reuses that decode for the conversions too.
+    decoded: tuple | None = dataclasses.field(default=None, repr=False)
 
     @property
     def sem(self):
@@ -79,22 +85,19 @@ class ImageFile:
         if self.format not in ("PNG", "JPEG", "WebP"):
             return None
         if self.format == "PNG":
-            block = self.parsed.exif
-            if block is None and self.parsed.late_exif is not None:
-                # Pillow reads an eXIf after the image data only by
-                # decoding every row; a failed decode leaves it unread.
-                png.decode(self.parsed, _native())
-                block = self.parsed.late_exif
+            # Pillow reads the chunks after the image data only by decoding
+            # every row; a failed decode leaves them unread.
+            block = png.exif_block(self.parsed, self.decode)
         else:
             block = self.parsed.exif
         return None if block is None else exif.exif_block_focal_length(block)
 
     def decode(self) -> tuple[str, np.ndarray, np.ndarray | None]:
         """(mode, pixels, palette); see the format modules."""
-        module = {"PNG": png, "TIFF": tiff, "JPEG": jpeg, "BMP": bmp, "GIF": gif, "WebP": webp,
-                  "PPM": netpbm, "PCX": pcx, "QOI": qoi, "SGI": sgi, "SPIDER": spider,
-                  "TGA": tga}[self.format]
-        return module.decode(self.parsed, _native())
+        if self.decoded is None:
+            module = _DECODERS[self.format]
+            self.decoded = module.decode(self.parsed, _native())
+        return self.decoded
 
 
 # -- Pillow's plugin order ----------------------------------------------------
@@ -224,8 +227,7 @@ def _avif(prefix: bytes) -> bool:
 # a format Pillow opens without reading its pixels).
 _PLUGINS = (
     ("BMP", lambda d: d.startswith(b"BM"), "BMP"),
-    ("DIB", lambda d: _u32(d, 0) in (12, 40, 52, 56, 64, 108, 124),
-     "a headerless Windows bitmap (DIB)"),
+    ("DIB", lambda d: _u32(d, 0) in (12, 40, 52, 56, 64, 108, 124), "DIB"),
     ("GIF", lambda d: d[:6] in gif.SIGNATURES, "GIF"),
     ("JPEG", lambda d: d.startswith(b"\xff\xd8\xff"), "JPEG"),
     ("PPM", netpbm.accept, "PPM"),
@@ -234,7 +236,7 @@ _PLUGINS = (
     ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")), "BLP (Blizzard texture)"),
     ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC")),
      ("BUFR", "Pillow names it but reads no pixels")),
-    ("CUR", lambda d: d.startswith(b"\0\0\2\0") and _entries(d), "CUR (Windows cursor)"),
+    ("CUR", lambda d: d.startswith(b"\0\0\2\0") and _entries(d), "CUR"),
     ("PCX", pcx.accept, "PCX"),
     ("DCX", lambda d: _u32(d, 0) == 0x3ADE68B1, "DCX (multi-page PCX)"),
     ("DDS", lambda d: d.startswith(b"DDS "), "DDS"),
@@ -251,8 +253,8 @@ _PLUGINS = (
      ("HDF5", "Pillow names it but reads no pixels")),
     ("JPEG2000", lambda d: d.startswith((b"\xff\x4f\xff\x51", b"\0\0\0\x0cjP  \r\n\x87\n")),
      "JPEG 2000"),
-    ("ICNS", lambda d: d.startswith(b"icns"), "ICNS (macOS icon)"),
-    ("ICO", lambda d: d.startswith(b"\0\0\1\0") and _entries(d), "ICO (Windows icon)"),
+    ("ICNS", lambda d: d.startswith(b"icns"), "ICNS"),
+    ("ICO", lambda d: d.startswith(b"\0\0\1\0") and _entries(d), "ICO"),
     ("IM", _im, "IM (LabEye IFUNC)"),
     ("IMT", _imt, "IM Tools"),
     ("IPTC", _iptc, "IPTC/NAA"),
@@ -277,9 +279,13 @@ _PLUGINS = (
     ("XPM", lambda d: d.startswith(b"/* XPM */"), "XPM (X11 pixmap)"),
     ("XVTHUMB", lambda d: d.startswith(b"P7 332"), "XV thumbnail"),
 )
-_PARSERS = {"PNG": png.parse, "TIFF": tiff.parse, "BMP": bmp.parse, "GIF": gif.parse,
-            "WebP": webp.parse, "PPM": netpbm.parse, "PCX": pcx.parse, "QOI": qoi.parse,
+_PARSERS = {"PNG": png.parse, "TIFF": tiff.parse, "BMP": bmp.parse, "DIB": bmp.parse_dib,
+            "GIF": gif.parse, "WebP": webp.parse, "PPM": netpbm.parse, "CUR": ico.parse_cur,
+            "PCX": pcx.parse, "ICNS": icns.parse, "ICO": ico.parse, "QOI": qoi.parse,
             "SGI": sgi.parse, "SPIDER": spider.parse, "TGA": tga.parse}
+_DECODERS = {"PNG": png, "TIFF": tiff, "JPEG": jpeg, "BMP": bmp, "DIB": bmp, "GIF": gif,
+             "WebP": webp, "PPM": netpbm, "CUR": bmp, "PCX": pcx, "ICNS": icns, "ICO": ico,
+             "QOI": qoi, "SGI": sgi, "SPIDER": spider, "TGA": tga}
 
 
 def identify(data: bytes, metadata_only: bool = False) -> tuple[str, object]:
@@ -300,8 +306,10 @@ def identify(data: bytes, metadata_only: bool = False) -> tuple[str, object]:
             return target, _PARSERS[target](data)
         except NotThisFormat:
             continue
-    raise UnsupportedImageError("this file format is not supported: no reader, and no Pillow"
-                                " plugin, takes it")
+    raise UnsupportedImageError("this file format is not supported: neither the readers (PNG,"
+                                " TIFF, JPEG, BMP and DIB, GIF, WebP, Netpbm, PCX, ICO and CUR,"
+                                " ICNS, QOI, SGI, SPIDER, TGA) nor any other Pillow plugin take"
+                                " it")
 
 
 def open_image(path: str, metadata_only: bool = False) -> ImageFile:

@@ -1,11 +1,15 @@
-"""BMP container, as Pillow's BmpImagePlugin opens it: the core
-(12-byte), INFO (40), V2/V3 (52/56), OS/2 v2 (64), V4 (108) and V5 (124)
-headers; 1-, 4- and 8-bit palettes ("1" or "L" when the palette is
-Pillow's gray one, else "P"), 16-bit 5-5-5 and 24- and 32-bit BI_RGB
+"""BMP container, as Pillow's BmpImagePlugin opens it, with its file
+header or without it (DibImageFile: a headerless DIB, and the bitmaps
+inside ICO and CUR files): the core (12-byte), INFO (40), V2/V3 (52/56),
+OS/2 v2 (64), V4 (108) and V5 (124) headers; 1-, 4- and 8-bit palettes
+("1" or "L" when the palette is Pillow's gray one, else "P"), 16-bit
+5-5-5 and 24- and 32-bit BI_RGB
 ("RGB", the 32-bit X byte ignored), BI_BITFIELDS with the masks Pillow
 accepts (5-5-5, 5-6-5, 24-bit BGR and the 32-bit byte layouts, "RGBA"
 where one holds alpha), RLE8 and RLE4; bottom-up or top-down rows from
-bfOffBits. BMP carries no metadata the readers use.
+bfOffBits, or, without a file header, from the byte after the info
+header, its bit fields and its palette. BMP carries no metadata the
+readers use.
 
 Raw rows are unpacked with numpy. RLE runs in the native library
 (imagedecode.cpp's bmp_rle, which also says where the port follows the
@@ -22,6 +26,7 @@ import numpy as np
 
 from cybervision_tpu_torch.imageio.errors import (
     CorruptImageError,
+    NotThisFormat,
     TruncatedImageError,
     UnsupportedImageError,
     native_missing,
@@ -69,13 +74,29 @@ def parse(data: bytes) -> BmpFile:
     if len(data) < 18 or not data.startswith(b"BM"):
         raise CorruptImageError("not a BMP file")
     (offset,) = struct.unpack_from("<I", data, 10)
-    (size,) = struct.unpack_from("<I", data, 14)
+    return bitmap(data, 14, offset)
+
+
+def parse_dib(data: bytes) -> BmpFile:
+    """A headerless bitmap (DibImageFile): the info header at the file's
+    start, the pixels after it."""
+    return bitmap(data, 0, 0)
+
+
+def bitmap(data: bytes, at: int, offset: int, raw_alpha: bool = False) -> BmpFile:
+    """BmpImageFile._bitmap: the info header at `at`, the pixels at
+    `offset` (bfOffBits; 0: right after the header, its bit fields and
+    its palette). raw_alpha: 32-bit BI_RGB pixels read as BGRA (Pillow's
+    rule for a cursor's bitmap at offset 22)."""
+    if len(data) < at + 4:
+        raise NotThisFormat("bitmap header past the file's end")
+    (size,) = struct.unpack_from("<I", data, at)
     if size not in _HEADERS:
         raise UnsupportedImageError(f"BMP header of {size} bytes")
-    head = data[18 : 14 + size]
+    head = data[at + 4 : at + size]
     if len(head) < size - 4:
         raise TruncatedImageError("BMP header past the file's end")
-    pos = 14 + size
+    pos = at + size
     top_down = False
     if size == 12:
         width, height, _, bits = struct.unpack_from("<HHHH", head)
@@ -111,6 +132,8 @@ def parse(data: bytes) -> BmpFile:
             mode = "RGBA"
     elif compression not in (_RAW, _RLE8, _RLE4):
         raise UnsupportedImageError(f"BMP compression {compression} (JPEG or PNG inside a BMP)")
+    elif compression == _RAW and bits == 32 and raw_alpha:
+        mode, rawmode = "RGBA", "BGRA"
     palette = None
     if mode == "P":
         if not 0 < colors <= 65536:

@@ -1,14 +1,20 @@
-"""PNG container: signature, chunks (IHDR, PLTE, IDAT, eXIf, IEND), the
-zlib stream through the standard library, rows unfiltered by the native
-library or by numpy.
+"""PNG container: signature, chunks (IHDR, PLTE, IDAT, eXIf, the text
+chunks tEXt, zTXt and iTXt, IEND), the zlib stream through the standard
+library, rows unfiltered by the native library or by numpy.
 
 Follows Pillow's reader where the JAX package depends on it: chunks before
 the first IDAT must carry a good CRC; the image data is the run of
 consecutive IDAT chunks; chunks after it are read without a CRC check up
 to IEND or the first broken chunk; tRNS is ignored (Pillow's conversions
 to "L" and "RGB" do not use it); the EXIF block is an eXIf chunk's
-payload (one after the image data counts only when the rows decode, since
-Pillow reads it there). Modes, as PngImagePlugin._MODES opens them: "1"
+payload or, as Pillow's getexif() falls back to it, the hex profile of a
+"Raw profile type exif" text chunk (ImageMagick's way to carry a photo's
+EXIF): the chunks after the image data count only when the rows decode,
+since Pillow reads them there. Text chunks are read as
+PngImagePlugin.PngStream reads them (latin-1 tEXt, zTXt and compressed
+iTXt inflated up to MAX_TEXT_CHUNK, the MAX_TEXT_MEMORY total, the last
+chunk of a keyword winning), with the errors that make Pillow's open or
+load fail. Modes, as PngImagePlugin._MODES opens them: "1"
 for 1-bit gray, "L" for 2/4/8-bit gray (2 and 4 bits scaled up), "LA",
 "RGB", "RGBA", "P" at 1, 2, 4 and 8 bits, "I;16" for 16-bit gray, and
 the high bytes of 16-bit LA, RGB and RGBA (as Pillow unpacks them).
@@ -30,6 +36,14 @@ from cybervision_tpu_torch.imageio.errors import (
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
+# PngImagePlugin's limits on text chunks: one inflated chunk (ImageFile's
+# SAFEBLOCK) and all text together.
+MAX_TEXT_CHUNK = 1024 * 1024
+MAX_TEXT_MEMORY = 64 * MAX_TEXT_CHUNK
+# The info keys getexif() reads: an EXIF block, and the hex profile it
+# falls back to.
+EXIF_KEYS = ("exif", "Raw profile type exif")
+
 # colour type -> (samples per pixel, mode at 8 bits)
 _COLOR_TYPES = {0: (1, "L"), 2: (3, "RGB"), 3: (1, "P"), 4: (2, "LA"), 6: (4, "RGBA")}
 
@@ -43,11 +57,11 @@ class PngFile:
     interlace: int
     palette: bytes | None
     idat: bytes
-    # The EXIF block of an eXIf chunk before the image data, and of the
-    # last one after it: the JAX package's Pillow reads the latter only
-    # when every row decodes.
-    exif: bytes | None
-    late_exif: bytes | None
+    # Pillow's info["exif"] and info["Raw profile type exif"] as the chunks
+    # before the image data leave them, and what the chunks after it set:
+    # the JAX package's Pillow reads those only when every row decodes.
+    info: dict
+    late_info: dict
     # A chunk after the image data that runs past the file's end: Pillow
     # raises once the rows are decoded.
     tail_error: str | None
@@ -65,7 +79,10 @@ def parse(data: bytes) -> PngFile:
         raise CorruptImageError("not a PNG file")
     pos = len(SIGNATURE)
     head = None
-    palette = exif = late_exif = tail_error = None
+    palette = tail_error = None
+    info: dict = {}
+    late_info: dict = {}
+    text_memory = 0
     idat: list[bytes] = []
     seen_idat = in_idat = False
     while True:
@@ -78,6 +95,8 @@ def parse(data: bytes) -> PngFile:
             if seen_idat:
                 break
             raise CorruptImageError(f"broken PNG chunk {cid!r}")
+        if cid == b"IEND" and seen_idat:
+            break  # Pillow stops there, without reading its body
         body = data[pos + 8 : pos + 8 + length]
         if len(body) < length:
             if seen_idat and not in_idat:
@@ -104,17 +123,102 @@ def parse(data: bytes) -> PngFile:
         elif cid == b"PLTE":
             palette = body
         elif cid == b"eXIf":
-            if seen_idat:
-                late_exif = b"Exif\x00\x00" + body
-            else:
-                exif = b"Exif\x00\x00" + body
+            (late_info if seen_idat else info)["exif"] = b"Exif\x00\x00" + body
+        elif cid in (b"tEXt", b"zTXt", b"iTXt"):
+            try:
+                key, value, size = _text(cid, body)
+                if key in EXIF_KEYS:
+                    (late_info if seen_idat else info)[key] = value
+                text_memory += size
+                if text_memory > MAX_TEXT_MEMORY:
+                    raise ValueError(f"too much memory used in PNG text chunks: {text_memory}")
+            except ValueError as err:
+                if not seen_idat:
+                    raise CorruptImageError(str(err)) from err
+                tail_error = str(err)  # Pillow's load raises once the rows are decoded
+                break
     if head is None or not idat:
         raise CorruptImageError("PNG without IHDR or image data")
     width, height, depth, color_type, _, filter_method, interlace = head
     if filter_method:
         raise CorruptImageError("unknown PNG filter category")
     return PngFile(width, height, depth, color_type, interlace, palette,
-                   b"".join(idat), exif, late_exif, tail_error)
+                   b"".join(idat), info, late_info, tail_error)
+
+
+def _inflate_text(data: bytes) -> bytes:
+    """PngImagePlugin._safe_zlib_decompress: ValueError past
+    MAX_TEXT_CHUNK, zlib.error on a broken stream."""
+    inflate = zlib.decompressobj()
+    plain = inflate.decompress(data, MAX_TEXT_CHUNK)
+    if inflate.unconsumed_tail:
+        raise ValueError("a PNG text chunk inflates past MAX_TEXT_CHUNK")
+    return plain
+
+
+def _text(cid: bytes, body: bytes) -> tuple[str | None, object, int]:
+    """(keyword, the value Pillow puts in info, its length in the text
+    memory) of a tEXt, zTXt or iTXt chunk, keyword None where Pillow sets
+    nothing; ValueError where Pillow's chunk handler raises."""
+    key, sep, value = body.partition(b"\0")
+    if cid == b"tEXt":
+        if not key:
+            return None, None, 0
+        text = value.decode("latin-1", "replace")
+        return key.decode("latin-1"), value if key == b"exif" else text, len(text)
+    if cid == b"zTXt":
+        if value and value[0] != 0:
+            raise ValueError(f"unknown compression method {value[0]} in a PNG zTXt chunk")
+        try:
+            value = _inflate_text(value[1:])
+        except zlib.error:
+            value = b""
+        if not key:
+            return None, None, 0
+        text = value.decode("latin-1", "replace")
+        return key.decode("latin-1"), text, len(text)
+    # iTXt: keyword, compression flag and method, language, translated
+    # keyword, text.
+    if not sep or len(value) < 2:
+        return None, None, 0
+    flag, method, rest = value[0], value[1], value[2:]
+    parts = rest.split(b"\0", 2)
+    if len(parts) < 3:
+        return None, None, 0
+    lang, translated, value = parts
+    if flag:
+        if method:
+            return None, None, 0
+        try:
+            value = _inflate_text(value)
+        except zlib.error:
+            return None, None, 0
+    try:
+        lang.decode("utf-8"), translated.decode("utf-8")
+        text = value.decode("utf-8")
+    except UnicodeError:
+        return None, None, 0
+    return key.decode("latin-1"), text, len(text)
+
+
+def exif_block(png: PngFile, decode) -> bytes | str | None:
+    """The EXIF data Pillow's getexif() loads for the file: info["exif"],
+    else the "Raw profile type exif" text's hex profile (lines from the
+    fourth on), else None. Without an EXIF block before the image data
+    getexif() first decodes every row (`decode`, which raises where they
+    fail), reading the chunks after them; decode is called only where
+    that can change the answer. bytes.fromhex raises on a bad profile,
+    as in getexif()."""
+    info = png.info
+    if "exif" not in info:
+        if not info and not png.late_info:
+            return None
+        decode()
+        info = {**info, **png.late_info}
+    block = info.get("exif")
+    if block is None and "Raw profile type exif" in info:
+        block = bytes.fromhex("".join(info["Raw profile type exif"].split("\n")[3:]))
+    return block
 
 
 def _unfilter_numpy(raw: np.ndarray, bpp: int) -> np.ndarray:

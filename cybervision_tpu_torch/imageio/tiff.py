@@ -5,11 +5,14 @@ IFD0 as the file's EXIF directory, as Pillow's tag_v2 and getexif() give
 them to the JAX package.
 
 Strips and tiles may be uncompressed, PackBits (numpy without the native
-library), LZW, Deflate, CCITT (modified Huffman, T.4 1D or 2D, T.6:
-native only) or JPEG (compression 7: each strip or tile a JPEG stream
-completed by the JPEGTables tag, decoded by the JPEG reader); LZW and
-Deflate with horizontal differencing (predictor 2) or the floating-point
-predictor (3) per row of a strip or tile, as libtiff applies them. Fill
+library), LZW, Deflate, LZMA (an xz stream, through the standard
+library's lzma), zstd (native only), CCITT (modified Huffman, T.4 1D or
+2D, T.6: native only) or JPEG (compression 7: each strip or tile a JPEG
+stream completed by the JPEGTables tag, decoded by the JPEG reader); LZW,
+Deflate, LZMA and zstd with horizontal differencing (predictor 2) or the
+floating-point predictor (3) per row of a strip or tile, as libtiff
+applies them. Each codec decodes a strip until it is full, as libtiff's
+does: data after that is not read. Fill
 order 2 reverses the bits of every byte before the codec, as libtiff
 does for every codec but JPEG. Samples are chunky (PlanarConfiguration
 1) or one plane per sample (2), each plane its own strips or tiles. Edge
@@ -51,6 +54,7 @@ import numpy as np
 from cybervision_tpu_torch.imageio import exif as ifd
 from cybervision_tpu_torch.imageio.errors import (
     CorruptImageError,
+    NativeDecoderError,
     TruncatedImageError,
     UnsupportedImageError,
     native_missing,
@@ -69,6 +73,7 @@ _T4_OPTIONS, _JPEG_TABLES = 292, 347
 
 _RAW, _LZW, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS = 1, 5, 8, 32946, 32773
 _CCITT_RLE, _CCITT_T4, _CCITT_T6, _OLD_JPEG, _JPEG = 2, 3, 4, 6, 7
+_LZMA, _ZSTD = 34925, 50000
 _CCITT = (_CCITT_RLE, _CCITT_T4, _CCITT_T6)
 # Each byte with its bits in reverse order (fill order 2).
 _BIT_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
@@ -229,6 +234,12 @@ def _strip(raw: bytes, size: int, compression: int, native, ccitt=None) -> bytes
         if native is None:
             raise native_missing("LZW-compressed TIFF")
         out = native.tiff_lzw(raw, size)
+    elif compression == _LZMA:
+        out = _lzma_strip(raw, size)
+    elif compression == _ZSTD:
+        if native is None:
+            raise native_missing("zstd-compressed TIFF")
+        out = native.tiff_zstd(raw, size)
     elif compression in _CCITT:
         if native is None:
             raise native_missing("CCITT-coded TIFF")
@@ -238,6 +249,37 @@ def _strip(raw: bytes, size: int, compression: int, native, ccitt=None) -> bytes
     if len(out) < size:
         raise TruncatedImageError("a TIFF strip ends before its rows")
     return out
+
+
+def _lzma_strip(raw: bytes, size: int) -> bytes:
+    """Up to `size` bytes of an LZMA strip: libtiff's LZMADecode runs
+    liblzma's xz decoder until the strip is full, so bytes after the
+    stream (which lzma.decompress would refuse) are not read."""
+    try:
+        import lzma
+    except ImportError as err:
+        raise NativeDecoderError("LZMA-compressed TIFF needs Python's lzma module, which this"
+                                 " Python was built without") from err
+    try:
+        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(raw, max_length=size)
+    except lzma.LZMAError as err:
+        error = err
+    # libtiff ignores an error once the strip is full and keeps every byte
+    # liblzma wrote before it, which Python drops with the call that
+    # failed: decode again an input byte and an output byte a call.
+    out = bytearray()
+    inflate = lzma.LZMADecompressor(lzma.FORMAT_XZ)
+    try:
+        for i in range(len(raw)):
+            piece = inflate.decompress(raw[i : i + 1], max_length=1)
+            while piece:
+                out += piece
+                if len(out) >= size:
+                    return bytes(out)
+                piece = inflate.decompress(b"", max_length=1)
+    except (lzma.LZMAError, EOFError):
+        pass
+    raise CorruptImageError(f"TIFF LZMA strip: {error}")
 
 
 def _packbits_numpy(src: bytes, size: int) -> bytes:
@@ -308,7 +350,8 @@ def decode(t: TiffFile, native) -> tuple[str, np.ndarray, np.ndarray | None]:
     compression = t.get(_COMPRESSION, _RAW)
     if compression == _OLD_JPEG:
         raise UnsupportedImageError("old-style JPEG-in-TIFF (compression 6) is not supported yet")
-    if compression not in (_RAW, _LZW, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS, _JPEG) + _CCITT:
+    if compression not in (_RAW, _LZW, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS, _JPEG, _LZMA,
+                           _ZSTD) + _CCITT:
         raise UnsupportedImageError(f"TIFF compression {compression} is not supported yet")
     lay = _mode(t, compression)
     spp, bits = lay.spp, lay.bits
@@ -323,8 +366,9 @@ def decode(t: TiffFile, native) -> tuple[str, np.ndarray, np.ndarray | None]:
     predictor = t.get(_PREDICTOR, 1)
     if predictor not in (1, 2, 3):
         raise UnsupportedImageError(f"TIFF predictor {predictor} is not supported yet")
-    # libtiff applies the predictor in its LZW and Deflate codecs only.
-    if compression not in (_LZW, _DEFLATE, _ADOBE_DEFLATE):
+    # libtiff applies the predictor in its LZW, Deflate, LZMA and zstd
+    # codecs only.
+    if compression not in (_LZW, _DEFLATE, _ADOBE_DEFLATE, _LZMA, _ZSTD):
         predictor = 1
     if predictor == 3 and lay.mode != "F":
         raise UnsupportedImageError("TIFF floating-point predictor on integer samples")

@@ -5,16 +5,16 @@ WebP, webpdecode.cpp) and the JPEG writer's (imageencode.cpp).
 native.cpp is a copy of cybervision_tpu/native/native.cpp; every entry
 point is bound here: the affine lanes' writers and meshers and the SFM
 track merge. imagedecode.cpp is the port's own: PNG unfiltering, TIFF
-PackBits, LZW and CCITT, BMP RLE, GIF LZW, TGA, SGI and PCX RLE, QOI,
-baseline and progressive JPEG (cybervision_tpu_torch.imageio); webpdecode.cpp WebP's VP8L, VP8 and
-ALPH bitstreams; imageencode.cpp the JPEG writer's scan
+PackBits, LZW, zstd and CCITT, BMP RLE, GIF LZW, TGA, SGI, PCX and ICNS
+RLE, QOI, baseline and progressive JPEG (cybervision_tpu_torch.imageio);
+webpdecode.cpp WebP's VP8L, VP8 and ALPH bitstreams; imageencode.cpp the JPEG writer's scan
 (imageio.jpeg_encode).
 The shared library builds with make into this directory at its first
 use, not at import. `load` raises ImportError when it cannot be built or
 loaded (no toolchain): callers ask `available()` and then take their
 numpy paths, as the JAX package's callers do when its native module
-fails to import (JPEG, LZW, CCITT, the RLE formats, QOI, GIF and WebP
-have none: the readers raise).
+fails to import (JPEG, LZW, zstd, CCITT, the RLE formats, QOI, GIF and
+WebP have none: the readers raise).
 """
 
 from __future__ import annotations
@@ -68,6 +68,9 @@ _SIGNATURES = {
     "sgi_rle": ([_U8P, _L, _L, _L, _L, _L, _U8P], _L),
     "pcx_rle": ([_U8P, _L, _L, _L, _U8P], _L),
     "qoi_decode": ([_U8P, _L, _L, _L, _L, _U8P], _L),
+    "zstd_strip": ([_U8P, _L, _U8P, _L], _L),
+    "zstd_frames": ([_U8P, _L, _U8P, _L], _L),
+    "icns_rle": ([_U8P, _L, _L, _U8P], _L),
     "jpeg_decode": ([_U8P, _L, _I32P, _U16P, _I32P, _L, _U8P, _U8P], _L),
     "jpeg_encode_scan": ([_U8P, _L, _L, _L, _U16P, _U8P, _U8P, _L], _L),
     "webp_vp8l_decode": ([_U8P, _L, _L, _L, ctypes.POINTER(ctypes.c_uint32)], _L),
@@ -381,6 +384,20 @@ def tiff_lzw(src: bytes, size: int) -> bytes:
     return _strip("tiff_lzw", src, size)
 
 
+def tiff_zstd(src: bytes, size: int) -> bytes:
+    """Up to `size` bytes of a zstd-compressed TIFF strip, as libtiff reads
+    it (imagedecode.cpp's zstd_strip): its first frame; fewer bytes when
+    the frame ends first."""
+    return _strip("zstd_strip", src, size)
+
+
+def zstd_frames(data: bytes, limit: int) -> bytes:
+    """Every frame of a zstd stream (imagedecode.cpp's zstd_frames),
+    skippable frames skipped; raises on a broken or truncated frame or on
+    more than `limit` bytes of content."""
+    return _strip("zstd_frames", data, limit)
+
+
 def tiff_ccitt(src: bytes, width: int, rows: int, mode: int) -> np.ndarray:
     """A CCITT-coded TIFF strip or tile (imagedecode.cpp's tiff_ccitt;
     mode 2, 3, 5 or 4): (rows, (width + 7) // 8) uint8, 1 bits for black,
@@ -458,6 +475,18 @@ def qoi_decode(src: bytes, width: int, height: int, channels: int) -> np.ndarray
     code = load().qoi_decode(sptr, len(src), width, height, channels, _ptr(out, ctypes.c_uint8))
     if code < 0:
         _decode_error(code, "qoi_decode")
+    return out
+
+
+def icns_rle(src: bytes, size: int) -> np.ndarray:
+    """An ICNS 24-bit icon's run-length code from its first packet to the
+    file's end (imagedecode.cpp's icns_rle): (3, size) uint8, the red,
+    green and blue planes."""
+    sptr, _keep = _bytes_ptr(src)
+    out = np.zeros((3, size), np.uint8)
+    code = load().icns_rle(sptr, len(src), size, _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "icns_rle")
     return out
 
 

@@ -1561,3 +1561,863 @@ long qoi_decode(const uint8_t *src, long n, long width, long height, long channe
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Zstandard frames (RFC 8878), as libzstd 1.5 decodes them: skippable
+// frames; single-segment and windowed frames, with or without a content
+// size; raw, RLE and compressed blocks; raw, RLE and Huffman literals
+// (one or four streams, the tree given directly or by FSE-coded weights,
+// or reused: "treeless"); sequences with predefined, RLE, FSE-coded or
+// repeated tables; the three repeat offsets; the content checksum (the
+// low 32 bits of XXH64). A dictionary, reserved bits and block type 3 are
+// refused. Every read is bounded by the input and every write by the
+// frame's output limit.
+
+namespace {
+
+uint32_t le32(const uint8_t *p) { return p[0] | p[1] << 8 | p[2] << 16 | (uint32_t)p[3] << 24; }
+
+uint64_t le64(const uint8_t *p) { return le32(p) | (uint64_t)le32(p + 4) << 32; }
+
+int highbit(uint32_t v) { return 31 - __builtin_clz(v); }
+
+// XXH64 with seed 0.
+constexpr uint64_t kX1 = 11400714785074694791ULL, kX2 = 14029467366897019727ULL,
+                   kX3 = 1609587929392839161ULL, kX4 = 9650029242287828579ULL,
+                   kX5 = 2870177450012600261ULL;
+
+uint64_t rotl64(uint64_t x, int r) { return (x << r) | (x >> (64 - r)); }
+
+uint64_t xxh_round(uint64_t acc, uint64_t in) { return rotl64(acc + in * kX2, 31) * kX1; }
+
+uint64_t xxh64(const uint8_t *p, size_t len) {
+  const uint8_t *end = p + len;
+  uint64_t h;
+  if (len >= 32) {
+    uint64_t v[4] = {kX1 + kX2, kX2, 0, 0 - kX1};
+    for (; p + 32 <= end; p += 32)
+      for (int k = 0; k < 4; k++) v[k] = xxh_round(v[k], le64(p + 8 * k));
+    h = rotl64(v[0], 1) + rotl64(v[1], 7) + rotl64(v[2], 12) + rotl64(v[3], 18);
+    for (int k = 0; k < 4; k++) h = (h ^ xxh_round(0, v[k])) * kX1 + kX4;
+  } else {
+    h = kX5;
+  }
+  h += len;
+  for (; p + 8 <= end; p += 8) h = rotl64(h ^ xxh_round(0, le64(p)), 27) * kX1 + kX4;
+  if (p + 4 <= end) {
+    h = rotl64(h ^ (uint64_t)le32(p) * kX1, 23) * kX2 + kX3;
+    p += 4;
+  }
+  for (; p < end; p++) h = rotl64(h ^ *p * kX5, 11) * kX1;
+  h ^= h >> 33;
+  h *= kX2;
+  h ^= h >> 29;
+  h *= kX3;
+  return h ^ (h >> 32);
+}
+
+// A bitstream read backwards from its last byte's highest set bit (FSE and
+// Huffman streams); bits below the start read as 0, and `pos` (the bits
+// left) goes negative, as libzstd's container overflows.
+struct BackBits {
+  const uint8_t *src = nullptr;
+  long n = 0, pos = 0;
+
+  bool init(const uint8_t *s, long len) {
+    if (len < 1 || s[len - 1] == 0) return false;
+    src = s, n = len, pos = (len - 1) * 8 + highbit(s[len - 1]);
+    return true;
+  }
+  uint32_t at(long lo, int nb) const {  // nb <= 32
+    if (nb == 0) return 0;
+    uint64_t w = 0;
+    long byte = lo >> 3;
+    int shift = (int)(lo & 7);
+    if (lo < 0) {
+      if (-lo >= nb) return 0;
+      byte = 0, shift = 0;
+    }
+    for (int i = 0; i < 8 && byte + i < n; i++) w |= (uint64_t)src[byte + i] << (8 * i);
+    w = lo < 0 ? w << -lo : w >> shift;
+    return (uint32_t)(w & ((1ULL << nb) - 1));
+  }
+  uint32_t read(int nb) {
+    pos -= nb;
+    return at(pos, nb);
+  }
+};
+
+struct FseCell {
+  uint16_t symbol = 0, next = 0;
+  uint8_t bits = 0;
+};
+
+struct Fse {
+  int log = 0;
+  std::vector<FseCell> t;
+};
+
+// The decoding table of a normalized distribution (RFC 8878 4.1.1): -1
+// ("less than one") cells at the top, the rest spread with libzstd's step.
+bool fse_build(Fse &f, const int16_t *norm, int max_symbol, int log) {
+  const int size = 1 << log, mask = size - 1, step = (size >> 1) + (size >> 3) + 3;
+  f.log = log;
+  f.t.assign(size, FseCell());
+  std::vector<uint32_t> next(max_symbol + 1);
+  int high = size - 1;
+  for (int s = 0; s <= max_symbol; s++) {
+    if (norm[s] == -1) {
+      if (high < 0) return false;
+      f.t[high--].symbol = (uint16_t)s;
+      next[s] = 1;
+    } else {
+      next[s] = norm[s];
+    }
+  }
+  int pos = 0;
+  for (int s = 0; s <= max_symbol; s++)
+    for (int i = 0; i < norm[s]; i++) {
+      if (high < 0) return false;
+      f.t[pos].symbol = (uint16_t)s;
+      do pos = (pos + step) & mask;
+      while (pos > high);
+    }
+  if (pos != 0) return false;
+  for (int u = 0; u < size; u++) {
+    const uint32_t state = next[f.t[u].symbol]++;
+    const int bits = log - highbit(state);
+    f.t[u].bits = (uint8_t)bits;
+    f.t[u].next = (uint16_t)((state << bits) - size);
+  }
+  return true;
+}
+
+// The RLE "table": one symbol, no bits.
+void fse_rle(Fse &f, int symbol) {
+  f.log = 0;
+  f.t.assign(1, FseCell());
+  f.t[0].symbol = (uint16_t)symbol;
+}
+
+// libzstd's FSE_readNCount: an FSE table description read forwards (bits
+// past the input read as 0). max_symbol: in, the largest allowed; out, the
+// last one described. Returns the bytes it takes, or -1.
+long fse_read_ncount(const uint8_t *src, long n, int16_t *norm, int &max_symbol, int &log) {
+  auto get = [&](long bit, int nb) -> uint32_t {
+    uint64_t w = 0;
+    for (int i = 0; i < 5 && (bit >> 3) + i < n; i++) w |= (uint64_t)src[(bit >> 3) + i] << (8 * i);
+    return (uint32_t)((w >> (bit & 7)) & ((1ULL << nb) - 1));
+  };
+  if (n < 1) return -1;
+  const int limit = max_symbol + 1;
+  log = (int)get(0, 4) + 5;
+  if (log > 15) return -1;
+  long bit = 4;
+  int remaining = (1 << log) + 1, threshold = 1 << log, nb = log + 1, symbol = 0;
+  bool previous0 = false;
+  std::fill(norm, norm + limit, 0);
+  for (;;) {
+    if (previous0) {
+      uint32_t r;
+      while ((r = get(bit, 2)) == 3) symbol += 3, bit += 2;
+      symbol += (int)r;
+      bit += 2;
+      if (symbol >= limit) break;
+    }
+    const int max = (2 * threshold - 1) - remaining;
+    const uint32_t v = get(bit, nb);
+    int count;
+    if ((int)(v & (threshold - 1)) < max) {
+      count = (int)(v & (threshold - 1));
+      bit += nb - 1;
+    } else {
+      count = (int)(v & (2 * threshold - 1));
+      if (count >= threshold) count -= max;
+      bit += nb;
+    }
+    count--;
+    remaining -= count < 0 ? -count : count;
+    norm[symbol++] = (int16_t)count;
+    previous0 = count == 0;
+    if (remaining < threshold) {
+      if (remaining <= 1) break;
+      nb = highbit(remaining) + 1;
+      threshold = 1 << (nb - 1);
+    }
+    if (symbol >= limit) break;
+  }
+  if (remaining != 1 || symbol > limit) return -1;
+  const long bytes = (bit + 7) >> 3;
+  if (bytes > n) return -1;
+  max_symbol = symbol - 1;
+  return bytes;
+}
+
+struct ZHuffman {
+  int bits = 0;
+  std::vector<uint8_t> symbol, length;
+};
+
+// A Huffman tree description (RFC 8878 4.2.1): 4-bit weights, or weights
+// FSE-coded by two interleaved states; the last weight completes the
+// tree. Returns the bytes it takes, or -1.
+long huf_read(const uint8_t *src, long n, ZHuffman &h) {
+  if (n < 1) return -1;
+  uint8_t w[256] = {};
+  int nw = 0;
+  long used;
+  const int head = src[0];
+  if (head >= 128) {
+    nw = head - 127;
+    used = 1 + (nw + 1) / 2;
+    if (used > n) return -1;
+    for (int i = 0; i < nw; i++) w[i] = (i & 1) ? src[1 + i / 2] & 15 : src[1 + i / 2] >> 4;
+  } else {
+    used = 1 + head;
+    if (used > n) return -1;
+    int16_t norm[256];
+    int max_symbol = 255, log = 0;
+    const long hs = fse_read_ncount(src + 1, head, norm, max_symbol, log);
+    Fse f;
+    if (hs < 0 || log > 6 || !fse_build(f, norm, max_symbol, log)) return -1;
+    BackBits br;
+    if (!br.init(src + 1 + hs, head - hs)) return -1;
+    uint32_t s1 = br.read(log), s2 = br.read(log);
+    for (;;) {
+      if (nw > 253) return -1;
+      w[nw++] = (uint8_t)f.t[s1].symbol;
+      s1 = f.t[s1].next + br.read(f.t[s1].bits);
+      if (br.pos < 0) {
+        w[nw++] = (uint8_t)f.t[s2].symbol;
+        break;
+      }
+      if (nw > 253) return -1;
+      w[nw++] = (uint8_t)f.t[s2].symbol;
+      s2 = f.t[s2].next + br.read(f.t[s2].bits);
+      if (br.pos < 0) {
+        w[nw++] = (uint8_t)f.t[s1].symbol;
+        break;
+      }
+    }
+  }
+  int rank[14] = {};
+  uint32_t total = 0;
+  for (int i = 0; i < nw; i++) {
+    if (w[i] > 12) return -1;
+    rank[w[i]]++;
+    total += (1u << w[i]) >> 1;
+  }
+  if (total == 0) return -1;
+  const int bits = highbit(total) + 1;
+  if (bits > 12) return -1;
+  const uint32_t rest = (1u << bits) - total;
+  if ((1u << highbit(rest)) != rest) return -1;
+  w[nw] = (uint8_t)(highbit(rest) + 1);
+  rank[w[nw]]++;
+  if (rank[1] < 2 || (rank[1] & 1)) return -1;
+  h.bits = bits;
+  h.symbol.assign(1u << bits, 0);
+  h.length.assign(1u << bits, 0);
+  uint32_t start[14] = {}, next = 0;
+  for (int k = 1; k <= bits; k++) {
+    start[k] = next;
+    next += (uint32_t)rank[k] << (k - 1);
+  }
+  for (int s = 0; s <= nw; s++) {
+    if (!w[s]) continue;
+    const uint32_t len = 1u << (w[s] - 1);
+    for (uint32_t k = 0; k < len; k++) {
+      h.symbol[start[w[s]] + k] = (uint8_t)s;
+      h.length[start[w[s]] + k] = (uint8_t)(bits + 1 - w[s]);
+    }
+    start[w[s]] += len;
+  }
+  return used;
+}
+
+// One Huffman stream of `count` symbols, which must use up its bits. x2:
+// 0 for libzstd's single-symbol decoder, else the table log of its
+// double-symbol decoder, which reads two symbols a step where the second
+// code fits in that many bits after the first, and at a stream's last
+// symbol, where its table gives two, takes the bits of both and clamps at
+// the stream's start (a stream short by up to the second code's bits
+// passes, as does one already at its start: the container's top bits
+// then pick the symbol).
+bool huf_stream(const ZHuffman &h, const uint8_t *src, long n, uint8_t *out, long count, int x2) {
+  BackBits br;
+  if (!br.init(src, n)) return false;
+  auto decode = [&](long at, int &len) {
+    const uint32_t v = br.at(at - h.bits, h.bits);
+    len = h.length[v];
+    return h.symbol[v];
+  };
+  int l1, l2;
+  if (!x2) {
+    for (long i = 0; i < count; i++) {
+      out[i] = decode(br.pos, l1);
+      br.pos -= l1;
+    }
+    return br.pos == 0;
+  }
+  long p = 0;
+  while (p + 2 <= count) {
+    out[p] = decode(br.pos, l1);
+    const uint8_t second = decode(br.pos - l1, l2);
+    if (l2 <= x2 - l1) {
+      out[p + 1] = second;
+      br.pos -= l1 + l2;
+      p += 2;
+    } else {
+      br.pos -= l1;
+      p += 1;
+    }
+  }
+  if (p < count) {
+    if (br.pos == 0) {
+      uint64_t w = 0;
+      for (int i = 0; i < 8 && i < n; i++) w |= (uint64_t)src[i] << (8 * i);
+      const uint32_t v = (uint32_t)(w >> (64 - x2));
+      const uint32_t first = v >> (x2 - h.bits);
+      const uint32_t next = ((v << h.length[first]) & ((1u << x2) - 1)) >> (x2 - h.bits);
+      out[p] = h.symbol[first];
+      return h.length[next] <= x2 - h.length[first];
+    }
+    out[p] = decode(br.pos, l1);
+    decode(br.pos - l1, l2);
+    if (br.pos > 0 && l2 <= x2 - l1)
+      br.pos = std::max(br.pos - l1 - l2, 0L);
+    else
+      br.pos -= l1;
+  }
+  return br.pos == 0;
+}
+
+// Four Huffman streams after their jump table, as libzstd 1.5's
+// HUF_decompress4X decoders run them. Where every stream holds 8 bytes or
+// more, the table log is 11 or less and the fourth stream has a symbol,
+// its fast loop decodes all four in lock step, then each stream's tail:
+// every stream reads on past its own start into the bytes before it (the
+// earlier streams, the jump table; below the table's first byte its first
+// 8 bytes again, as libzstd's container wraps), and no stream is held to
+// its bits -- the only check is that, when the fast loop stops, no stream
+// has read a whole byte past its start. Otherwise each stream is decoded
+// alone (huf_stream) and must end exactly.
+bool huf_streams4(const ZHuffman &h, const uint8_t *src, long n, uint8_t *out, long size, int x2) {
+  if (n < 10) return false;
+  const long l1 = src[0] | src[1] << 8, l2 = src[2] | src[3] << 8, l3 = src[4] | src[5] << 8;
+  const long l4 = n - 6 - l1 - l2 - l3, seg = (size + 3) / 4;
+  if (l4 < 0) return false;
+  const long start[4] = {6, 6 + l1, 6 + l1 + l2, 6 + l1 + l2 + l3};
+  const long end[4] = {start[1], start[2], start[3], n};
+  const long count[4] = {seg, seg, seg, size - 3 * seg};
+  if (h.bits > 11 || l1 < 8 || l2 < 8 || l3 < 8 || l4 < 8 || 3 * seg >= size) {
+    for (int s = 0; s < 4; s++)
+      if (!huf_stream(h, src + start[s], end[s] - start[s], out + s * seg, count[s], x2)) return false;
+    return true;
+  }
+  BackBits all;
+  all.src = src, all.n = n;
+  auto symbol = [&](long q, int &len) {
+    if (q <= 0) q = 64 - (-q) % 64;  // the container at the first byte, wrapped
+    const uint32_t v = all.at(q - h.bits, h.bits);
+    len = h.length[v];
+    return h.symbol[v];
+  };
+  long q[4], ip[4], op[4] = {0, 0, 0, 0};
+  for (int s = 0; s < 4; s++) {
+    const uint8_t last = src[end[s] - 1];
+    q[s] = end[s] * 8 - (last ? 8 - highbit(last) : 0);
+    ip[s] = end[s] - 8;
+  }
+  // One table lookup: one symbol, or two with the double-symbol decoder
+  // where the second code fits.
+  auto lookup = [&](int s, bool pair) {
+    int len1, len2;
+    out[s * seg + op[s]] = symbol(q[s], len1);
+    if (pair) {
+      const uint8_t second = symbol(q[s] - len1, len2);
+      if (len2 <= x2 - len1) {
+        out[s * seg + op[s] + 1] = second;
+        q[s] -= len1 + len2;
+        op[s] += 2;
+        return;
+      }
+    }
+    q[s] -= len1;
+    op[s] += 1;
+  };
+  for (;;) {
+    long iters = ip[0] / 7;
+    for (int s = 0; s < 4; s++)
+      iters = std::min(iters, x2 ? (count[s] - op[s]) / 10 : (count[3] - op[3]) / 5);
+    if (iters <= 0 || ip[1] < ip[0] || ip[2] < ip[1] || ip[3] < ip[2]) break;
+    const long limit = op[3] + 5 * iters;
+    do {
+      for (int s = 0; s < 4; s++) {
+        for (int k = 0; k < 5; k++) lookup(s, x2 != 0);
+        ip[s] = end[s] - 8 - (end[s] * 8 - q[s]) / 8;
+      }
+    } while (op[3] < limit);
+  }
+  for (int s = 0; s < 4; s++) {
+    if (op[s] > count[s] || ip[s] < start[s] - 8) return false;
+    while (op[s] + (x2 ? 2 : 1) <= count[s]) lookup(s, x2 != 0);
+    if (op[s] < count[s]) lookup(s, false);
+  }
+  return true;
+}
+
+// libzstd's HUF_selectDecoder: whether its timing model picks the
+// double-symbol decoder for `size` literals coded in `csize` bytes.
+bool huf_pick_x2(long size, long csize) {
+  static const uint16_t time[16][4] = {
+      {0, 0, 1, 1},         {0, 0, 1, 1},         {150, 216, 381, 119}, {170, 205, 514, 112},
+      {177, 199, 539, 110}, {197, 194, 644, 107}, {221, 192, 735, 107}, {256, 189, 881, 106},
+      {359, 188, 1167, 109}, {582, 187, 1570, 114}, {688, 187, 1712, 122}, {825, 186, 1965, 136},
+      {976, 185, 2131, 150}, {1180, 186, 2070, 175}, {1377, 185, 1731, 202}, {1412, 185, 1695, 202}};
+  const long q = csize >= size ? 15 : csize * 16 / size, d256 = size >> 8;
+  const uint32_t t0 = time[q][0] + time[q][1] * d256;
+  uint32_t t1 = time[q][2] + time[q][3] * d256;
+  t1 += t1 >> 5;
+  return t1 < t0;
+}
+
+// Sequence codes: baselines and extra bits (RFC 8878 3.1.1.3.2.1.1).
+constexpr uint32_t kLLBase[36] = {0,  1,  2,  3,  4,  5,  6,   7,   8,   9,    10,   11,
+                                  12, 13, 14, 15, 16, 18, 20,  22,  24,  28,   32,   40,
+                                  48, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536};
+constexpr uint8_t kLLBits[36] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,  0,  1,  1,
+                                 1, 1, 2, 2, 3, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+constexpr uint32_t kMLBase[53] = {3,  4,  5,  6,  7,  8,  9,  10, 11,   12,   13,   14,   15,   16,
+                                  17, 18, 19, 20, 21, 22, 23, 24, 25,   26,   27,   28,   29,   30,
+                                  31, 32, 33, 34, 35, 37, 39, 41, 43,   47,   51,   59,   67,   83,
+                                  99, 131, 259, 515, 1027, 2051, 4099, 8195, 16387, 32771, 65539};
+constexpr uint8_t kMLBits[53] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1,
+                                 2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+constexpr int16_t kLLNorm[36] = {4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1, 1, 1, 2, 2,
+                                 2, 2, 2, 2, 2, 2, 2, 3, 2, 1, 1, 1, 1, 1, -1, -1, -1, -1};
+constexpr int16_t kMLNorm[53] = {1, 4, 3, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1, -1, -1};
+constexpr int16_t kOFNorm[29] = {1, 1, 1, 1, 1, 1, 2, 2, 2, 1, 1, 1, 1, 1, 1,
+                                 1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+
+constexpr long kBlockMax = 128 * 1024;
+
+struct ZFrame {
+  std::vector<uint8_t> out;  // the frame's content so far
+  size_t limit = 0;          // the most it may hold
+  long block_max = kBlockMax;
+  ZHuffman huf;
+  bool has_huf = false;
+  int huf_x2 = 0;  // the double-symbol decoder's table log, or 0
+  Fse ll, of, ml;
+  bool has_tables = false;
+  uint32_t rep[3] = {1, 4, 8};
+};
+
+// One table of a sequences section: mode 0 predefined, 1 RLE, 2 FSE-coded,
+// 3 repeat. Returns the bytes it takes, or -1.
+long seq_table(Fse &f, int mode, const uint8_t *src, long n, const int16_t *preset, int preset_max,
+               int preset_log, int max_symbol, int max_log, bool has_previous) {
+  if (mode == 0) return fse_build(f, preset, preset_max, preset_log) ? 0 : -1;
+  if (mode == 1) {
+    if (n < 1 || src[0] > max_symbol) return -1;
+    fse_rle(f, src[0]);
+    return 1;
+  }
+  if (mode == 3) return has_previous ? 0 : -1;
+  int16_t norm[64];
+  int max = max_symbol, log = 0;
+  const long used = fse_read_ncount(src, n, norm, max, log);
+  if (used < 0 || log > max_log || !fse_build(f, norm, max, log)) return -1;
+  return used;
+}
+
+// A compressed block (RFC 8878 3.1.1.3): literals, then sequences
+// executed onto the frame's content.
+long zstd_block(ZFrame &z, const uint8_t *src, long n) {
+  if (n < 2) return kCorrupt;
+  const int type = src[0] & 3, sf = (src[0] >> 2) & 3;
+  std::vector<uint8_t> lit;
+  long pos;
+  if (type < 2) {
+    long size, lh;
+    if (sf == 1) {
+      lh = 2, size = (src[0] >> 4) | src[1] << 4;
+    } else if (sf == 3) {
+      if (n < 3 + type) return kCorrupt;
+      lh = 3, size = (src[0] >> 4) | src[1] << 4 | src[2] << 12;
+    } else {
+      lh = 1, size = src[0] >> 3;
+    }
+    if (type == 1 && sf == 1 && n < 3) return kCorrupt;
+    if (size > z.block_max) return kCorrupt;
+    if (type == 0) {
+      if (lh + size > n) return kCorrupt;
+      lit.assign(src + lh, src + lh + size);
+      pos = lh + size;
+    } else {
+      lit.assign(size, src[lh]);
+      pos = lh + 1;
+    }
+  } else {
+    if (n < 5) return kCorrupt;
+    const uint64_t head = src[0] | src[1] << 8 | src[2] << 16 | (uint64_t)src[3] << 24 |
+                          (uint64_t)src[4] << 32;
+    long lh, size, csize;
+    const bool single = sf == 0;
+    if (sf < 2) {
+      lh = 3, size = (head >> 4) & 0x3FF, csize = (head >> 14) & 0x3FF;
+    } else if (sf == 2) {
+      lh = 4, size = (head >> 4) & 0x3FFF, csize = (head >> 18) & 0x3FFF;
+    } else {
+      lh = 5, size = (head >> 4) & 0x3FFFF, csize = (head >> 22) & 0x3FFFF;
+    }
+    if (size > z.block_max || (!single && size < 6) || lh + csize > n) return kCorrupt;
+    if (type == 3 && !z.has_huf) return kCorrupt;
+    const uint8_t *p = src + lh;
+    long len = csize;
+    if (type == 2) {
+      const long hs = huf_read(p, len, z.huf);
+      if (hs < 0 || hs >= len) return kCorrupt;
+      p += hs, len -= hs;
+    }
+    if (type == 2) z.huf_x2 = single || !huf_pick_x2(size, csize) ? 0 : (z.huf.bits <= 11 ? 11 : 12);
+    const int x2 = z.huf_x2;
+    lit.resize(size);
+    if (single) {
+      if (!huf_stream(z.huf, p, len, lit.data(), size, x2)) return kCorrupt;
+    } else {
+      if (!huf_streams4(z.huf, p, len, lit.data(), size, x2)) return kCorrupt;
+    }
+    z.has_huf = true;
+    pos = lh + csize;
+  }
+  // The sequences section.
+  if (pos >= n) return kCorrupt;
+  long nseq = src[pos++];
+  if (nseq > 0x7F) {
+    if (nseq == 0xFF) {
+      if (pos + 2 > n) return kCorrupt;
+      nseq = (src[pos] | src[pos + 1] << 8) + 0x7F00;
+      pos += 2;
+    } else {
+      if (pos >= n) return kCorrupt;
+      nseq = ((nseq - 0x80) << 8) + src[pos++];
+    }
+  }
+  const size_t start = z.out.size();
+  auto emit = [&](const uint8_t *p, long k) -> bool {
+    if (z.out.size() + k > z.limit || (long)(z.out.size() - start) + k > z.block_max) return false;
+    z.out.insert(z.out.end(), p, p + k);
+    return true;
+  };
+  if (nseq == 0) {
+    if (pos != n) return kCorrupt;
+    return emit(lit.data(), (long)lit.size()) ? 0 : kCorrupt;
+  }
+  if (pos >= n || (src[pos] & 3)) return kCorrupt;
+  const int modes = src[pos++];
+  long used;
+  if ((used = seq_table(z.ll, modes >> 6, src + pos, n - pos, kLLNorm, 35, 6, 35, 9, z.has_tables)) < 0)
+    return kCorrupt;
+  pos += used;
+  if ((used = seq_table(z.of, (modes >> 4) & 3, src + pos, n - pos, kOFNorm, 28, 5, 31, 8,
+                        z.has_tables)) < 0)
+    return kCorrupt;
+  pos += used;
+  if ((used = seq_table(z.ml, (modes >> 2) & 3, src + pos, n - pos, kMLNorm, 52, 6, 52, 9,
+                        z.has_tables)) < 0)
+    return kCorrupt;
+  pos += used;
+  z.has_tables = true;
+  BackBits br;
+  if (!br.init(src + pos, n - pos)) return kCorrupt;
+  uint32_t sll = br.read(z.ll.log), sof = br.read(z.of.log), sml = br.read(z.ml.log);
+  size_t lit_at = 0;
+  for (long k = 0; k < nseq; k++) {
+    const FseCell &cl = z.ll.t[sll], &co = z.of.t[sof], &cm = z.ml.t[sml];
+    const int ofcode = co.symbol;
+    uint64_t offset;
+    const bool ll0 = cl.symbol == 0;
+    if (ofcode > 1) {
+      offset = (1ULL << ofcode) - 3 + br.read(ofcode);
+      z.rep[2] = z.rep[1], z.rep[1] = z.rep[0], z.rep[0] = (uint32_t)offset;
+    } else if (ofcode == 0) {
+      offset = z.rep[ll0];
+      z.rep[1] = z.rep[!ll0];
+      z.rep[0] = (uint32_t)offset;
+    } else {
+      const uint32_t idx = 1 + ll0 + br.read(1);
+      uint64_t value = idx == 3 ? (uint64_t)z.rep[0] - 1 : z.rep[idx];
+      if (value == 0) value = UINT32_MAX;  // libzstd's -1: caught below
+      if (idx != 1) z.rep[2] = z.rep[1];
+      z.rep[1] = z.rep[0];
+      z.rep[0] = (uint32_t)value;
+      offset = value;
+    }
+    const uint64_t ml = kMLBase[cm.symbol] + br.read(kMLBits[cm.symbol]);
+    const uint64_t ll = kLLBase[cl.symbol] + br.read(kLLBits[cl.symbol]);
+    if (k + 1 < nseq) {
+      sll = cl.next + br.read(cl.bits);
+      sml = cm.next + br.read(cm.bits);
+      sof = co.next + br.read(co.bits);
+    }
+    if (ll > lit.size() - lit_at || !emit(lit.data() + lit_at, (long)ll)) return kCorrupt;
+    lit_at += ll;
+    if (offset > z.out.size() || z.out.size() + ml > z.limit ||
+        (long)(z.out.size() - start + ml) > z.block_max)
+      return kCorrupt;
+    const size_t from = z.out.size() - offset;
+    for (uint64_t i = 0; i < ml; i++) z.out.push_back(z.out[from + i]);
+  }
+  if (br.pos != 0) return kCorrupt;
+  return emit(lit.data() + lit_at, (long)(lit.size() - lit_at)) ? 0 : kCorrupt;
+}
+
+struct ZHead {
+  bool skippable = false, single = false, checksum = false, has_size = false;
+  long size = 0;      // of the header
+  uint64_t skip = 0;  // a skippable frame's data
+  uint64_t content = 0, window = 0;
+};
+
+// 0, 1 when the input ends within the header, or kCorrupt.
+long zstd_head(const uint8_t *src, long n, ZHead &h) {
+  if (n < 4) return 1;
+  const uint32_t magic = le32(src);
+  if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) {
+    if (n < 8) return 1;
+    h.skippable = true, h.size = 8, h.skip = le32(src + 4);
+    return 0;
+  }
+  if (magic != 0xFD2FB528u) return kCorrupt;
+  if (n < 5) return 1;
+  const int fhd = src[4], fcs_flag = fhd >> 6, did_flag = fhd & 3;
+  h.single = (fhd >> 5) & 1, h.checksum = (fhd >> 2) & 1;
+  if (fhd & 8) return kCorrupt;
+  const int did_bytes = (int[]){0, 1, 2, 4}[did_flag];
+  const int fcs_bytes = (int[]){h.single ? 1 : 0, 2, 4, 8}[fcs_flag];
+  h.size = 5 + !h.single + did_bytes + fcs_bytes;
+  if (n < h.size) return 1;
+  long pos = 5;
+  if (!h.single) {
+    const int wlog = 10 + (src[pos] >> 3);
+    if (wlog > 31) return kCorrupt;
+    const uint64_t base = 1ULL << wlog;
+    h.window = base + (base >> 3) * (src[pos] & 7);
+    pos++;
+  }
+  uint32_t did = 0;
+  for (int i = 0; i < did_bytes; i++) did |= (uint32_t)src[pos + i] << (8 * i);
+  pos += did_bytes;
+  if (did != 0) return kCorrupt;  // no dictionary is loaded
+  if (fcs_bytes) {
+    h.has_size = true;
+    h.content = fcs_bytes == 8 ? le64(src + pos)
+                : fcs_bytes == 4 ? le32(src + pos)
+                : fcs_bytes == 2 ? (uint64_t)(src[pos] | src[pos + 1] << 8) + 256
+                                 : src[pos];
+  }
+  if (h.single) h.window = h.content;
+  return 0;
+}
+
+void zstd_init(ZFrame &z, const ZHead &h, size_t limit) {
+  z.limit = limit;
+  z.block_max = (long)std::min<uint64_t>(h.window, kBlockMax);
+}
+
+// A whole frame from its header on, as ZSTD_decompressFrame does: every
+// block, the content size and the checksum checked. Returns the bytes it
+// takes, or an error.
+long zstd_frame(ZFrame &z, const ZHead &h, const uint8_t *src, long n) {
+  long pos = h.size;
+  for (;;) {
+    if (n - pos < 3) return kTruncated;
+    const uint32_t bh = src[pos] | src[pos + 1] << 8 | src[pos + 2] << 16;
+    const int type = (bh >> 1) & 3;
+    const long size = bh >> 3;
+    pos += 3;
+    if (type == 3 || (type != 1 && size > z.block_max)) return kCorrupt;
+    if (n - pos < (type == 1 ? 1 : size)) return kTruncated;
+    if (type == 0 || type == 1) {
+      if (z.out.size() + size > z.limit) return kCorrupt;
+      if (type == 0)
+        z.out.insert(z.out.end(), src + pos, src + pos + size);
+      else
+        z.out.insert(z.out.end(), size, src[pos]);
+      pos += type == 1 ? 1 : size;
+    } else {
+      const long r = zstd_block(z, src + pos, size);
+      if (r < 0) return r;
+      pos += size;
+    }
+    if (bh & 1) break;
+  }
+  if (h.has_size && z.out.size() != h.content) return kCorrupt;
+  if (h.checksum) {
+    if (n - pos < 4) return kTruncated;
+    if (le32(src + pos) != (uint32_t)xxh64(z.out.data(), z.out.size())) return kCorrupt;
+    pos += 4;
+  }
+  return pos;
+}
+
+// The bytes of the frame that starts at src, or -1 where the input does
+// not hold all of it (ZSTD_findFrameCompressedSize).
+long zstd_frame_size(const ZHead &h, const uint8_t *src, long n) {
+  long pos = h.size;
+  for (;;) {
+    if (n - pos < 3) return -1;
+    const uint32_t bh = src[pos] | src[pos + 1] << 8 | src[pos + 2] << 16;
+    const int type = (bh >> 1) & 3;
+    const long size = type == 1 ? 1 : bh >> 3;
+    if (type == 3 || n - pos - 3 < size) return -1;
+    pos += 3 + size;
+    if (bh & 1) break;
+  }
+  if (h.checksum) {
+    if (n - pos < 4) return -1;
+    pos += 4;
+  }
+  return pos;
+}
+
+}  // namespace
+
+extern "C" {
+
+// A TIFF strip or tile of zstd data, as libtiff's ZSTDDecode has libzstd's
+// ZSTD_decompressStream decode it into `cap` bytes: the first frame only
+// (a skippable one gives nothing). Where the frame's content size is known
+// and fits and the frame is all there, it is decoded whole with every
+// check (libzstd's single-pass shortcut). Otherwise block by block: a
+// block is decoded whole, then flushed; once a block no longer fits, the
+// rest is not read, and until then the next block (or the checksum) is.
+// Returns the bytes written (short when the data ends first) or an error.
+long zstd_strip(const uint8_t *src, long n, uint8_t *dst, long cap) {
+  ZHead h;
+  const long r = zstd_head(src, n, h);
+  if (r < 0) return r;
+  if (r > 0 || h.skippable) return 0;
+  ZFrame z;
+  if (h.has_size && h.content <= (uint64_t)cap && zstd_frame_size(h, src, n) >= 0) {
+    zstd_init(z, h, (size_t)h.content);
+    const long used = zstd_frame(z, h, src, n);
+    if (used < 0) return used;
+    std::memcpy(dst, z.out.data(), z.out.size());
+    return (long)z.out.size();
+  }
+  if (std::max<uint64_t>(h.window, 1024) > (1ULL << 27) + 1) return kCorrupt;
+  zstd_init(z, h, (size_t)cap + kBlockMax);
+  long pos = h.size;
+  size_t flushed = 0;
+  auto flush = [&]() {
+    const size_t take = std::min(z.out.size() - flushed, (size_t)cap - flushed);
+    std::memcpy(dst + flushed, z.out.data() + flushed, take);
+    flushed += take;
+    return flushed == z.out.size();
+  };
+  for (;;) {
+    if (n - pos < 3) break;
+    const uint32_t bh = src[pos] | src[pos + 1] << 8 | src[pos + 2] << 16;
+    const int type = (bh >> 1) & 3;
+    const long size = bh >> 3;
+    if (type == 3 || (type != 1 && size > z.block_max)) return kCorrupt;
+    pos += 3;
+    if (type == 0) {
+      const long take = std::min(size, n - pos);
+      z.out.insert(z.out.end(), src + pos, src + pos + take);
+      pos += take;
+      if (take < size) {
+        flush();
+        break;
+      }
+    } else if (type == 1) {
+      if (n - pos < 1) break;
+      if (z.out.size() + size > z.limit) return kCorrupt;
+      z.out.insert(z.out.end(), size, src[pos++]);
+    } else {
+      if (n - pos < size) break;
+      const long e = zstd_block(z, src + pos, size);
+      if (e < 0) return e;
+      pos += size;
+    }
+    // The content size is checked as the last block is decoded, the
+    // checksum only once it is flushed.
+    if ((bh & 1) && h.has_size && z.out.size() != h.content) return kCorrupt;
+    if (!flush()) break;
+    if (bh & 1) {
+      if (h.checksum && n - pos >= 4 &&
+          le32(src + pos) != (uint32_t)xxh64(z.out.data(), z.out.size()))
+        return kCorrupt;
+      break;
+    }
+  }
+  return (long)flushed;
+}
+
+// Every frame of a zstd stream, skippable ones skipped, into at most `cap`
+// bytes (the zstd tool's and python-zstandard's reading across frames).
+// Returns the bytes written or an error: a truncated or broken frame,
+// output past `cap`.
+long zstd_frames(const uint8_t *src, long n, uint8_t *dst, long cap) {
+  long pos = 0, total = 0;
+  while (pos < n) {
+    ZHead h;
+    const long r = zstd_head(src + pos, n - pos, h);
+    if (r < 0) return r;
+    if (r > 0) return kTruncated;
+    if (h.skippable) {
+      if ((uint64_t)(n - pos - 8) < h.skip) return kTruncated;
+      pos += 8 + (long)h.skip;
+      continue;
+    }
+    ZFrame z;
+    zstd_init(z, h, (size_t)(cap - total));
+    const long used = zstd_frame(z, h, src + pos, n - pos);
+    if (used < 0) return used;
+    std::memcpy(dst + total, z.out.data(), z.out.size());
+    total += (long)z.out.size();
+    pos += used;
+  }
+  return total;
+}
+
+// An ICNS 24-bit icon's run-length code (IcnsImagePlugin.read_32): the
+// three planes one after another, each `size` bytes of packets (a header
+// byte with its top bit set repeats the next byte header - 125 times,
+// any other is followed by header + 1 literal bytes); the packets of a
+// plane must add up to `size` exactly. Writes 3 * size bytes. Returns the
+// bytes read, kCorrupt for a packet past its plane or kTruncated.
+long icns_rle(const uint8_t *src, long n, long size, uint8_t *out) {
+  long i = 0;
+  for (int plane = 0; plane < 3; plane++) {
+    uint8_t *o = out + plane * size;
+    long len = 0;
+    while (len < size) {
+      if (i >= n) return kTruncated;
+      const uint8_t b = src[i++];
+      if (b & 0x80) {
+        const long run = b - 125;
+        if (len + run > size) return kCorrupt;
+        if (i >= n) return kTruncated;
+        std::memset(o + len, src[i++], run);
+        len += run;
+      } else {
+        const long k = b + 1;
+        if (len + k > size) return kCorrupt;
+        if (n - i < k) return kTruncated;
+        std::memcpy(o + len, src + i, k);
+        len += k;
+        i += k;
+      }
+    }
+  }
+  return i;
+}
+
+}  // extern "C"

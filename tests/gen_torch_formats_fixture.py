@@ -16,14 +16,19 @@
   chip_smoke.instrument_files writes from phase 3's SEM pair ("phase8"),
   of the GIF and WebP files of phase 8 (j) ("gif_webp"), and of the
   16-bit PGM, SPIDER, RLE TGA and CMYK TIFF files of phase 8 (k)
-  (chip_smoke.raster_files, "raster");
+  (chip_smoke.raster_files, "raster"), of the LZMA TIFF, DIB, text-EXIF
+  PNG and zstd TIFF files of phase 8 (l) (chip_smoke.codec_files,
+  "codecs") and of its icons (chip_smoke.icon_files, "icons");
 * tests/fixtures/torch_persp_full_v{0,1}.webp: the full-width pair as
   lossy WebPs at Pillow's default quality (80), with an alpha plane
   that is not all opaque (so the encoder writes an ALPH chunk) and the
   EXIF block above (a VP8X file with ALPH, VP8 and EXIF chunks);
 * tests/fixtures/torch_persp_v{0,1}_lossless.webp: BASELINE #3's two
   320x256 views (tests/gen_torch_persp_fixture.py's tint) as lossless
-  WebPs (VP8L) with the same EXIF block.
+  WebPs (VP8L) with the same EXIF block;
+* tests/fixtures/torch_persp_v{0,1}_zstd.tif: the same views
+  (chip_smoke.tint) as zstd-compressed RGB TIFFs with horizontal
+  differencing (predictor 2), written by Pillow's libtiff.
 
 Run from the repo root:
 
@@ -31,9 +36,9 @@ Run from the repo root:
 
 The port must decode the files to those planes and encode the arrays to
 those bytes (tests/test_torch_images.py, tests/test_torch_jpeg_encode.py,
-tests/test_torch_gif_webp.py and tests/test_torch_raster_formats.py
-here; chip_smoke.py phase 8 (e), (f) and (h)-(k) on the card, with
-Pillow blocked).
+tests/test_torch_gif_webp.py, tests/test_torch_raster_formats.py and
+tests/test_torch_icons_codecs.py here; chip_smoke.py phase 8 (e), (f)
+and (h)-(l) on the card, with Pillow blocked).
 """
 
 import hashlib
@@ -126,6 +131,29 @@ def raster_planes() -> dict:
     return out
 
 
+def zstd_fixtures() -> None:
+    """Write the two zstd TIFF fixtures (module docstring)."""
+    views, _, _, _ = chip_smoke.render_perspective(
+        chip_smoke.PERSP_W, chip_smoke.PERSP_H, chip_smoke.PERSP_CAMS[:1], exact_focal=True)
+    for view, path in zip(views, chip_smoke.PERSP_ZSTD_TIFFS):
+        Image.fromarray(chip_smoke.tint(view)).save(path, compression="zstd", tiffinfo={317: 2})
+        print(path, os.path.getsize(path), "bytes")
+
+
+def codec_icon_planes() -> tuple[dict, dict]:
+    """({file name: Pillow's plane hashes} of phase 8 (l)'s pairs, the
+    same of its icons), as chip_smoke.codec_files and icon_files write
+    them."""
+    img1, img2, _ = chip_smoke.synth_sem_pair(chip_smoke.SIZE, chip_smoke.SIZE)
+    codecs = {}
+    with tempfile.TemporaryDirectory() as td:
+        for paths in chip_smoke.codec_files(td, img1, img2).values():
+            for path in paths:
+                codecs[os.path.basename(path)] = planes(path)
+        icons = {os.path.basename(p): planes(p) for p in chip_smoke.icon_files(td)}
+    return codecs, icons
+
+
 def main():
     w, h = round(chip_smoke.PERSP_W * chip_smoke.FULL_SCALE), round(chip_smoke.PERSP_H * chip_smoke.FULL_SCALE)
     views, _, _, _ = chip_smoke.render_perspective(w, h, chip_smoke.PERSP_CAMS[:1], exact_focal=True)
@@ -137,10 +165,13 @@ def main():
             print(path, os.path.getsize(path), "bytes")
         decoder[os.path.basename(prog)] = planes(prog)
     webp_fixtures(views)
+    zstd_fixtures()
+    codecs, icons = codec_icon_planes()
     encoder = {name: sha256(pillow_jpeg(px)) for name, px in chip_smoke.encoder_cases()}
     with open(chip_smoke.FORMATS_SHA256, "w") as fh:
         json.dump({"decoder": decoder, "encoder": encoder, "phase8": phase8_planes(),
-                   "gif_webp": gif_webp_planes(), "raster": raster_planes()}, fh, indent=1,
+                   "gif_webp": gif_webp_planes(), "raster": raster_planes(), "codecs": codecs,
+                   "icons": icons}, fh, indent=1,
                   sort_keys=True)
         fh.write("\n")
     print(chip_smoke.FORMATS_SHA256, len(encoder), "encoder cases")

@@ -229,7 +229,7 @@ def _jpeg_stream(px: np.ndarray, tables: bool) -> tuple[bytes, bytes]:
 
 def _tiff_file(path, px, endian="<", big=False, tile=None, planar=False, compression=1,
                predictor=1, photometric=None, extra=None, rows_per_strip=7, extra_tags=(),
-               bits=None, fill_order=1, t4_options=0, jpeg_tables=True):
+               bits=None, fill_order=1, t4_options=0, jpeg_tables=True, codec=None):
     """A TIFF of px ((h, w) or (h, w, c): uint8, uint16, int16, int32,
     uint32, float32 or float64 samples; 1, 2, 4 or 12-bit ones as `bits`
     of a uint8 / uint16 array) in strips or `tile` = (width, length) tiles
@@ -240,7 +240,8 @@ def _tiff_file(path, px, endian="<", big=False, tile=None, planar=False, compres
     `jpeg_tables`), with horizontal differencing (predictor 2) or the
     floating-point predictor (3), fill order 2 (every strip's bytes
     bit-reversed), classic or BigTIFF; extra_tags: (tag, type, values or
-    bytes)."""
+    bytes); codec: the coder (raw bytes -> bytes) of any other
+    compression."""
     h, w = px.shape[:2]
     spp = 1 if px.ndim == 2 else px.shape[2]
     px3 = px.reshape(h, w, spp)
@@ -279,7 +280,7 @@ def _tiff_file(path, px, endian="<", big=False, tile=None, planar=False, compres
                 else:
                     chunk = {32773: _packbits, 8: zlib.compress,
                              5: lambda r: _lzw(np.frombuffer(r, np.uint8).reshape(rows, -1))
-                             }.get(compression, bytes)(raw)
+                             }.get(compression, codec or bytes)(raw)
                 if fill_order == 2:
                     chunk = bytes(int(f"{b:08b}"[::-1], 2) for b in chunk)
                 chunks.append(chunk)
@@ -1042,14 +1043,16 @@ def test_native_and_numpy_paths_agree(tmp_path, name):
 
 
 def test_jpeg_and_lzw_without_native_name_the_compiler(tmp_path, monkeypatch):
-    """No fallback: without the native library a JPEG, an LZW, CCITT or
-    JPEG strip of a TIFF or an RLE BMP raises an error that says what is
-    missing."""
+    """No fallback: without the native library a JPEG, an LZW, zstd,
+    CCITT or JPEG strip of a TIFF or an RLE BMP raises an error that says
+    what is missing."""
     paths = []
     for k, name in enumerate(("jpg 4:2:0 q75", "tif L lzw", "tif ccitt T.6", "tif jpeg gray strips",
                               "bmp RLE8", "bmp RLE4")):
         (tmp_path / str(k)).mkdir()
         paths.append(_write_case(tmp_path / str(k), name))
+    paths.append(str(tmp_path / "zstd.tif"))
+    Image.fromarray(_texture(np.random.RandomState(8), 9, 13)).save(paths[-1], compression="zstd")
 
     def refuse():
         raise ImportError("no native library")
@@ -1082,8 +1085,6 @@ UNSUPPORTED = {
     "jpeg 2000 (j2k codestream)": ("j2k", True),
     "avif": ("avif", True),
     "dds": ("dds", True),
-    "ico": ("ico", True),
-    "icns": ("icns", True),
     "im": ("im", True),
     "msp": ("msp", True),
     "xbm": ("xbm", True),
@@ -1098,7 +1099,7 @@ PILLOW_REFUSES_TOO = ("uncompressed YCbCr tiff", "LAB tiff")
 def _unsupported(kind, path):
     rng = np.random.RandomState(5)
     im = Image.fromarray(_texture(rng, 24, 24, 3))
-    if kind in ("gif", "webp") or UNSUPPORTED.get(kind, ("", False))[1]:
+    if kind in ("gif", "webp", "ico", "icns", "dib") or UNSUPPORTED.get(kind, ("", False))[1]:
         im.convert({"msp": "1", "xbm": "1", "blp": "P"}.get(kind, "RGB")).save(path)
     elif kind in PILLOW_REFUSES_TOO:
         im.convert("YCbCr" if kind.startswith("uncompressed YCbCr") else "LAB").save(path)
@@ -1133,11 +1134,12 @@ def test_unsupported_formats_raise_their_named_error(tmp_path, kind):
         timages.SourceImage.load(path)
 
 
-@pytest.mark.parametrize("kind", ["gif", "webp"])
+@pytest.mark.parametrize("kind", ["gif", "webp", "ico", "icns", "dib"])
 def test_formats_once_refused_decode_to_pillows_planes(tmp_path, kind):
-    """GIF and WebP, which the readers refused by name until they took
-    them (tests/test_torch_gif_webp.py holds them in depth): the same
-    24x24 file now reads as the JAX package reads it."""
+    """GIF, WebP, ICO, ICNS and DIB, which the readers refused by name
+    until they took them (tests/test_torch_gif_webp.py and
+    tests/test_torch_icons_codecs.py hold them in depth): the same 24x24
+    file, as Pillow writes it, now reads as the JAX package reads it."""
     path = str(tmp_path / f"u.{kind}")
     _unsupported(kind, path)
     (src_j, rgb_j) = _jax_load(path)
