@@ -194,7 +194,17 @@ Phases, each of which raises on failure:
        mask, 32-bit, PNG), CUR and ICNS (RLE it32 with t8mk, PNG) icons
        decoded only. Every plane has the committed SHA-256 of Pillow's
        ("codecs", "icons"); it fails by name where Python's lzma module
-       does not import.
+       does not import;
+   (m) with Pillow blocked as well (legacy_files): phase 3's pair as
+       byte-encoded 8-bit Sun rasters -> PLY, byte-equal to
+       reconstruct's on the arrays; BASELINE #3's views as IM "RGB" files
+       (line-interleaved planes) -> OBJ with --focal-length=43 and (f)'s
+       gates; MSP version 1 and 2, XBM, XPM of 216 and 512 colours, Sun
+       rasters of 1, 4 (colour map) and 32 bits, IM "L 32F" and "P" (colour
+       Lut) decoded only, each timed; the committed damaged LZMA TIFF
+       (tests/fixtures/torch_lzma_damaged.tif, a strip Pillow's libtiff
+       reads) decoded, with the liblzma ctypes loaded printed. Every plane
+       has the committed SHA-256 of Pillow's ("legacy", "lzma damaged").
    One JSON record per run: seconds, phases, decode seconds per file and
    plane, encode (and write) seconds per depth map, launches, the card's
    name and power limit.
@@ -208,7 +218,7 @@ or any phase fails. It imports nothing of JAX and nothing of the JAX
 package, and needs no Pillow: images are built in memory or written by
 its own writers (write_tiff, write_bmp, write_gif, write_pgm16,
 write_spider, write_tga_rle, write_png_text_exif, icon_files,
-writers.encode_png) and the committed fixtures. It prints whether Pillow
+sun_raster, im_file, msp_file, xbm_file, xpm_file, writers.encode_png) and the committed fixtures. It prints whether Pillow
 is installed on the card's machine.
 """
 
@@ -2193,6 +2203,7 @@ PERSP_WEBPS_LOSSLESS = [os.path.join(ROOT, "tests", "fixtures", f"torch_persp_v{
 # Phase 8 (l): BASELINE #3's views (tint) as zstd-compressed RGB TIFFs
 # with horizontal differencing, written by Pillow's libtiff through
 # tests/gen_torch_formats_fixture.py (this script may use no zstd encoder).
+LZMA_DAMAGED_TIFF = os.path.join(ROOT, "tests", "fixtures", "torch_lzma_damaged.tif")
 PERSP_ZSTD_TIFFS = [os.path.join(ROOT, "tests", "fixtures", f"torch_persp_v{i}_zstd.tif")
                     for i in range(2)]
 FORMATS_SHA256 = os.path.join(ROOT, "tests", "fixtures", "torch_formats_sha256.json")
@@ -2816,6 +2827,7 @@ def phase_cli_files(counters, smi: str, texture_obj_sha: str) -> dict:
         records.update(cli_gif_webp(cap, smi, td, img1, img2))
         records.update(cli_raster_files(cap, smi, td, img1, img2))
         records.update(cli_codecs_icons(cap, smi, td, img1, img2))
+        records.update(cli_legacy_rasters(cap, smi, td, img1, img2))
     torch.cuda.empty_cache()
     return records
 
@@ -3598,6 +3610,285 @@ def cli_codecs_icons(cap, smi: str, td: str, img1, img2) -> dict:
     return records
 
 
+def sun_rle(stream: bytes) -> bytes:
+    """A byte stream in Sun raster's byte encoding (file type 2), as one
+    run across rows: runs of 3-256 equal bytes, and of 2-256 0x80 bytes, as
+    0x80 (n - 1) value; a lone 0x80 as 0x80 0x00; other bytes as
+    themselves."""
+    a = np.frombuffer(stream, np.uint8)
+    starts = np.flatnonzero(np.r_[True, a[1:] != a[:-1]])
+    lengths = np.diff(np.r_[starts, len(a)])
+    chunks = -(-lengths // 256)
+    values = np.repeat(a[starts], chunks)
+    n = np.repeat(lengths, chunks) - 256 * (np.arange(chunks.sum())
+                                            - np.repeat(np.cumsum(chunks) - chunks, chunks))
+    n = np.minimum(n, 256)
+    run = (n >= 3) | ((values == 0x80) & (n >= 2))
+    lone = (values == 0x80) & (n == 1)
+    size = np.where(run, 3, np.where(lone, 2, n))
+    at = np.cumsum(size) - size
+    out = np.zeros(int(size.sum()), np.uint8)
+    out[at[run]], out[at[run] + 1], out[at[run] + 2] = 0x80, n[run] - 1, values[run]
+    out[at[lone]], out[at[lone] + 1] = 0x80, 0
+    lit = ~run & ~lone
+    out[at[lit]] = values[lit]
+    two = lit & (n == 2)
+    out[at[two] + 1] = values[two]
+    return out.tobytes()
+
+
+def sun_raster(px: np.ndarray, depth: int, file_type: int = 1,
+               colour_map: np.ndarray | None = None) -> bytes:
+    """A Sun raster of `px`: (H, W) 0/1 bits at depth 1 (set bits black),
+    (H, W) 4-bit or 8-bit values, (H, W, 3) RGB at depth 24 or 32 (stored
+    BGR(X), or RGB(X) at file type 3); rows padded to 16 bits, or, at file
+    type 2, byte-encoded (sun_rle) rows of (W * depth + 7) // 8 bytes, as
+    Pillow reads them. colour_map: (n, 3) uint8, stored planar."""
+    h, w = px.shape[:2]
+    if depth == 1:
+        rows = np.packbits(px.astype(np.uint8), axis=1)
+    elif depth == 4:
+        q = np.pad(px.astype(np.uint8), ((0, 0), (0, w % 2)))
+        rows = q[:, 0::2] << 4 | q[:, 1::2]
+    elif depth == 8:
+        rows = px.astype(np.uint8)
+    else:
+        c = px if file_type == 3 else px[:, :, ::-1]
+        if depth == 32:
+            c = np.concatenate([c, np.zeros((h, w, 1), np.uint8)], axis=2)
+        rows = np.ascontiguousarray(c, np.uint8).reshape(h, -1)
+    if file_type == 2:
+        data = sun_rle(np.ascontiguousarray(rows).tobytes())
+    else:
+        stride = (w * depth + 15) // 16 * 2
+        data = np.pad(rows, ((0, 0), (0, stride - rows.shape[1]))).tobytes()
+    cmap = b"" if colour_map is None else np.ascontiguousarray(colour_map.T, np.uint8).tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(data), file_type,
+                       int(colour_map is not None), len(cmap)) + cmap + data
+
+
+def im_file(px: np.ndarray, image_type: str, lut: np.ndarray | None = None) -> bytes:
+    """An IM file as Pillow's ImImagePlugin writes one: "Image type",
+    "Image size (x*y)" and "File size (no of images)" lines (and "Lut: 1"
+    with a (256, 3) colour table, stored planar), NULs to byte 511, ^Z,
+    then the rows of `px` (H, W[, C]) bottom-up, line-interleaved where C
+    is given ("RGB", "RGBA", ...), each sample as its dtype's bytes."""
+    h, w = px.shape[:2]
+    head = f"Image type: {image_type} image\r\nImage size (x*y): {w}*{h}\r\n" \
+           "File size (no of images): 1\r\n"
+    if lut is not None:
+        head += "Lut: 1\r\n"
+    data = head.encode().ljust(511, b"\0") + b"\x1a"
+    if lut is not None:
+        data += np.ascontiguousarray(lut.T, np.uint8).tobytes()
+    rows = px[::-1]
+    if px.ndim == 3:
+        rows = rows.transpose(0, 2, 1)
+    return data + np.ascontiguousarray(rows).tobytes()
+
+
+def msp_file(bits: np.ndarray, version: int = 1) -> bytes:
+    """A Windows Paint file of (H, W) 0/1 bits (set bits white): version 1
+    raw rows, or version 2 a row map and rows coded as runs of 3-255
+    equal bytes (0, count, value) and literals of up to 255 bytes."""
+    h, w = bits.shape
+    rows = np.packbits(bits.astype(np.uint8), axis=1)
+    words = [0] * 16
+    words[0], words[1] = struct.unpack("<2H", b"DanM" if version == 1 else b"LinS")
+    words[2], words[3], words[4:8], words[8], words[9] = w, h, (1, 1, 1, 1), w, h
+    for k in range(12):
+        words[12] ^= words[k]
+    head = struct.pack("<16H", *words)
+    if version == 1:
+        return head + rows.tobytes()
+    coded = []
+    for row in rows:
+        out, i, n = bytearray(), 0, len(row)
+        while i < n:
+            k = 1
+            while i + k < n and k < 255 and row[i + k] == row[i]:
+                k += 1
+            if k >= 3:
+                out += bytes([0, k, row[i]])
+            else:
+                k = 1
+                while i + k < n and k < 255 and not (i + k + 2 < n and row[i + k] == row[i + k + 1]
+                                                     == row[i + k + 2]):
+                    k += 1
+                out += bytes([k]) + row[i : i + k].tobytes()
+            i += k
+        coded.append(bytes(out))
+    return head + struct.pack(f"<{h}H", *map(len, coded)) + b"".join(coded)
+
+
+def xbm_file(bits: np.ndarray, name: str = "im", hotspot=None) -> bytes:
+    """An X11 bitmap of (H, W) 0/1 bits (set bits white, as Pillow reads
+    them): the #define lines, then the rows' bytes, least significant bit
+    first, as 0x.. C literals, 12 a line."""
+    h, w = bits.shape
+    rows = np.packbits(bits.astype(np.uint8), axis=1, bitorder="little").ravel()
+    out = f"#define {name}_width {w}\n#define {name}_height {h}\n"
+    if hotspot:
+        out += f"#define {name}_x_hot {hotspot[0]}\n#define {name}_y_hot {hotspot[1]}\n"
+    out += f"static char {name}_bits[] = {{\n"
+    hexes = [f"0x{v:02x}" for v in rows]
+    out += ",\n".join(", ".join(hexes[k : k + 12]) for k in range(0, len(hexes), 12))
+    return (out + "\n};\n").encode()
+
+
+def xpm_file(idx: np.ndarray, colours: np.ndarray, cpp: int) -> bytes:
+    """An X11 pixmap of (H, W) indices into (n, 3) uint8 colours, each key
+    `cpp` characters from an alphabet of 64, as a C string array."""
+    h, w = idx.shape
+    alphabet = np.frombuffer(b"ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789+-",
+                             np.uint8)
+    n = len(colours)
+    digits = np.stack([alphabet[(np.arange(n) // 64**k) % 64] for k in range(cpp)], axis=1)
+    keys = [bytes(d) for d in digits]
+    lines = [b"/* XPM */", b"static char *image[] = {", b'"%d %d %d %d",' % (w, h, n, cpp)]
+    lines += [b'"%s c #%02x%02x%02x",' % (k, *c) for k, c in zip(keys, colours.tolist())]
+    lines.append(b"/* pixels */")
+    table = digits[idx]  # (h, w, cpp)
+    lines += [b'"' + row.tobytes() + b'",' for row in table]
+    lines[-1] = lines[-1][:-1]
+    return b"\n".join(lines + [b"};", b""])
+
+
+def quantised(rgb: np.ndarray, levels: int) -> tuple[np.ndarray, np.ndarray]:
+    """(indices (H, W), colours (n, 3) uint8): `rgb` cut to `levels` steps
+    a channel, the colours that occur, in order of first value."""
+    step = 256 // levels
+    q = (rgb // step * step + step // 2).astype(np.uint8)
+    colours, idx = np.unique(q.reshape(-1, 3), axis=0, return_inverse=True)
+    return idx.reshape(rgb.shape[:2]), colours
+
+
+def legacy_files(td: str, img1, img2) -> dict[str, list[str]]:
+    """Phase 8 (m)'s inputs: phase 3's pair as byte-encoded 8-bit Sun
+    rasters (file type 2, as ImageMagick, GIMP and netpbm write .ras),
+    BASELINE #3's views (tint) as IM "RGB" files (line-interleaved planes,
+    as Pillow saves RGB); and, decoded only, the first view as MSP version
+    1 and 2 and XBM (its gray at 128 and up as set bits), as XPMs of 216
+    colours ("P") and of 512 ("RGB"), as Sun rasters of 1 bit (raw), 4
+    bits with a 16-entry colour map (raw) and 32 bits (byte-encoded), and
+    as IM "L 32F" (the gray plus a seeded fraction) and "P" with a colour
+    Lut. tests/gen_torch_formats_fixture.py writes the same files and
+    commits the SHA-256 of Pillow's planes of them ("legacy")."""
+    rng = np.random.RandomState(64)
+    views, _, _, _ = render_perspective(PERSP_W, PERSP_H, PERSP_CAMS[:1], exact_focal=True)
+    files: dict[str, list[str]] = {"sun rle": [], "im rgb": [], "decode only": []}
+    blobs = {}
+    for k, (img, view) in enumerate(zip((img1, img2), views)):
+        blobs[("sun rle", f"legacy_{k}.ras")] = sun_raster(img, 8, 2)
+        blobs[("im rgb", f"legacy_{k}.im")] = im_file(tint(view), "RGB")
+    rgb = tint(views[0])
+    gray = (rgb.astype(np.uint32) @ np.array([19595, 38470, 7471]) + 0x8000 >> 16).astype(np.uint8)
+    bits = gray >= 128
+    idx216, pal216 = quantised(rgb, 6)
+    idx512, pal512 = quantised(rgb, 8)
+    ramp = np.stack([np.arange(16) * 17, 255 - np.arange(16) * 17, np.arange(16) * 8], 1)
+    lut = np.zeros((256, 3), np.uint8)
+    lut[: len(pal216)] = pal216
+    frac = rng.uniform(0, 0.99, gray.shape).astype(np.float32)
+    for name, data in (
+            ("legacy_v1.msp", msp_file(bits, 1)), ("legacy_v2.msp", msp_file(bits, 2)),
+            ("legacy.xbm", xbm_file(bits)), ("legacy_216.xpm", xpm_file(idx216, pal216, 2)),
+            ("legacy_512.xpm", xpm_file(idx512, pal512, 2)),
+            ("legacy_1bit.ras", sun_raster(bits, 1)),
+            ("legacy_4bit.ras", sun_raster(gray >> 4, 4, 1, ramp.astype(np.uint8))),
+            ("legacy_32bit.ras", sun_raster(rgb, 32, 2)),
+            ("legacy_f.im", im_file((gray + frac).astype("<f4"), "L 32F")),
+            ("legacy_p.im", im_file(idx216.astype(np.uint8), "Greyscale", lut))):
+        blobs[("decode only", name)] = data
+    for (kind, name), data in blobs.items():
+        files[kind].append(os.path.join(td, name))
+        with open(files[kind][-1], "wb") as fh:
+            fh.write(data)
+    return files
+
+
+def cli_legacy_rasters(cap, smi: str, td: str, img1, img2) -> dict:
+    """Phase 8 (m), with every import of Pillow blocked (_NoPillow):
+    legacy_files' pairs through cli.main. The Sun rasters -> PLY, equal to
+    reconstruct's on the arrays; the IM files -> OBJ with
+    --focal-length=43 (IM carries no EXIF), with cli_exif_jpeg_pair's
+    gates. Then the decode-only files, each plane timed. Every plane has
+    the committed SHA-256 of Pillow's ("legacy"); the Sun planes are the
+    arrays. Last, the committed damaged LZMA TIFF (LZMA_DAMAGED_TIFF: a
+    strip liblzma fills before it finds the damage, which Pillow's libtiff
+    reads) decodes to its committed plane ("lzma damaged"), and the
+    liblzma that ctypes loaded is printed."""
+    from cybervision_tpu_torch.config import MeshMode, ProjectionMode, ReconstructionConfig
+    from cybervision_tpu_torch.images import SourceImage
+    from cybervision_tpu_torch.imageio import liblzma
+    from cybervision_tpu_torch.reconstruction import reconstruct
+
+    with open(FORMATS_SHA256) as fh:
+        committed = json.load(fh)
+    t_phase = t0 = time.perf_counter()
+    files = legacy_files(td, img1, img2)
+    written = time.perf_counter() - t0
+    records = {}
+
+    def same_as_pillow(src, path, rgb_plane=None):
+        want = committed["legacy"][os.path.basename(path)]
+        rgb_plane = src.load_rgb_plane() if rgb_plane is None else rgb_plane
+        return _plane_sha(src.img) == want["l"] and _plane_sha(rgb_plane) == want["rgb"]
+
+    with _NoPillow():
+        srcs = {kind: [SourceImage.load(p) for p in files[kind]] for kind in ("sun rle", "im rgb")}
+        hashes = {kind: all(same_as_pillow(s, p) for s, p in zip(srcs[kind], files[kind]))
+                  for kind in srcs}
+        lossless = all(np.array_equal(s.img, im) for s, im in zip(srcs["sun rle"], (img1, img2)))
+        print(f"(m) files written in {written:.2f} s"
+              f" ({[os.path.getsize(p) for ps in files.values() for p in ps]} bytes); planes equal"
+              f" to Pillow's (SHA-256) {hashes}; Sun gray planes equal to the arrays {lossless}")
+        if not all(hashes.values()) or not lossless:
+            raise AssertionError("(m): the decoded planes are not Pillow's")
+
+        label = f"(m) byte-encoded Sun raster pair {SIZE}x{SIZE} -> PLY"
+        ref_ply, out = os.path.join(td, "mem_m.ply"), os.path.join(td, "sun.ply")
+        reconstruct(["a", "b"], ref_ply, ReconstructionConfig(
+            projection=ProjectionMode.AFFINE, mesh=MeshMode.VERTEX_COLORS), quiet=True,
+            images=[SourceImage(im) for im in (img1, img2)])
+        run = cap.main(["--projection=parallel", "--mesh=vertex-colors", *files["sun rle"], out])
+        records["sun ply"] = cli_record("(m) Sun raster", run["seconds"], run["rec"].phases,
+                                        run["decode"], run["launches"], smi)
+        same = _sha(out) == _sha(ref_ply)
+        print(f"{label}: PLY equal to the in-memory run's {same}")
+        if not same:
+            raise AssertionError(f"{label}: the PLY differs from the in-memory run's")
+
+        records["im obj"] = cli_exif_jpeg_pair(
+            cap, smi, td, "(m) IM pair", f"(m) IM RGB pair {PERSP_W}x{PERSP_H} -> OBJ",
+            files["im rgb"], srcs["im rgb"], {}, (PERSP_W, PERSP_H), focal_arg=PERSP_FOCAL_35MM)
+
+        decode, ok = {}, {}
+        for p in files["decode only"] + [LZMA_DAMAGED_TIFF]:
+            t0 = time.perf_counter()
+            s = SourceImage.load(p)
+            rgb_plane = s.load_rgb_plane()
+            decode[os.path.basename(p)] = time.perf_counter() - t0
+            if p == LZMA_DAMAGED_TIFF:
+                want = committed["lzma damaged"]
+                ok[os.path.basename(p)] = (_plane_sha(s.img) == want["l"]
+                                           and _plane_sha(rgb_plane) == want["rgb"])
+            else:
+                ok[os.path.basename(p)] = same_as_pillow(s, p, rgb_plane)
+        path, version = liblzma.library()
+        print(f"(m) decoded only: planes equal to Pillow's (SHA-256) {ok}; decode seconds"
+              f" {json.dumps({k: round(v, 4) for k, v in decode.items()})}; liblzma loaded"
+              f" through ctypes: {path} (version {version})")
+        if not all(ok.values()):
+            raise AssertionError("(m): the decode-only planes are not Pillow's")
+        pil = any(m == "PIL" or m.startswith("PIL.") for m in sys.modules)
+    print(f"(m) Pillow imported during the runs {pil}; (m) took"
+          f" {time.perf_counter() - t_phase:.1f} s")
+    if pil:
+        raise AssertionError("(m): Pillow was imported")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -3805,7 +4096,11 @@ def main() -> int:
           f" and RLE8 BMP depth maps"
           f" {[round(cli_files[k]['seconds'], 4) for k in ('float tiff', 'jpeg tiff', 'rle8 bmp')]} s;"
           f" 16-bit PGM, SPIDER, RLE TGA and CMYK TIFF pairs"
-          f" {[round(cli_files[k]['seconds'], 4) for k in ('pgm ply', 'spider png', 'tga obj', 'cmyk tiff ply')]} s")
+          f" {[round(cli_files[k]['seconds'], 4) for k in ('pgm ply', 'spider png', 'tga obj', 'cmyk tiff ply')]} s;"
+          f" LZMA TIFF, DIB, zstd TIFF and text-EXIF PNG pairs"
+          f" {[round(cli_files[k]['seconds'], 4) for k in ('lzma tiff ply', 'dib png', 'zstd tiff obj', 'text exif png obj')]} s;"
+          f" Sun raster and IM pairs"
+          f" {[round(cli_files[k]['seconds'], 4) for k in ('sun ply', 'im obj')]} s")
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

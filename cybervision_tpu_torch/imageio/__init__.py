@@ -8,7 +8,8 @@ and headerless DIB (palettes, 16 to 32 bits, bit fields, RLE), GIF (the
 first frame), WebP (lossless, lossy with alpha, VP8X with EXIF, an
 animation's first frame), Netpbm (PBM, PGM, PPM, PFM, plain or binary),
 ICO and CUR (PNG or BMP entries), ICNS (PNG entries, 24-bit RLE icons
-and their masks), SPIDER, TGA, SGI, PCX and QOI, giving what the JAX
+and their masks), SPIDER, TGA, SGI, PCX, QOI, Sun raster, IM, MSP, XBM
+and XPM, giving what the JAX
 package reads through Pillow — the SEM metadata tag, the EXIF focal
 length, and the planes of convert("L") and convert("RGB"), bit for bit.
 A file goes to the reader of the plugin Pillow's Image.open would pick
@@ -17,10 +18,12 @@ rgba_encode (TIFF, BMP).
 
 The containers are parsed here in Python; the pixel loops run in the
 native library (native/imagedecode.cpp, native/webpdecode.cpp), built at
-first use. PNG, uncompressed BMP, TGA and SGI, Netpbm, SPIDER and
-uncompressed, PackBits, Deflate or LZMA TIFF have a numpy path for when
-it cannot be built; JPEG, LZW, zstd, CCITT, JPEG-in-TIFF, RLE BMP, TGA,
-SGI and ICNS, PCX, QOI, GIF and WebP then raise NativeDecoderError.
+first use. PNG, uncompressed BMP, TGA and SGI, Netpbm, SPIDER, raw Sun
+rasters, IM, MSP version 1, XBM, XPM and uncompressed, PackBits, Deflate
+or LZMA TIFF have a numpy path for when it cannot be built; JPEG, LZW,
+zstd, CCITT, JPEG-in-TIFF, RLE BMP, TGA, SGI, ICNS, Sun and MSP version
+2, IM's bit-packed floats, PCX, QOI, GIF and WebP then raise
+NativeDecoderError.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import struct
 import numpy as np
 
 from cybervision_tpu_torch.imageio import (
-    bmp, exif, gif, icns, ico, jpeg, netpbm, pcx, png, qoi, sgi, spider, tga, tiff, webp,
+    bmp, exif, gif, icns, ico, im, jpeg, msp, netpbm, pcx, png, qoi, sgi, spider, sun, tga, tiff,
+    webp, xbm, xpm,
 )
 from cybervision_tpu_torch.imageio.convert import to_l, to_rgb
 from cybervision_tpu_torch.imageio.errors import (
@@ -111,9 +115,9 @@ class ImageFile:
 # no accept test, so which plugin claims a file depends on the order;
 # identify follows it. The formats the readers do not take are refused by
 # name where their magic claims the file; the plugins before TGA without an
-# accept test (IM, IMT, IPTC, PCD) and those with a loose one (GBR, CUR,
-# ICO) get their open checks too, so that a TGA or SPIDER file reaches its
-# reader only where Pillow's would.
+# accept test (IM, whose reader checks it, IMT, IPTC, PCD) and those with a
+# loose one (GBR, CUR, ICO) get their open checks too, so that a TGA or
+# SPIDER file reaches its reader only where Pillow's would.
 
 
 def _u32(data: bytes, at: int, endian: str = "<") -> int | None:
@@ -138,37 +142,6 @@ def _gbr(data: bytes) -> bool:
     if None in head or head[2] == 0 or head[3] == 0 or head[4] not in (1, 4):
         return False
     return head[1] == 1 or data[20:24] == b"GIMP"
-
-
-_IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
-_IM_TAGS = ("Comment", "Date", "Digitalization equipment", "File size (no of images)", "Lut",
-            "Name", "Scale (x,y)", "Image size (x*y)", "Image type")
-
-
-def _im(data: bytes) -> bool:
-    """ImImagePlugin's open: "key: value" header lines up to a NUL or ^Z,
-    one of them a known key, then the ^Z the image data follows."""
-    if b"\n" not in data[:100]:
-        return False
-    pos, known = 0, 0
-    while True:
-        s = data[pos : pos + 1]
-        pos += len(s)
-        if s == b"\r":
-            continue
-        if not s or s in (b"\0", b"\x1a"):
-            break
-        end = data.find(b"\n", pos)
-        end = len(data) if end < 0 else end + 1
-        s, pos = s + data[pos:end], end
-        if len(s) > 100:
-            return False
-        s = s[:-2] if s.endswith(b"\r\n") else s[:-1] if s.endswith(b"\n") else s
-        m = _IM_LINE.match(s)
-        if not m:
-            return False
-        known += m.group(1).decode("latin-1", "replace") in _IM_TAGS
-    return known > 0 and (s.startswith(b"\x1a") or b"\x1a" in data[pos:])
 
 
 _IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
@@ -255,37 +228,39 @@ _PLUGINS = (
      "JPEG 2000"),
     ("ICNS", lambda d: d.startswith(b"icns"), "ICNS"),
     ("ICO", lambda d: d.startswith(b"\0\0\1\0") and _entries(d), "ICO"),
-    ("IM", _im, "IM (LabEye IFUNC)"),
+    ("IM", lambda d: True, "IM"),
     ("IMT", _imt, "IM Tools"),
     ("IPTC", _iptc, "IPTC/NAA"),
     ("MCIDAS", lambda d: d.startswith(b"\0\0\0\0\0\0\0\x04"), "McIdas area"),
     ("MPEG", lambda d: d.startswith(b"\0\0\x01\xb3"),
      ("MPEG", "Pillow identifies the stream but reads no pixels")),
     ("TIFF", lambda d: d[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"), "TIFF"),
-    ("MSP", lambda d: d.startswith((b"DanM", b"LinS")), "MSP (Windows Paint)"),
+    ("MSP", msp.accept, "MSP"),
     ("PCD", lambda d: len(d) >= 2048 + 1539 and d[2048:2052] == b"PCD_", "Kodak Photo CD"),
     ("PIXAR", lambda d: d.startswith(b"\x80\xe8\0\0"), "PIXAR raster"),
     ("PSD", lambda d: d.startswith(b"8BPS"), "PSD (Photoshop)"),
     ("QOI", lambda d: d.startswith(qoi.MAGIC), "QOI"),
     ("SGI", sgi.accept, "SGI"),
     ("SPIDER", lambda d: True, "SPIDER"),
-    ("SUN", lambda d: _u32(d, 0, ">") == 0x59A66A95, "Sun raster"),
+    ("SUN", sun.accept, "SUN"),
     ("TGA", lambda d: True, "TGA"),
     ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP" and d[12:16] in webp.FIRST_CHUNKS,
      "WebP"),
     ("WMF", lambda d: d.startswith((b"\xd7\xcd\xc6\x9a\0\0", b"\x01\0\0\0")),
      ("WMF/EMF", "Pillow draws it only through a handler registered on Windows")),
-    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define"), "XBM (X11 bitmap)"),
-    ("XPM", lambda d: d.startswith(b"/* XPM */"), "XPM (X11 pixmap)"),
+    ("XBM", xbm.accept, "XBM"),
+    ("XPM", xpm.accept, "XPM"),
     ("XVTHUMB", lambda d: d.startswith(b"P7 332"), "XV thumbnail"),
 )
 _PARSERS = {"PNG": png.parse, "TIFF": tiff.parse, "BMP": bmp.parse, "DIB": bmp.parse_dib,
             "GIF": gif.parse, "WebP": webp.parse, "PPM": netpbm.parse, "CUR": ico.parse_cur,
             "PCX": pcx.parse, "ICNS": icns.parse, "ICO": ico.parse, "QOI": qoi.parse,
-            "SGI": sgi.parse, "SPIDER": spider.parse, "TGA": tga.parse}
+            "SGI": sgi.parse, "SPIDER": spider.parse, "TGA": tga.parse, "IM": im.parse,
+            "MSP": msp.parse, "SUN": sun.parse, "XBM": xbm.parse, "XPM": xpm.parse}
 _DECODERS = {"PNG": png, "TIFF": tiff, "JPEG": jpeg, "BMP": bmp, "DIB": bmp, "GIF": gif,
              "WebP": webp, "PPM": netpbm, "CUR": bmp, "PCX": pcx, "ICNS": icns, "ICO": ico,
-             "QOI": qoi, "SGI": sgi, "SPIDER": spider, "TGA": tga}
+             "QOI": qoi, "SGI": sgi, "SPIDER": spider, "TGA": tga, "IM": im, "MSP": msp,
+             "SUN": sun, "XBM": xbm, "XPM": xpm}
 
 
 def identify(data: bytes, metadata_only: bool = False) -> tuple[str, object]:
@@ -308,8 +283,8 @@ def identify(data: bytes, metadata_only: bool = False) -> tuple[str, object]:
             continue
     raise UnsupportedImageError("this file format is not supported: neither the readers (PNG,"
                                 " TIFF, JPEG, BMP and DIB, GIF, WebP, Netpbm, PCX, ICO and CUR,"
-                                " ICNS, QOI, SGI, SPIDER, TGA) nor any other Pillow plugin take"
-                                " it")
+                                " ICNS, IM, MSP, QOI, SGI, SPIDER, Sun raster, TGA, XBM, XPM)"
+                                " nor any other Pillow plugin take it")
 
 
 def open_image(path: str, metadata_only: bool = False) -> ImageFile:

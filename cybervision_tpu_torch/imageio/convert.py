@@ -2,7 +2,8 @@
 bit, from the modes the readers return:
   * "L" from RGB: (R*19595 + G*38470 + B*7471 + 0x8000) >> 16, also for
     a palette's entries and with RGBA's alpha dropped;
-  * "L" and "RGB" from 16-bit gray ("I;16", "I;16B") clip to 255;
+  * "L" and "RGB" from 16-bit gray ("I;16", "I;16L", "I;16B") clip to
+    255;
   * "RGB" from gray repeats it, or, for an "L" image that carries a
     palette (a GIF frame, a gray TGA with a colour map), maps it; LA and
     RGBA drop their alpha; "PA" maps its index through the palette;
@@ -14,7 +15,12 @@ bit, from the modes the readers return:
   * "RGB" from "CMYK" is cmyk2rgb: each of C, M, Y as
     (255 - K) - C * (255 - K) / 255 with libImaging's MULDIV255 rounding;
     "L" from "CMYK" goes through that RGB (Pillow has no direct
-    converter).
+    converter);
+  * "L" from "YCbCr" is Y; "RGB" from "YCbCr" is ConvertYCbCr.c's
+    ImagingConvertYCbCr2RGB: Y plus Cr's (R), Cb's and Cr's (G) and Cb's
+    (B) entries of fixed-point tables of 6 fraction bits, each entry
+    (int)(c * 64 * (v - 128) + 0.5) for ITU-R BT.601's c, the sum shifted
+    right and clipped to 0-255.
 """
 
 from __future__ import annotations
@@ -36,12 +42,26 @@ def _cmyk_rgb(px: np.ndarray) -> np.ndarray:
     return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
+def _ycc_table(c: float) -> np.ndarray:
+    return np.trunc(c * 64 * (np.arange(256) - 128) + 0.5).astype(np.int32)
+
+
+_R_CR, _G_CB, _G_CR, _B_CB = (_ycc_table(c) for c in (1.402, -0.34414, -0.71414, 1.772))
+
+
+def _ycc_rgb(px: np.ndarray) -> np.ndarray:
+    y, cb, cr = (px[:, :, k].astype(np.int32) for k in range(3))
+    rgb = np.stack([y + (_R_CR[cr] >> 6), y + ((_G_CB[cb] + _G_CR[cr]) >> 6),
+                    y + (_B_CB[cb] >> 6)], axis=2)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
 def _gray(mode: str, px: np.ndarray) -> np.ndarray | None:
     if mode in ("L", "1"):
         return px
     if mode == "LA":
         return px[:, :, 0]
-    if mode in ("I;16", "I;16B", "I"):
+    if mode in ("I;16", "I;16L", "I;16B", "I"):
         return np.clip(px, 0, 255).astype(np.uint8)
     if mode == "F":
         out = np.zeros(px.shape, np.uint8)
@@ -62,6 +82,8 @@ def to_l(mode: str, px: np.ndarray, palette: np.ndarray | None) -> np.ndarray:
         return _luma(palette)[px if mode == "P" else px[:, :, 0]]
     if mode == "CMYK":
         return _luma(_cmyk_rgb(px))
+    if mode == "YCbCr":
+        return np.ascontiguousarray(px[:, :, 0])
     raise UnsupportedImageError(f"no conversion to L from {mode}")
 
 
@@ -80,4 +102,6 @@ def to_rgb(mode: str, px: np.ndarray, palette: np.ndarray | None) -> np.ndarray:
         return palette[px if mode == "P" else px[:, :, 0]]
     if mode == "CMYK":
         return _cmyk_rgb(px)
+    if mode == "YCbCr":
+        return _ycc_rgb(px)
     raise UnsupportedImageError(f"no conversion to RGB from {mode}")

@@ -5,8 +5,8 @@ IFD0 as the file's EXIF directory, as Pillow's tag_v2 and getexif() give
 them to the JAX package.
 
 Strips and tiles may be uncompressed, PackBits (numpy without the native
-library), LZW, Deflate, LZMA (an xz stream, through the standard
-library's lzma), zstd (native only), CCITT (modified Huffman, T.4 1D or
+library), LZW, Deflate, LZMA (an xz stream, through liblzma as libtiff calls it:
+imageio/liblzma.py), zstd (native only), CCITT (modified Huffman, T.4 1D or
 2D, T.6: native only) or JPEG (compression 7: each strip or tile a JPEG
 stream completed by the JPEGTables tag, decoded by the JPEG reader); LZW,
 Deflate, LZMA and zstd with horizontal differencing (predictor 2) or the
@@ -52,9 +52,9 @@ import zlib
 import numpy as np
 
 from cybervision_tpu_torch.imageio import exif as ifd
+from cybervision_tpu_torch.imageio import liblzma
 from cybervision_tpu_torch.imageio.errors import (
     CorruptImageError,
-    NativeDecoderError,
     TruncatedImageError,
     UnsupportedImageError,
     native_missing,
@@ -235,7 +235,7 @@ def _strip(raw: bytes, size: int, compression: int, native, ccitt=None) -> bytes
             raise native_missing("LZW-compressed TIFF")
         out = native.tiff_lzw(raw, size)
     elif compression == _LZMA:
-        out = _lzma_strip(raw, size)
+        out = liblzma.decode_strip(raw, size)
     elif compression == _ZSTD:
         if native is None:
             raise native_missing("zstd-compressed TIFF")
@@ -249,37 +249,6 @@ def _strip(raw: bytes, size: int, compression: int, native, ccitt=None) -> bytes
     if len(out) < size:
         raise TruncatedImageError("a TIFF strip ends before its rows")
     return out
-
-
-def _lzma_strip(raw: bytes, size: int) -> bytes:
-    """Up to `size` bytes of an LZMA strip: libtiff's LZMADecode runs
-    liblzma's xz decoder until the strip is full, so bytes after the
-    stream (which lzma.decompress would refuse) are not read."""
-    try:
-        import lzma
-    except ImportError as err:
-        raise NativeDecoderError("LZMA-compressed TIFF needs Python's lzma module, which this"
-                                 " Python was built without") from err
-    try:
-        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(raw, max_length=size)
-    except lzma.LZMAError as err:
-        error = err
-    # libtiff ignores an error once the strip is full and keeps every byte
-    # liblzma wrote before it, which Python drops with the call that
-    # failed: decode again an input byte and an output byte a call.
-    out = bytearray()
-    inflate = lzma.LZMADecompressor(lzma.FORMAT_XZ)
-    try:
-        for i in range(len(raw)):
-            piece = inflate.decompress(raw[i : i + 1], max_length=1)
-            while piece:
-                out += piece
-                if len(out) >= size:
-                    return bytes(out)
-                piece = inflate.decompress(b"", max_length=1)
-    except (lzma.LZMAError, EOFError):
-        pass
-    raise CorruptImageError(f"TIFF LZMA strip: {error}")
 
 
 def _packbits_numpy(src: bytes, size: int) -> bytes:

@@ -68,6 +68,9 @@ _SIGNATURES = {
     "sgi_rle": ([_U8P, _L, _L, _L, _L, _L, _U8P], _L),
     "pcx_rle": ([_U8P, _L, _L, _L, _U8P], _L),
     "qoi_decode": ([_U8P, _L, _L, _L, _L, _U8P], _L),
+    "sun_rle": ([_U8P, _L, _L, _U8P], _L),
+    "msp_rle": ([_U8P, _L, _L, _L, _U8P], _L),
+    "im_bits": ([_U8P, _L, _L, _L, _L, ctypes.POINTER(ctypes.c_float)], _L),
     "zstd_strip": ([_U8P, _L, _U8P, _L], _L),
     "zstd_frames": ([_U8P, _L, _U8P, _L], _L),
     "icns_rle": ([_U8P, _L, _L, _U8P], _L),
@@ -464,6 +467,39 @@ def pcx_rle(src: bytes, line_bytes: int, height: int) -> np.ndarray:
     code = load().pcx_rle(sptr, len(src), line_bytes, height, _ptr(out, ctypes.c_uint8))
     if code < 0:
         _decode_error(code, "pcx_rle")
+    return out
+
+
+def sun_rle(src: bytes, total: int) -> np.ndarray:
+    """A Sun raster's byte-encoded data (imagedecode.cpp's sun_rle): the
+    first `total` bytes it decodes to, uint8."""
+    sptr, _keep = _bytes_ptr(src)
+    out = np.zeros(total, np.uint8)
+    code = load().sun_rle(sptr, len(src), total, _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "sun_rle")
+    return out
+
+
+def msp_rle(src: bytes, row_bytes: int, height: int) -> np.ndarray:
+    """A version 2 MSP's row map and rows after its header (imagedecode.cpp's
+    msp_rle): (height, row_bytes) uint8."""
+    sptr, _keep = _bytes_ptr(src)
+    out = np.zeros((height, row_bytes), np.uint8)
+    code = load().msp_rle(sptr, len(src), row_bytes, height, _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "msp_rle")
+    return out
+
+
+def im_bits(src: bytes, bits: int, width: int, height: int) -> np.ndarray:
+    """An IM file's packed `bits`-bit samples (imagedecode.cpp's im_bits):
+    (height, width) float32, top row first."""
+    sptr, _keep = _bytes_ptr(src)
+    out = np.zeros((height, width), np.float32)
+    code = load().im_bits(sptr, len(src), bits, width, height, _ptr(out, ctypes.c_float))
+    if code < 0:
+        _decode_error(code, "im_bits")
     return out
 
 

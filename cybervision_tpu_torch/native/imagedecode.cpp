@@ -6,8 +6,10 @@
 //   * TIFF PackBits, LZW and CCITT (T.4 / T.6) strips;
 //   * GIF LZW (Pillow's GifDecode.c);
 //   * BMP RLE8 and RLE4;
-//   * the run-length codes of TGA (TgaRleDecode.c), SGI (SgiRleDecode.c)
-//     and PCX (PcxDecode.c), and QOI's op stream (QoiImagePlugin.py);
+//   * the run-length codes of TGA (TgaRleDecode.c), SGI (SgiRleDecode.c),
+//     PCX (PcxDecode.c), Sun raster (SunRleDecode.c) and Windows Paint
+//     (MspImagePlugin.py), IM's packed float samples (BitDecode.c) and
+//     QOI's op stream (QoiImagePlugin.py);
 //   * baseline and progressive JPEG (jdhuff.c, jdphuff.c): Huffman
 //     decoding with restart intervals, every progressive scan kind into
 //     one coefficient buffer, dequantisation, libjpeg's accurate integer
@@ -1506,6 +1508,111 @@ long pcx_rle(const uint8_t *src, long n, long line_bytes, long height, uint8_t *
     if (x >= line_bytes) x = 0;
   }
   return 0;
+}
+
+// Sun raster's byte encoding (file type 2), as SunRleDecode.c reads it:
+// 0x80 0x00 is one 0x80 byte, 0x80 n v is n + 1 copies of v, any other
+// byte is itself; runs carry on across rows. Fills `total` bytes. Returns
+// 0, or kTruncated when the data ends first.
+long sun_rle(const uint8_t *src, long n, long total, uint8_t *out) {
+  long len = 0, i = 0;
+  while (len < total) {
+    if (i >= n) return kTruncated;
+    if (src[i] != 0x80) {
+      out[len++] = src[i++];
+    } else if (i + 2 > n) {
+      return kTruncated;
+    } else if (src[i + 1] == 0) {
+      out[len++] = 0x80;
+      i += 2;
+    } else {
+      if (i + 3 > n) return kTruncated;
+      const long count = std::min<long>(src[i + 1] + 1L, total - len);
+      std::memset(out + len, src[i + 2], count);
+      len += count;
+      i += 3;
+    }
+  }
+  return 0;
+}
+
+// Windows Paint version 2 (MspImagePlugin's MspDecoder): `src` is the file
+// after its 32-byte header, a row map of `height` little-endian byte
+// counts and then the rows. A row of length 0 is `row_bytes` bytes of
+// 0xFF; otherwise a 0 byte is a run (count, value), any other byte n a
+// literal of the next n bytes (cut at the row's end). Every row is read,
+// and the rows' bytes, one stream, fill the first `row_bytes * height`
+// bytes of `out`. Returns 0, kTruncated for a row map or row past the data
+// or a stream short of the image, kCorrupt for a run cut by its row's end.
+long msp_rle(const uint8_t *src, long n, long row_bytes, long height, uint8_t *out) {
+  const long total = row_bytes * height;
+  if (n < 2 * height) return kTruncated;
+  long at = 2 * height, len = 0;
+  auto emit = [&](const uint8_t *p, long k, int value) {
+    k = std::min(k, total - len);
+    if (k <= 0) return;
+    if (p) std::memcpy(out + len, p, k);
+    else std::memset(out + len, value, k);
+    len += k;
+  };
+  for (long y = 0; y < height; y++) {
+    const long rowlen = src[2 * y] | (long)src[2 * y + 1] << 8;
+    if (rowlen == 0) {
+      emit(nullptr, row_bytes, 0xFF);
+      continue;
+    }
+    if (at + rowlen > n) return kTruncated;
+    const uint8_t *row = src + at;
+    at += rowlen;
+    long idx = 0;
+    while (idx < rowlen) {
+      const long type = row[idx++];
+      if (type == 0) {
+        if (idx + 2 > rowlen) return kCorrupt;
+        emit(nullptr, row[idx], row[idx + 1]);
+        idx += 2;
+      } else {
+        emit(row + idx, std::min(type, rowlen - idx), 0);
+        idx += type;
+      }
+    }
+  }
+  return len < total ? kTruncated : 0;
+}
+
+// The "bit" decoder ImImagePlugin opens the IM "L*n" float types with
+// (BitDecode.c, bits `bits` < 32, pad 8, fill 3, unsigned, rows
+// bottom-up): bytes enter the bit buffer above the bits it holds, samples
+// leave from its low end, and a new row drops the count of buffered bits
+// (not the bits, which the next byte is ORed into), as in Pillow. Writes
+// width * height floats. Returns 0, or kTruncated when the data ends
+// first.
+long im_bits(const uint8_t *src, long n, long bits, long width, long height, float *out) {
+  if (bits < 1 || bits >= 32 || width <= 0 || height <= 0) return kUnsupported;
+  const unsigned long long mask = (1ULL << bits) - 1;
+  unsigned long long buffer = 0;
+  long count = 0, x = 0, y = height - 1;
+  for (long i = 0; i < n; i++) {
+    const uint8_t byte = src[i];
+    buffer |= (unsigned long long)byte << count;
+    count += 8;
+    while (count >= bits) {
+      const unsigned long long data = buffer & mask;
+      if (count > 32) {
+        buffer = byte >> (8 - (count - bits));
+      } else {
+        buffer >>= bits;
+      }
+      count -= bits;
+      out[y * width + x] = (float)data;
+      if (++x >= width) {
+        if (--y < 0) return 0;
+        x = 0;
+        count = 0;
+      }
+    }
+  }
+  return kTruncated;
 }
 
 // QOI, as Pillow's QoiDecoder reads it: the ops INDEX, DIFF, LUMA, RUN,

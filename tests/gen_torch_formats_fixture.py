@@ -18,7 +18,14 @@
   16-bit PGM, SPIDER, RLE TGA and CMYK TIFF files of phase 8 (k)
   (chip_smoke.raster_files, "raster"), of the LZMA TIFF, DIB, text-EXIF
   PNG and zstd TIFF files of phase 8 (l) (chip_smoke.codec_files,
-  "codecs") and of its icons (chip_smoke.icon_files, "icons");
+  "codecs") and of its icons (chip_smoke.icon_files, "icons"), of the
+  Sun raster, IM, MSP, XBM and XPM files of phase 8 (m)
+  (chip_smoke.legacy_files, "legacy") and of the damaged LZMA TIFF below
+  ("lzma damaged");
+* tests/fixtures/torch_lzma_damaged.tif: a 64x256 gradient as one
+  xz-compressed strip (no check) with bits flipped where liblzma fills the
+  strip before it finds the damage, so that Pillow's libtiff reads it
+  (lzma_damaged_strip);
 * tests/fixtures/torch_persp_full_v{0,1}.webp: the full-width pair as
   lossy WebPs at Pillow's default quality (80), with an alpha plane
   that is not all opaque (so the encoder writes an ALPH chunk) and the
@@ -37,8 +44,9 @@ Run from the repo root:
 The port must decode the files to those planes and encode the arrays to
 those bytes (tests/test_torch_images.py, tests/test_torch_jpeg_encode.py,
 tests/test_torch_gif_webp.py, tests/test_torch_raster_formats.py and
-tests/test_torch_icons_codecs.py here; chip_smoke.py phase 8 (e), (f)
-and (h)-(l) on the card, with Pillow blocked).
+tests/test_torch_icons_codecs.py and tests/test_torch_legacy_rasters.py
+here; chip_smoke.py phase 8 (e), (f) and (h)-(m) on the card, with Pillow
+blocked).
 """
 
 import hashlib
@@ -154,6 +162,47 @@ def codec_icon_planes() -> tuple[dict, dict]:
     return codecs, icons
 
 
+def legacy_planes() -> dict:
+    """{file name: Pillow's plane hashes} of phase 8 (m)'s files, which
+    chip_smoke.legacy_files writes."""
+    img1, img2, _ = chip_smoke.synth_sem_pair(chip_smoke.SIZE, chip_smoke.SIZE)
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        for paths in chip_smoke.legacy_files(td, img1, img2).values():
+            for path in paths:
+                out[os.path.basename(path)] = planes(path)
+    return out
+
+
+def lzma_damaged_strip() -> tuple[np.ndarray, bytes]:
+    """(pixels, strip) of the damaged LZMA fixture: the 64x256 gradient of
+    tests/test_torch_icons_codecs.py::test_seeded_lzma_damage_reads_where_pillow_reads
+    and its strip number 350 (no check), one of those Pillow reads."""
+    import lzma
+    import random
+
+    px = (np.cumsum(np.random.RandomState(1).randint(-3, 4, (64, 256)), axis=1) % 256
+          ).astype(np.uint8)
+    checks = [lzma.CHECK_NONE, lzma.CHECK_CRC32, lzma.CHECK_CRC64]
+    rnd = random.Random(7)
+    for it in range(351):
+        strip = bytearray(lzma.compress(px.tobytes(), format=lzma.FORMAT_XZ, check=checks[it % 3]))
+        for _ in range(rnd.randint(1, 3)):
+            strip[rnd.randrange(12, len(strip) - 12)] ^= 1 << rnd.randrange(8)
+    return px, bytes(strip)
+
+
+def lzma_fixture() -> dict:
+    """Write the damaged LZMA TIFF (module docstring); Pillow's plane hashes."""
+    from tests.test_torch_images import _tiff_file
+
+    px, strip = lzma_damaged_strip()
+    _tiff_file(chip_smoke.LZMA_DAMAGED_TIFF, px, rows_per_strip=64, compression=34925,
+               codec=lambda raw: strip)
+    print(chip_smoke.LZMA_DAMAGED_TIFF, os.path.getsize(chip_smoke.LZMA_DAMAGED_TIFF), "bytes")
+    return planes(chip_smoke.LZMA_DAMAGED_TIFF)
+
+
 def main():
     w, h = round(chip_smoke.PERSP_W * chip_smoke.FULL_SCALE), round(chip_smoke.PERSP_H * chip_smoke.FULL_SCALE)
     views, _, _, _ = chip_smoke.render_perspective(w, h, chip_smoke.PERSP_CAMS[:1], exact_focal=True)
@@ -171,7 +220,8 @@ def main():
     with open(chip_smoke.FORMATS_SHA256, "w") as fh:
         json.dump({"decoder": decoder, "encoder": encoder, "phase8": phase8_planes(),
                    "gif_webp": gif_webp_planes(), "raster": raster_planes(), "codecs": codecs,
-                   "icons": icons}, fh, indent=1,
+                   "icons": icons, "legacy": legacy_planes(), "lzma damaged": lzma_fixture()},
+                  fh, indent=1,
                   sort_keys=True)
         fh.write("\n")
     print(chip_smoke.FORMATS_SHA256, len(encoder), "encoder cases")

@@ -614,6 +614,41 @@ def test_seeded_zstd_damage_raises_where_pillow_raises(tmp_path):
     assert read > 10 and refused > 10
 
 
+def test_seeded_lzma_damage_reads_where_pillow_reads(tmp_path):
+    """Bits flipped in the xz strip of a 64x256 gradient (one strip; no
+    check, CRC32 or CRC64; 1-3 flips at bytes [12, len - 12) from
+    random.Random(7), 1,500 strips): where liblzma fills the strip and
+    only then finds the damage, libtiff keeps the strip and Pillow reads
+    the file. The port reads those strips (listed) to Pillow's pixels,
+    and on every 40th other strip it refuses where Pillow refuses."""
+    import random
+
+    px = (np.cumsum(np.random.RandomState(1).randint(-3, 4, (64, 256)), axis=1) % 256
+          ).astype(np.uint8)
+    checks = [lzma.CHECK_NONE, lzma.CHECK_CRC32, lzma.CHECK_CRC64]
+    streams = [lzma.compress(px.tobytes(), format=lzma.FORMAT_XZ, check=c) for c in checks]
+    pillow_reads = {350, 541, 542, 867, 897, 1001, 1366, 1451}
+    rnd = random.Random(7)
+    read = refused = 0
+    for it in range(1500):
+        strip = bytearray(streams[it % 3])
+        for _ in range(rnd.randint(1, 3)):
+            strip[rnd.randrange(12, len(strip) - 12)] ^= 1 << rnd.randrange(8)
+        if it not in pillow_reads and it % 40:
+            continue
+        path = str(tmp_path / f"x{it}.tif")
+        _strip_tiff(path, bytes(strip), 34925, px)
+        ref = _jax_load(path)
+        assert isinstance(ref, Exception) == (it not in pillow_reads), it
+        if isinstance(ref, Exception):
+            refused += 1
+            _assert_both_refuse(path)
+        else:
+            read += 1
+            _assert_same(path)
+    assert read == len(pillow_reads) and refused > 30
+
+
 # -- refusals --------------------------------------------------------------------------
 
 

@@ -1085,9 +1085,6 @@ UNSUPPORTED = {
     "jpeg 2000 (j2k codestream)": ("j2k", True),
     "avif": ("avif", True),
     "dds": ("dds", True),
-    "im": ("im", True),
-    "msp": ("msp", True),
-    "xbm": ("xbm", True),
     "blp": ("blp", True),
     "uncompressed YCbCr tiff": ("tif", False),
     "LAB tiff": ("tif", False),
@@ -1099,8 +1096,16 @@ PILLOW_REFUSES_TOO = ("uncompressed YCbCr tiff", "LAB tiff")
 def _unsupported(kind, path):
     rng = np.random.RandomState(5)
     im = Image.fromarray(_texture(rng, 24, 24, 3))
-    if kind in ("gif", "webp", "ico", "icns", "dib") or UNSUPPORTED.get(kind, ("", False))[1]:
+    if kind in ("gif", "webp", "ico", "icns", "dib", "im", "msp", "xbm") \
+            or UNSUPPORTED.get(kind, ("", False))[1]:
         im.convert({"msp": "1", "xbm": "1", "blp": "P"}.get(kind, "RGB")).save(path)
+    elif kind == "sun":  # Pillow writes neither Sun rasters nor XPM
+        with open(path, "wb") as fh:
+            fh.write(chip_smoke.sun_raster(np.asarray(im), 24))
+    elif kind == "xpm":
+        idx, colours = chip_smoke.quantised(np.asarray(im), 4)
+        with open(path, "wb") as fh:
+            fh.write(chip_smoke.xpm_file(idx, colours, 1))
     elif kind in PILLOW_REFUSES_TOO:
         im.convert("YCbCr" if kind.startswith("uncompressed YCbCr") else "LAB").save(path)
     elif kind == "arithmetic-coded jpeg":
@@ -1134,12 +1139,16 @@ def test_unsupported_formats_raise_their_named_error(tmp_path, kind):
         timages.SourceImage.load(path)
 
 
-@pytest.mark.parametrize("kind", ["gif", "webp", "ico", "icns", "dib"])
+@pytest.mark.parametrize("kind", ["gif", "webp", "ico", "icns", "dib", "im", "msp", "xbm", "xpm",
+                                  "sun"])
 def test_formats_once_refused_decode_to_pillows_planes(tmp_path, kind):
-    """GIF, WebP, ICO, ICNS and DIB, which the readers refused by name
-    until they took them (tests/test_torch_gif_webp.py and
-    tests/test_torch_icons_codecs.py hold them in depth): the same 24x24
-    file, as Pillow writes it, now reads as the JAX package reads it."""
+    """GIF, WebP, ICO, ICNS, DIB, IM, MSP, XBM, XPM and Sun raster, which
+    the readers refused by name until they took them
+    (tests/test_torch_gif_webp.py, tests/test_torch_icons_codecs.py and
+    tests/test_torch_legacy_rasters.py hold them in depth): the same 24x24
+    image, as Pillow writes it (or, for XPM and Sun raster, which Pillow
+    does not write, chip_smoke.py's writers), now reads as the JAX package
+    reads it."""
     path = str(tmp_path / f"u.{kind}")
     _unsupported(kind, path)
     (src_j, rgb_j) = _jax_load(path)

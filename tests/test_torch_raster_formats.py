@@ -713,7 +713,8 @@ def test_files_reach_the_plugin_pillow_picks(tmp_path, kind):
     plugin in its order whose checks it passes. The port follows that
     order: a TGA starting with CUR's magic (no cursor entries) is a TGA,
     a SPIDER header is SPIDER's, and an IM header before TGA-like bytes
-    is IM's, refused by name."""
+    is IM's (read by imageio/im.py, or refused by name while the readers
+    did not take IM)."""
     path = str(tmp_path / "order.bin")
     _order_case(kind, path, np.random.RandomState(30))
     with Image.open(path) as im:
