@@ -204,7 +204,21 @@ Phases, each of which raises on failure:
        Lut) decoded only, each timed; the committed damaged LZMA TIFF
        (tests/fixtures/torch_lzma_damaged.tif, a strip Pillow's libtiff
        reads) decoded, with the liblzma ctypes loaded printed. Every plane
-       has the committed SHA-256 of Pillow's ("legacy", "lzma damaged").
+       has the committed SHA-256 of Pillow's ("legacy", "lzma damaged");
+   (n) with Pillow blocked as well (jpeg_coding_files): phase 3's pair as
+       arithmetic-coded sequential JPEGs (arith_jpeg) -> PLY, byte-equal
+       to reconstruct's on the decoded planes, and as 8-bit lossless JPEGs
+       (lossless_jpeg) -> PLY, byte-equal to reconstruct's on the arrays
+       (the planes are the arrays); BASELINE #3's views as arithmetic
+       progressive JPEGs with EXIF 41989 = 43 -> OBJ with no
+       --focal-length and (f)'s gates; a block-smoothed arithmetic
+       progressive file, a lossless RGB file with restarts and an
+       arithmetic file with a DAC segment between scans decoded, each
+       timed; a 12-bit and an arithmetic-coded lossless (SOF11) file
+       refused without "yet". Every plane has the committed SHA-256 of
+       Pillow's ("jpeg codings", read with Pillow's read block raised to
+       the whole file, since Pillow fails on arithmetic data past its
+       first 64 KiB).
    One JSON record per run: seconds, phases, decode seconds per file and
    plane, encode (and write) seconds per depth map, launches, the card's
    name and power limit.
@@ -218,7 +232,8 @@ or any phase fails. It imports nothing of JAX and nothing of the JAX
 package, and needs no Pillow: images are built in memory or written by
 its own writers (write_tiff, write_bmp, write_gif, write_pgm16,
 write_spider, write_tga_rle, write_png_text_exif, icon_files,
-sun_raster, im_file, msp_file, xbm_file, xpm_file, writers.encode_png) and the committed fixtures. It prints whether Pillow
+sun_raster, im_file, msp_file, xbm_file, xpm_file, arith_jpeg,
+lossless_jpeg, writers.encode_png) and the committed fixtures. It prints whether Pillow
 is installed on the card's machine.
 """
 
@@ -2828,6 +2843,7 @@ def phase_cli_files(counters, smi: str, texture_obj_sha: str) -> dict:
         records.update(cli_raster_files(cap, smi, td, img1, img2))
         records.update(cli_codecs_icons(cap, smi, td, img1, img2))
         records.update(cli_legacy_rasters(cap, smi, td, img1, img2))
+        records.update(cli_jpeg_codings(cap, smi, td, img1, img2))
     torch.cuda.empty_cache()
     return records
 
@@ -3889,6 +3905,742 @@ def cli_legacy_rasters(cap, smi: str, td: str, img1, img2) -> dict:
     return records
 
 
+# Phase 8 (n)'s writers: arithmetic-coded and lossless JPEG, which neither
+# Pillow nor the port's encoder writes (tests/test_torch_jpeg_codings.py
+# uses them too). Plain Python and numpy.
+
+JPEG_NATURAL = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+])
+# T.81 table D.2 (libjpeg's jaricom.c): Qe, next state after an LPS, after
+# an MPS, whether an LPS switches the MPS sense. State 113 is the fixed
+# 0.5 estimate of signs and refinement bits.
+ARITH_STATES = (
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080B, 18, 4, 0),
+    (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0), (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1), (0x3F25, 36, 16, 0),
+    (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0), (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0CEF, 43, 21, 0), (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01B1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0), (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0), (0x2EF1, 67, 40, 0),
+    (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0), (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0), (0x04DE, 50, 52, 0),
+    (0x040F, 50, 53, 0), (0x0363, 51, 54, 0), (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0),
+    (0x01F8, 54, 57, 0), (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0), (0x008F, 61, 32, 0),
+    (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0), (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0),
+    (0x2FE8, 83, 69, 0), (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0), (0x119C, 74, 76, 0),
+    (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0), (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0), (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0), (0x3C3D, 104, 100, 0),
+    (0x375E, 99, 93, 0), (0x5231, 105, 102, 0), (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415E, 103, 99, 0), (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0),
+)
+# libjpeg-turbo's jpeg_simple_progression for 3 YCbCr components, and
+# for any other count (each entry: components, Ss, Se, Ah, Al).
+PROGRESSION_YCC = (
+    ((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+    ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1), ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+    ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0))
+
+
+def simple_progression(ncomp: int) -> tuple:
+    if ncomp == 3:
+        return PROGRESSION_YCC
+    every = tuple(range(ncomp))
+    ac = [((c,), 1, 5, 0, 2) for c in every] + [((c,), 6, 63, 0, 2) for c in every] \
+        + [((c,), 1, 63, 2, 1) for c in every]
+    refine = [((c,), 1, 63, 1, 0) for c in every]
+    return ((every, 0, 0, 0, 1), *ac, (every, 0, 0, 1, 0), *refine)
+
+
+class ArithEncoder:
+    """T.81 Annex D's arithmetic (QM) encoder as libjpeg's jcarith.c codes
+    it: the C register with its spacer bits, carry over stacked 0xFF
+    bytes, and the termination that drops trailing zero bytes."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self) -> None:
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _put(self, byte: int) -> None:
+        if self.zc:
+            self.out += bytes(self.zc)
+            self.zc = 0
+        self.out.append(byte)
+        if byte == 0xFF:
+            self.out.append(0)
+
+    def _flush_stack(self) -> None:
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._put(self.buffer)
+        if self.sc:
+            if self.zc:
+                self.out += bytes(self.zc)
+                self.zc = 0
+            self.out += b"\xff\x00" * self.sc
+            self.sc = 0
+
+    def _carry(self) -> None:
+        if self.buffer >= 0:
+            self._put(self.buffer + 1)
+        self.zc += self.sc
+        self.sc = 0
+
+    def encode(self, st: bytearray, i: int, val: int) -> None:
+        sv = st[i]
+        qe, nl, nm, switch = ARITH_STATES[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ (nl | switch << 7)
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    self._carry()
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._flush_stack()
+                    self.buffer = temp
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                return
+
+    def finish(self) -> None:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            self._carry()
+        else:
+            self._flush_stack()
+        if self.c & 0x7FFF800:
+            self._put((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._put((self.c >> 11) & 0xFF)
+        self.zc = 0
+
+
+def _arith_dc(enc: ArithEncoder, st: bytearray, ctx: int, diff: int, lo: int, hi: int) -> int:
+    """One DC difference (F.1.4.1, F.1.4.4.1); the component's next
+    conditioning index."""
+    if diff == 0:
+        enc.encode(st, ctx, 0)
+        return 0
+    enc.encode(st, ctx, 1)
+    if diff > 0:
+        enc.encode(st, ctx + 1, 0)
+        i, ctx = ctx + 2, 4
+    else:
+        diff = -diff
+        enc.encode(st, ctx + 1, 1)
+        i, ctx = ctx + 3, 8
+    m, v = 0, diff - 1
+    if v:
+        enc.encode(st, i, 1)
+        m, v2, i = 1, v >> 1, 20
+        while v2:
+            enc.encode(st, i, 1)
+            m, v2, i = m << 1, v2 >> 1, i + 1
+    enc.encode(st, i, 0)
+    if m < (1 << lo) >> 1:
+        ctx = 0
+    elif m > (1 << hi) >> 1:
+        ctx += 8
+    i += 14
+    m >>= 1
+    while m:
+        enc.encode(st, i, 1 if m & v else 0)
+        m >>= 1
+    return ctx
+
+
+def _arith_ac(enc: ArithEncoder, st: bytearray, fixed: bytearray, t: list, ss: int, se: int,
+              kx: int) -> None:
+    """The band ss..se of one block's (point-transformed) zigzag values
+    (F.1.4.2, G.1.3.2)."""
+    ke = se
+    while ke >= ss and t[ke] == 0:
+        ke -= 1
+    k = ss
+    while k <= ke:
+        i = 3 * (k - 1)
+        enc.encode(st, i, 0)
+        while t[k] == 0:
+            enc.encode(st, i + 1, 0)
+            i, k = i + 3, k + 1
+        enc.encode(st, i + 1, 1)
+        v = t[k]
+        enc.encode(fixed, 0, int(v < 0))
+        v = abs(v) - 1
+        i += 2
+        m = 0
+        if v:
+            enc.encode(st, i, 1)
+            m, v2 = 1, v >> 1
+            if v2:
+                enc.encode(st, i, 1)
+                m, v2, i = 2, v2 >> 1, (189 if k <= kx else 217)
+                while v2:
+                    enc.encode(st, i, 1)
+                    m, v2, i = m << 1, v2 >> 1, i + 1
+        enc.encode(st, i, 0)
+        i += 14
+        m >>= 1
+        while m:
+            enc.encode(st, i, 1 if m & v else 0)
+            m >>= 1
+        k += 1
+    if k <= se:
+        enc.encode(st, 3 * (k - 1), 1)
+
+
+def _arith_ac_refine(enc: ArithEncoder, st: bytearray, fixed: bytearray, c: list, ss: int,
+                     se: int, ah: int, al: int) -> None:
+    """G.1.3.3: the bit al of the band's coefficients (zigzag values)."""
+    ke = se
+    while ke > 0 and abs(c[ke]) >> al == 0:
+        ke -= 1
+    kex = ke
+    while kex > 0 and abs(c[kex]) >> ah == 0:
+        kex -= 1
+    k = ss
+    while k <= ke:
+        i = 3 * (k - 1)
+        if k > kex:
+            enc.encode(st, i, 0)
+        while True:
+            v = abs(c[k]) >> al
+            if v:
+                if v >> 1:
+                    enc.encode(st, i + 2, v & 1)
+                else:
+                    enc.encode(st, i + 1, 1)
+                    enc.encode(fixed, 0, int(c[k] < 0))
+                break
+            enc.encode(st, i + 1, 0)
+            i, k = i + 3, k + 1
+        k += 1
+    if k <= se:
+        enc.encode(st, 3 * (k - 1), 1)
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def _mcu_blocks(sampling, members, width, height):
+    """Each MCU's blocks of a scan over `members` (component indices) as
+    (member, row, column) lists: the MCU grid of the frame for an
+    interleaved scan, the component's own block grid for one."""
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    if len(members) == 1:
+        c = members[0]
+        dw, dh = -(-width * sampling[c][0] // hmax), -(-height * sampling[c][1] // vmax)
+        bw, bh = -(-dw // 8), -(-dh // 8)
+        return [[(0, r, x)] for r in range(bh) for x in range(bw)]
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    out = []
+    for my in range(mcuy):
+        for mx in range(mcux):
+            out.append([(j, my * sampling[c][1] + by, mx * sampling[c][0] + bx)
+                        for j, c in enumerate(members)
+                        for by in range(sampling[c][1]) for bx in range(sampling[c][0])])
+    return out
+
+
+def arith_jpeg(coefs: list[np.ndarray], quant: np.ndarray, width: int, height: int,
+               sampling=None, ids=None, progressive: bool = False, script=None,
+               restart: int = 0, dac: dict | None = None, markers: bytes = b"") -> bytes:
+    """An arithmetic-coded JPEG (SOF9, or SOF10 when `progressive`) of the
+    quantised DCT coefficients `coefs`: per component (rows, cols, 64)
+    integers in natural order over its whole MCU grid (the blocks past the
+    image's edge are coded in interleaved scans). `quant`: (n, 64) tables
+    in natural order, component c using table min(c, 1); `sampling`: (h,
+    v) per component (1x1 each by default); `ids`: the component ids (1,
+    2, ...); `script`: the scans as (components, Ss, Se, Ah, Al)
+    (sequential: one interleaved scan; progressive: simple_progression);
+    `restart`: the DRI interval in MCUs; `dac`: {scan index: [(class,
+    table, value)]}, a DAC segment before that scan's SOS (class 0: the DC
+    table's L | U << 4, 1: the AC table's K); `markers`: segments written
+    after SOI (APP0, APP1, APP14). Component c codes with DC/AC table
+    min(c, 1), as libjpeg assigns them."""
+    n = len(coefs)
+    sampling = sampling or [(1, 1)] * n
+    ids = ids or list(range(1, n + 1))
+    if script is None:
+        script = simple_progression(n) if progressive else ((tuple(range(n)), 0, 63, 0, 0),)
+    zz = [c.reshape(c.shape[0], c.shape[1], 64)[:, :, JPEG_NATURAL].tolist() for c in coefs]
+    tables = sorted({min(c, 1) for c in range(n)})
+    out = bytearray(b"\xff\xd8" + markers)
+    for t in tables:
+        out += _segment(0xDB, bytes([t]) + quant[t][JPEG_NATURAL].astype(np.uint8).tobytes())
+    out += _segment(0xCA if progressive else 0xC9, struct.pack(">BHHB", 8, height, width, n) + b"".join(
+        bytes([ids[c], sampling[c][0] << 4 | sampling[c][1], min(c, 1)]) for c in range(n)))
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    cond_l, cond_u, cond_k = [0] * 16, [1] * 16, [5] * 16
+    for s, (members, ss, se, ah, al) in enumerate(script):
+        for cls, tb, value in (dac or {}).get(s, []):
+            if cls:
+                cond_k[tb] = value
+            else:
+                cond_l[tb], cond_u[tb] = value & 15, value >> 4
+        if (dac or {}).get(s):
+            out += _segment(0xCC, b"".join(bytes([cls << 4 | tb, value])
+                                           for cls, tb, value in dac[s]))
+        dc_scan = not progressive or (ss == 0 and ah == 0)
+        ac_scan = not progressive or ss > 0
+        out += _segment(0xDA, bytes([len(members)]) + b"".join(
+            bytes([ids[c], (min(c, 1) << 4 if dc_scan else 0) | (min(c, 1) if ac_scan else 0)])
+            for c in members) + bytes([ss, se, ah << 4 | al]))
+        enc = ArithEncoder()
+        fixed = bytearray([113])
+        mcus = _mcu_blocks(sampling, members, width, height)
+
+        def reset():
+            stats = ({t: bytearray(64) for t in tables}, {t: bytearray(256) for t in tables})
+            return stats, [0] * len(members), [0] * len(members)
+
+        (dc_st, ac_st), last, ctx = reset()
+        for m, blocks in enumerate(mcus):
+            if restart and m and m % restart == 0:
+                enc.finish()
+                enc.out += bytes([0xFF, 0xD0 + (m // restart - 1) % 8])
+                enc.reset()
+                (dc_st, ac_st), last, ctx = reset()
+            for j, r, x in blocks:
+                c = members[j]
+                t = min(c, 1)
+                blk = zz[c][r][x]
+                if not progressive or (ss == 0 and ah == 0):
+                    dc = blk[0] >> al
+                    ctx[j] = _arith_dc(enc, dc_st[t], ctx[j], dc - last[j], cond_l[t], cond_u[t])
+                    last[j] = dc
+                    if not progressive:
+                        _arith_ac(enc, ac_st[t], fixed, blk, 1, 63, cond_k[t])
+                elif ss == 0:
+                    enc.encode(fixed, 0, (blk[0] >> al) & 1)
+                elif ah == 0:
+                    band = [0] * ss + [(v >> al if v >= 0 else -(-v >> al)) for v in blk[ss : se + 1]]
+                    _arith_ac(enc, ac_st[t], fixed, band, ss, se, cond_k[t])
+                else:
+                    _arith_ac_refine(enc, ac_st[t], fixed, blk, ss, se, ah, al)
+        enc.finish()
+        out += enc.out
+    return bytes(out + b"\xff\xd9")
+
+
+def dct_coefficients(planes: list[np.ndarray], quant: np.ndarray, sampling, width: int,
+                     height: int) -> list[np.ndarray]:
+    """Quantised DCT coefficients (rows, cols, 64), natural order, of each
+    plane (uint8, already at its component's resolution) over its whole
+    MCU grid: edge samples repeated to the grid, a DCT in integers (the
+    basis scaled by 2^13 and rounded, so that every machine computes the
+    same file), each coefficient rounded to the nearest multiple of the
+    component's table (min(c, 1))."""
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    x = np.arange(8)
+    basis = np.cos((2 * x[None, :] + 1) * x[:, None] * np.pi / 16) / 2
+    basis[0] /= np.sqrt(2)
+    basis = np.round(basis * (1 << 13)).astype(np.int64)
+    out = []
+    for c, p in enumerate(planes):
+        h, v = sampling[c]
+        rows, cols = mcuy * v * 8, mcux * h * 8
+        full = np.pad(p.astype(np.int64), ((0, rows - p.shape[0]), (0, cols - p.shape[1])),
+                      mode="edge") - 128
+        blocks = full.reshape(rows // 8, 8, cols // 8, 8).transpose(0, 2, 1, 3)
+        d = np.einsum("ux,abxy,vy->abuv", basis, blocks, basis)  # exact in int64
+        q = quant[min(c, 1)].reshape(8, 8).astype(np.int64) << 26
+        out.append(((2 * d + q) // (2 * q)).reshape(rows // 8, cols // 8, 64))
+    return out
+
+
+def ycbcr_planes(rgb: np.ndarray, sampling) -> list[np.ndarray]:
+    """Y, Cb, Cr of (H, W, 3) RGB in jccolor.c's fixed point (16 bits),
+    each averaged down to its component's resolution (the mean of
+    hmax/h x vmax/v samples, edge samples repeated, rounded half up)."""
+    f = rgb.astype(np.int64)
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+    half = 1 << 15
+    planes = [(19595 * r + 38470 * g + 7471 * b + half) >> 16,
+              (-11059 * r - 21709 * g + 32768 * b + (128 << 16) + half - 1) >> 16,
+              (32768 * r - 27439 * g - 5329 * b + (128 << 16) + half - 1) >> 16]
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    out = []
+    for c, p in enumerate(planes):
+        fx, fy = hmax // sampling[c][0], vmax // sampling[c][1]
+        hh, ww = -(-p.shape[0] // fy) * fy, -(-p.shape[1] // fx) * fx
+        p = np.pad(p, ((0, hh - p.shape[0]), (0, ww - p.shape[1])), mode="edge")
+        total = p.reshape(hh // fy, fy, ww // fx, fx).sum(axis=(1, 3))
+        out.append(((2 * total + fx * fy) // (2 * fx * fy)).astype(np.uint8))
+    return out
+
+
+def _huffman_code_lengths(freq: list[int]) -> tuple[list[int], list[int]]:
+    """(16 code counts, symbols) of jchuff.c jpeg_gen_optimal_table: a
+    Huffman code for the symbols of nonzero `freq` (256 entries), no code
+    longer than 16 bits, none all ones."""
+    freq = list(freq) + [1]
+    size, others = [0] * 257, [-1] * 257
+    while True:
+        live = [i for i in range(257) if freq[i]]
+        c1 = max(live, key=lambda i: (-freq[i], i))
+        rest = [i for i in live if i != c1]
+        if not rest:
+            break
+        c2 = max(rest, key=lambda i: (-freq[i], i))
+        freq[c1] += freq[c2]
+        freq[c2] = 0
+        for c in (c1, c2):
+            size[c] += 1
+            while others[c] >= 0:
+                c = others[c]
+                size[c] += 1
+        c = c1
+        while others[c] >= 0:
+            c = others[c]
+        others[c] = c2
+    bits = [0] * 33
+    for s in size:
+        if s:
+            bits[s] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1
+    symbols = [s for length in range(1, 33) for s in range(256) if size[s] == length]
+    return bits[1:17], symbols
+
+
+def _huffman_codes(counts: list[int], symbols: list[int]) -> dict[int, tuple[int, int]]:
+    codes, code, k = {}, 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            codes[symbols[k]] = (code, length)
+            code, k = code + 1, k + 1
+        code <<= 1
+    return codes
+
+
+# T.81 table K.3, the luminance DC code lengths, with the categories past
+# 11 that 8-bit lossless differences need (up to 16) given 16-bit codes.
+LOSSLESS_STD_HUFF = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 5], list(range(17)))
+
+
+def _pack_bits(values: np.ndarray, lengths: np.ndarray) -> bytes:
+    """MSB-first bits of `values` (each `lengths` bits), padded with 1
+    bits to a byte, 0xFF bytes stuffed with 0x00."""
+    lengths = lengths.astype(np.int64)
+    total = int(lengths.sum())
+    starts = np.cumsum(lengths) - lengths
+    within = np.arange(total) - np.repeat(starts, lengths)
+    bits = (np.repeat(values.astype(np.int64), lengths)
+            >> (np.repeat(lengths, lengths) - 1 - within)) & 1
+    bits = np.concatenate([bits, np.ones(-total % 8, np.int64)]).astype(np.uint8)
+    return np.packbits(bits).tobytes().replace(b"\xff", b"\xff\x00")
+
+
+def lossless_jpeg(planes: list[np.ndarray], predictor: int = 1, pt: int = 0,
+                  restart_rows: int = 0, interleaved: bool = True, optimal: bool = True,
+                  ids=None, markers: bytes = b"", sampling=None) -> bytes:
+    """A lossless JPEG (SOF3, T.81 Annex H, 8-bit) of `planes` (uint8,
+    each at its component's resolution under `sampling`): predictor 1-7,
+    point transform `pt`, a restart every `restart_rows` MCU rows (the
+    DRI interval is that many rows of MCUs), one interleaved scan or one
+    scan per component, Huffman tables optimised per scan (jchuff.c's
+    way) or LOSSLESS_STD_HUFF. Component c codes with table min(c, 1)."""
+    n = len(planes)
+    sampling = sampling or [(1, 1)] * n
+    ids = ids or list(range(1, n + 1))
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    height = max(p.shape[0] * vmax // sampling[c][1] for c, p in enumerate(planes))
+    width = max(p.shape[1] * hmax // sampling[c][0] for c, p in enumerate(planes))
+    out = bytearray(b"\xff\xd8" + markers)
+    out += _segment(0xC3, struct.pack(">BHHB", 8, height, width, n) + b"".join(
+        bytes([ids[c], sampling[c][0] << 4 | sampling[c][1], 0]) for c in range(n)))
+    scans = [tuple(range(n))] if interleaved else [(c,) for c in range(n)]
+    for members in scans:
+        single = len(members) == 1
+        mcu_w = 1 if single else hmax
+        mcu_h = 1 if single else vmax
+        ref = planes[members[0]]
+        mcux = ref.shape[1] if single else -(-width // hmax)
+        mcuy = ref.shape[0] if single else -(-height // vmax)
+        # Differences of each component over its MCU-padded grid (padded
+        # samples repeat the edge, as libjpeg's encoder pads them).
+        diffs = []
+        for c in members:
+            h, v = (1, 1) if single else sampling[c]
+            p = planes[c].astype(np.int64) >> pt
+            p = np.pad(p, ((0, mcuy * v - p.shape[0]), (0, mcux * h - p.shape[1])), mode="edge")
+            ra = np.pad(p, ((0, 0), (1, 0)))[:, :-1]
+            rb = np.pad(p, ((1, 0), (0, 0)))[:-1]
+            rc = np.pad(p, ((1, 0), (1, 0)))[:-1, :-1]
+            pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                    6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor].copy()
+            pred[:, 0] = rb[:, 0]
+            first = np.zeros(p.shape[0], bool)
+            rows_per = restart_rows * v if restart_rows else p.shape[0]
+            first[::rows_per] = True
+            pred[first] = ra[first]
+            pred[first, 0] = 1 << (7 - pt)
+            d = (p - pred) & 0xFFFF
+            diffs.append(np.where(d >= 0x8000, d - 0x10000, d))
+        # MCU order: each MCU row, each MCU, each member's h x v samples.
+        order_vals, order_comp = [], []
+        for j, c in enumerate(members):
+            h, v = (1, 1) if single else sampling[c]
+            d = diffs[j].reshape(mcuy, v, mcux, h).transpose(0, 2, 1, 3).reshape(mcuy, mcux, v * h)
+            order_vals.append(d)
+            order_comp.append(np.full(d.shape, j))
+        vals = np.concatenate(order_vals, axis=2).reshape(mcuy, -1)
+        comp = np.concatenate(order_comp, axis=2).reshape(mcuy, -1)
+        mag = np.abs(vals)
+        cat = np.where(mag == 0, 0, np.floor(np.log2(np.maximum(mag, 1))).astype(np.int64) + 1)
+        cat = np.where(vals == -0x8000, 16, cat)
+        extra = np.where(vals > 0, vals, vals + (1 << cat) - 1) & ((1 << cat) - 1)
+        extra_len = np.where(cat == 16, 0, cat)
+        specs = {}
+        for t in sorted({min(c, 1) for c in members}):
+            mask = np.isin(comp, [j for j, c in enumerate(members) if min(c, 1) == t])
+            if optimal:
+                freq = np.bincount(cat[mask], minlength=256)[:256].tolist()
+                specs[t] = _huffman_code_lengths(freq)
+            else:
+                specs[t] = LOSSLESS_STD_HUFF
+            counts, symbols = specs[t]
+            out += _segment(0xC4, bytes([t]) + bytes(counts) + bytes(symbols))
+        if restart_rows:
+            out += _segment(0xDD, struct.pack(">H", restart_rows * mcux))
+        out += _segment(0xDA, bytes([len(members)]) + b"".join(
+            bytes([ids[c], min(c, 1) << 4]) for c in members) + bytes([predictor, 0, pt]))
+        code_of = {t: _huffman_codes(*spec) for t, spec in specs.items()}
+        table_of = np.array([min(c, 1) for c in members])[comp]
+        code = np.zeros(cat.shape, np.int64)
+        clen = np.zeros(cat.shape, np.int64)
+        for t, codes in code_of.items():
+            for s, (cv, cl) in codes.items():
+                sel = (table_of == t) & (cat == s)
+                code[sel], clen[sel] = cv, cl
+        rows_per = restart_rows or mcuy
+        for k, y in enumerate(range(0, mcuy, rows_per)):
+            if k:
+                out += bytes([0xFF, 0xD0 + (k - 1) % 8])
+            seg = slice(y, y + rows_per)
+            v = np.stack([code[seg], extra[seg]], -1).reshape(-1)
+            ln = np.stack([clen[seg], extra_len[seg]], -1).reshape(-1)
+            out += _pack_bits(v, ln)
+    return bytes(out + b"\xff\xd9")
+
+
+JPEG_CODING_QUALITY = 90  # phase 8 (n)'s DCT files: libjpeg's tables at this quality
+
+
+def exif_app1(focal: int) -> bytes:
+    """An APP1 segment: "Exif\\0\\0" and exif_focal_block(focal)."""
+    body = b"Exif\0\0" + exif_focal_block(focal)
+    return b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
+
+
+def jpeg_coding_files(td: str, img1, img2) -> dict[str, list[str]]:
+    """Phase 8 (n)'s inputs, written by arith_jpeg and lossless_jpeg:
+    phase 3's pair as arithmetic-coded sequential JPEGs (the second with a
+    restart interval of 128 MCUs) and as lossless ones (predictors 4 and
+    7, the second with a restart every 16 rows); BASELINE #3's views
+    (tint) as arithmetic-coded progressive 4:2:0 JPEGs with EXIF 41989 =
+    43; and, decoded only, the first view as an arithmetic progressive
+    file without its refinements to bit 0 (block smoothing), as a
+    lossless RGB file with a restart every 8 rows (predictor 5), as an
+    arithmetic progressive file with DAC segments before its first and
+    sixth scans, and two files Pillow refuses: 12-bit (a lossless file's
+    precision rewritten) and arithmetic-coded lossless (SOF11).
+    tests/gen_torch_formats_fixture.py writes the same files and commits
+    the SHA-256 of Pillow's planes of the ones it reads ("jpeg codings")."""
+    from cybervision_tpu_torch.imageio.jpeg_encode import quant_tables
+
+    quant = quant_tables(JPEG_CODING_QUALITY)
+    jfif = b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+    views, _, _, _ = render_perspective(PERSP_W, PERSP_H, PERSP_CAMS[:1], exact_focal=True)
+    ycc = [(2, 2), (1, 1), (1, 1)]
+
+    def arith_rgb(rgb, **opts):
+        h, w = rgb.shape[:2]
+        coefs = dct_coefficients(ycbcr_planes(rgb, ycc), quant, ycc, w, h)
+        return arith_jpeg(coefs, quant, w, h, ycc, progressive=True, **opts)
+
+    blobs = {}
+    for k, img in enumerate((img1, img2)):
+        coefs = dct_coefficients([img], quant, [(1, 1)], img.shape[1], img.shape[0])
+        blobs[("arith", f"arith_{k}.jpg")] = arith_jpeg(
+            coefs, quant, img.shape[1], img.shape[0], restart=128 * k, markers=jfif)
+        blobs[("lossless", f"lossless_{k}.jpg")] = lossless_jpeg([img], (4, 7)[k], 0, 16 * k)
+    for k, view in enumerate(views):
+        blobs[("arith progressive", f"arith_view_{k}.jpg")] = arith_rgb(
+            tint(view), markers=jfif + exif_app1(PERSP_FOCAL_35MM))
+    rgb = tint(views[0])
+    lossless_rgb = lossless_jpeg([rgb[:, :, c] for c in range(3)], 5, 0, 8)
+    twelve = bytearray(lossless_rgb)
+    twelve[twelve.find(b"\xff\xc3") + 4] = 12
+    sof11 = bytearray(lossless_rgb)
+    sof11[sof11.find(b"\xff\xc3") + 1] = 0xCB
+    for name, data in (
+            ("smoothed.jpg", arith_rgb(rgb, markers=jfif, script=PROGRESSION_YCC[:7])),
+            ("lossless_rgb.jpg", lossless_rgb),
+            ("dac.jpg", arith_rgb(rgb, markers=jfif, dac={
+                0: [(0, 0, 0x31), (0, 1, 0x52)], 5: [(1, 0, 20), (1, 1, 2)]}))):
+        blobs[("decode only", name)] = data
+    blobs[("refused", "12bit.jpg")] = bytes(twelve)
+    blobs[("refused", "sof11.jpg")] = bytes(sof11)
+    files: dict[str, list[str]] = {}
+    for (kind, name), data in blobs.items():
+        files.setdefault(kind, []).append(os.path.join(td, name))
+        with open(files[kind][-1], "wb") as fh:
+            fh.write(data)
+    return files
+
+
+def cli_jpeg_codings(cap, smi: str, td: str, img1, img2) -> dict:
+    """Phase 8 (n), with every import of Pillow blocked (_NoPillow):
+    jpeg_coding_files' pairs through cli.main. The arithmetic pair -> PLY,
+    equal to reconstruct's on the decoded planes; the arithmetic
+    progressive views -> OBJ with no --focal-length (the 43 mm K from
+    their EXIF), with cli_exif_jpeg_pair's gates; the lossless pair ->
+    PLY, byte-equal to reconstruct's on the arrays (its planes are the
+    arrays). Every plane of a file Pillow reads has the committed SHA-256
+    of Pillow's ("jpeg codings"; the arithmetic pair's with Pillow's read
+    block raised to the file, since Pillow fails on arithmetic data past
+    its first 64 KiB); the decode-only files are timed; the 12-bit and
+    SOF11 files raise an ImageError without "yet"."""
+    from cybervision_tpu_torch.config import MeshMode, ProjectionMode, ReconstructionConfig
+    from cybervision_tpu_torch.errors import ImageError
+    from cybervision_tpu_torch.images import SourceImage
+    from cybervision_tpu_torch.reconstruction import reconstruct
+
+    with open(FORMATS_SHA256) as fh:
+        committed = json.load(fh)["jpeg codings"]
+    t_phase = t0 = time.perf_counter()
+    files = jpeg_coding_files(td, img1, img2)
+    written = time.perf_counter() - t0
+    records = {}
+
+    def same_as_pillow(src, path, rgb_plane=None):
+        want = committed[os.path.basename(path)]
+        rgb_plane = src.load_rgb_plane() if rgb_plane is None else rgb_plane
+        return _plane_sha(src.img) == want["l"] and _plane_sha(rgb_plane) == want["rgb"]
+
+    with _NoPillow():
+        srcs = {kind: [SourceImage.load(p) for p in files[kind]]
+                for kind in ("arith", "arith progressive", "lossless")}
+        hashes = {kind: all(same_as_pillow(s, p) for s, p in zip(srcs[kind], files[kind]))
+                  for kind in ("arith", "arith progressive")}
+        exact = all(np.array_equal(s.img, im) for s, im in zip(srcs["lossless"], (img1, img2)))
+        print(f"(n) files written in {written:.2f} s"
+              f" ({[os.path.getsize(p) for ps in files.values() for p in ps]} bytes); planes equal"
+              f" to Pillow's (SHA-256) {hashes}; lossless gray planes equal to the arrays {exact}")
+        if not all(hashes.values()) or not exact:
+            raise AssertionError("(n): the decoded planes are not Pillow's")
+
+        aff = ReconstructionConfig(projection=ProjectionMode.AFFINE, mesh=MeshMode.VERTEX_COLORS)
+        for kind, run_name, arrays in (("arith", "arith ply", [s.img for s in srcs["arith"]]),
+                                       ("lossless", "lossless ply", [img1, img2])):
+            label = f"(n) {kind} JPEG pair {SIZE}x{SIZE} -> PLY"
+            ref_ply, out = os.path.join(td, f"mem_{kind}.ply"), os.path.join(td, f"{kind}.ply")
+            reconstruct(["a", "b"], ref_ply, aff, quiet=True,
+                        images=[SourceImage(im) for im in arrays])
+            run = cap.main(["--projection=parallel", "--mesh=vertex-colors", *files[kind], out])
+            records[run_name] = cli_record(f"(n) {kind} JPEG", run["seconds"], run["rec"].phases,
+                                           run["decode"], run["launches"], smi)
+            same = _sha(out) == _sha(ref_ply)
+            print(f"{label}: PLY equal to the in-memory run's"
+                  f" ({'the arrays' if kind == 'lossless' else 'the decoded planes'}) {same}")
+            if not same:
+                raise AssertionError(f"{label}: the PLY differs from the in-memory run's")
+
+        records["arith progressive obj"] = cli_exif_jpeg_pair(
+            cap, smi, td, "(n) arithmetic progressive pair",
+            f"(n) arithmetic progressive pair {PERSP_W}x{PERSP_H} -> OBJ",
+            files["arith progressive"], srcs["arith progressive"],
+            {"planes equal to Pillow's (SHA-256)": hashes["arith progressive"]},
+            (PERSP_W, PERSP_H))
+
+        decode, ok = {}, {}
+        for p in files["decode only"]:
+            t0 = time.perf_counter()
+            s = SourceImage.load(p)
+            rgb_plane = s.load_rgb_plane()
+            decode[os.path.basename(p)] = time.perf_counter() - t0
+            ok[os.path.basename(p)] = same_as_pillow(s, p, rgb_plane)
+        refused = {}
+        for p in files["refused"]:
+            try:
+                SourceImage.load(p).load_rgb_plane()
+                refused[os.path.basename(p)] = "read"
+            except ImageError as err:
+                refused[os.path.basename(p)] = f"{type(err).__name__}: {err}"
+        print(f"(n) decoded only: planes equal to Pillow's (SHA-256) {ok}; decode seconds"
+              f" {json.dumps({k: round(v, 4) for k, v in decode.items()})}; refused {refused}")
+        if not all(ok.values()):
+            raise AssertionError("(n): the decode-only planes are not Pillow's")
+        if any(r == "read" or "yet" in r for r in refused.values()):
+            raise AssertionError("(n): a file Pillow refuses was read, or refused as a gap")
+        pil = any(m == "PIL" or m.startswith("PIL.") for m in sys.modules)
+    print(f"(n) Pillow imported during the runs {pil}; (n) took"
+          f" {time.perf_counter() - t_phase:.1f} s")
+    if pil:
+        raise AssertionError("(n): Pillow was imported")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -4100,7 +4852,9 @@ def main() -> int:
           f" LZMA TIFF, DIB, zstd TIFF and text-EXIF PNG pairs"
           f" {[round(cli_files[k]['seconds'], 4) for k in ('lzma tiff ply', 'dib png', 'zstd tiff obj', 'text exif png obj')]} s;"
           f" Sun raster and IM pairs"
-          f" {[round(cli_files[k]['seconds'], 4) for k in ('sun ply', 'im obj')]} s")
+          f" {[round(cli_files[k]['seconds'], 4) for k in ('sun ply', 'im obj')]} s;"
+          f" arithmetic, arithmetic progressive and lossless JPEG pairs"
+          f" {[round(cli_files[k]['seconds'], 4) for k in ('arith ply', 'arith progressive obj', 'lossless ply')]} s")
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

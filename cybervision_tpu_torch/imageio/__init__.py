@@ -273,11 +273,11 @@ def identify(data: bytes, metadata_only: bool = False) -> tuple[str, object]:
             continue
         if isinstance(target, tuple):
             raise UnsupportedImageError(f"{target[0]} is not supported: {target[1]}")
-        if target == "JPEG":
-            return target, jpeg.parse(data, metadata_only=metadata_only)
-        if target not in _PARSERS:
+        if target not in _PARSERS and target != "JPEG":
             raise UnsupportedImageError(f"{target} is not supported yet")
         try:
+            if target == "JPEG":
+                return target, jpeg.parse(data, metadata_only=metadata_only)
             return target, _PARSERS[target](data)
         except NotThisFormat:
             continue

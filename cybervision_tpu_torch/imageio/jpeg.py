@@ -1,23 +1,26 @@
 """JPEG container: SOI, APPn (APP0 JFIF, APP1 Exif, APP14 Adobe), DQT,
-DHT, SOF0/SOF1/SOF2, DRI, SOS with its entropy-coded segment and the RSTn
-markers inside it, EOI. The native library decodes the scans
+DHT, DAC, SOF0-SOF3, SOF9, SOF10, DRI, SOS with its entropy-coded segment
+and the RSTn markers inside it, EOI. The native library decodes the scans
 (native/imagedecode.cpp); without it a JPEG cannot be read.
 
 Metadata follows Pillow's reader: the markers before the first SOS; the
 EXIF block is the first APP1 "Exif\\0\\0" payload with every later one's
-appended after its prefix. Pixels follow libjpeg's defaults for
-sequential and progressive Huffman files of 1 component ("L"), 3 ("RGB":
-YCbCr converted unless an Adobe marker without JFIF says the file stores
-RGB, or the component ids spell R, G, B) or 4 ("CMYK": YCCK converted
-when the Adobe marker's transform is not 0, then inverted as Pillow's
-"CMYK;I" raw mode reads every 4-component JPEG).
+appended after its prefix. A frame of another precision than 8 bits, or
+of 2 or more than 4 components, fails Pillow's open (SyntaxError), so
+Pillow tries its other plugins: parse raises NotThisFormat. Pixels follow
+libjpeg-turbo's defaults for sequential, progressive and lossless files,
+Huffman or arithmetic coded, of 1 component ("L"), 3 ("RGB": YCbCr
+converted unless an Adobe marker without JFIF says the file stores RGB,
+or the component ids spell R, G, B, or the file is lossless without
+either marker) or 4 ("CMYK": YCCK converted when the Adobe marker's
+transform is not 0, then inverted as Pillow's "CMYK;I" raw mode reads
+every 4-component JPEG). A progressive file whose last scans leave some of
+the first ten coefficients of a component unrefined is decoded with
+libjpeg-turbo's block smoothing (jdcoefct.c smoothing_ok).
 
-A progressive file whose last scan leaves one of the first ten
-coefficients of a component unrefined is decoded by libjpeg with block
-smoothing (jdcoefct.c smoothing_ok); the port refuses it with
-UnsupportedImageError, as it refuses arithmetic-coded, 12-bit, lossless
-and hierarchical files. Complete progressive files, which encoders and
-Pillow write, need no smoothing.
+libjpeg-turbo refuses hierarchical (SOF5-SOF7, SOF13-SOF15) and
+arithmetic-coded lossless (SOF11) files, and lossless files it would have
+to convert from YCbCr or YCCK; so does the port (UnsupportedImageError).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 
 from cybervision_tpu_torch.imageio.errors import (
     CorruptImageError,
+    NotThisFormat,
     TruncatedImageError,
     UnsupportedImageError,
     native_missing,
@@ -47,8 +51,12 @@ _NATURAL = np.array([
 # starting a restart marker.
 _SEGMENT_END = re.compile(rb"\xff(?![\x00\xd0-\xd7])")
 _HUFF_SPEC = 16 + 256
-_SOF_KINDS = {0xC3: "lossless", 0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
-              0xCB: "arithmetic-coded lossless"}
+# Frame markers: (progressive, arithmetic, lossless) of the ones read.
+_CODINGS = {0xC0: (False, False, False), 0xC1: (False, False, False), 0xC2: (True, False, False),
+            0xC3: (False, False, True), 0xC9: (False, True, False), 0xCA: (True, True, False)}
+_SOF_MARKERS = (0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF)
+# libjpeg's defaults of the arithmetic conditioning (DAC) at SOI: L, U, Kx.
+_DAC_DEFAULT = np.concatenate([np.zeros(16), np.ones(16), np.full(16, 5)]).astype(np.uint8)
 
 
 @dataclasses.dataclass
@@ -62,10 +70,16 @@ class JpegFile:
     progressive: bool
     # Each scan: (segment offset, segment length, restart interval,
     # [(component index, dc table, ac table)], Huffman tables (8, 272),
-    # (Ss, Se, Ah, Al)).
+    # (Ss, Se, Ah, Al), arithmetic conditioning (48,): L, U, Kx of tables
+    # 0-15). A lossless scan's Ss is its predictor, Al its point transform.
     scans: list
     quant: np.ndarray  # (n components, 64) uint16, natural order
     needs_smoothing: bool = False
+    arithmetic: bool = False
+    lossless: bool = False
+    # Per component, the bits still unsent of zigzag coefficients 0-9
+    # after the last scan (-1: never sent), what smoothing reads.
+    coef_bits: np.ndarray | None = None
 
     @property
     def mode(self) -> str:
@@ -93,8 +107,9 @@ def parse(data: bytes, metadata_only: bool = False) -> JpegFile:
     jfif = adobe = False
     transform = 1
     restart = 0
-    progressive = False
+    progressive = arithmetic = lossless = False
     coef_bits = None
+    dac = _DAC_DEFAULT.copy()
     qt: dict[int, np.ndarray] = {}
     huff = np.zeros((8, _HUFF_SPEC), np.uint8)
     latched: dict[int, np.ndarray] = {}
@@ -154,22 +169,41 @@ def parse(data: bytes, metadata_only: bool = False) -> JpegFile:
             if len(body) < 2:
                 raise CorruptImageError("bad DRI segment")
             (restart,) = struct.unpack_from(">H", body)
-        elif marker in (0xC0, 0xC1, 0xC2):  # sequential, progressive
+        elif marker == 0xCC:  # DAC
+            if len(body) % 2:
+                raise CorruptImageError("bad DAC segment")
+            for index, value in zip(body[0::2], body[1::2]):
+                if index >= 32:
+                    raise CorruptImageError("bad DAC segment")
+                if index >= 16:
+                    dac[32 + index - 16] = value
+                elif value & 15 > value >> 4:
+                    raise CorruptImageError("bad DAC segment: L above U")
+                else:
+                    dac[index], dac[16 + index] = value & 15, value >> 4
+        elif marker in _SOF_MARKERS:
+            # Pillow's SOF handler: another precision or layer count fails
+            # its open, and Image.open goes on to the next plugin.
+            if not body or body[0] != 8:
+                raise NotThisFormat(f"cannot handle {body[0] if body else '?'}-bit layers")
+            if len(body) < 6 or body[5] not in (1, 3, 4):
+                raise NotThisFormat(f"cannot handle {body[5] if len(body) > 5 else '?'}-layer images")
             if frame is not None:
                 raise CorruptImageError("JPEG with two frames")
-            if len(body) < 6 or body[0] != 8:
-                raise UnsupportedImageError(f"{body[0] if body else '?'}-bit JPEG is not supported yet")
             height, width, n = struct.unpack_from(">HHB", body, 1)
-            if len(body) < 6 + 3 * n or n == 0:
+            if len(body) < 6 + 3 * n:
                 raise CorruptImageError("bad SOF segment")
             frame = (width, height,
                      [(body[6 + 3 * i], body[7 + 3 * i] >> 4, body[7 + 3 * i] & 15,
                        body[8 + 3 * i]) for i in range(n)])
-            progressive = marker == 0xC2
+            if marker not in _CODINGS and not metadata_only:
+                # Pillow opens the file; libjpeg-turbo fails on it at load.
+                kind = "arithmetic-coded lossless" if marker == 0xCB else "hierarchical"
+                raise UnsupportedImageError(
+                    f"{kind} JPEG (SOF{marker - 0xC0}) is not supported: libjpeg-turbo, which"
+                    " Pillow decodes with, does not decode it either")
+            progressive, arithmetic, lossless = _CODINGS.get(marker, (False, False, False))
             coef_bits = np.full((n, 64), -1, np.int64)
-        elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            raise UnsupportedImageError(f"{_SOF_KINDS.get(marker, 'hierarchical')} JPEG"
-                                        f" (SOF{marker - 0xC0}) is not supported yet")
         elif marker == 0xDA:  # SOS
             if frame is None:
                 raise CorruptImageError("JPEG scan before its frame")
@@ -186,14 +220,20 @@ def parse(data: bytes, metadata_only: bool = False) -> JpegFile:
                     raise CorruptImageError("JPEG scan of an unknown component")
                 ci = ids.index(cid)
                 members.append((ci, tables >> 4, tables & 15))
-                if ci not in latched:
+                if ci not in latched and not lossless:  # lossless files have no DQT
                     tq = frame[2][ci][3]
                     if tq not in qt:
                         raise CorruptImageError(f"JPEG quantisation table {tq} is not defined")
                     latched[ci] = qt[tq].copy()
             ss, se, a = body[1 + 2 * ns : 4 + 2 * ns]
             ah, al = a >> 4, a & 15
-            if progressive:
+            if lossless:
+                # jdlossls.c start_pass_lossless: a predictor 1-7, Pt below
+                # the precision.
+                if not 1 <= ss <= 7 or se or ah or al >= 8:
+                    raise CorruptImageError(
+                        f"bad lossless JPEG scan (Ss {ss}, Se {se}, Ah {ah}, Al {al})")
+            elif progressive:
                 _check_progression(ss, se, ah, al, ns)
                 for ci, _, _ in members:
                     coef_bits[ci, ss : se + 1] = al
@@ -204,21 +244,22 @@ def parse(data: bytes, metadata_only: bool = False) -> JpegFile:
             m = _SEGMENT_END.search(data, pos)
             if m is None:
                 raise TruncatedImageError("JPEG image data is truncated")
-            scans.append((pos, m.start() - pos, restart, members, huff.copy(), (ss, se, ah, al)))
+            scans.append((pos, m.start() - pos, restart, members, huff.copy(), (ss, se, ah, al),
+                          dac.copy()))
             pos = m.start()
         # COM and the other segments: skipped.
     if frame is None:
         raise CorruptImageError("JPEG without a frame")
     width, height, comps = frame
-    if len(comps) not in (1, 3, 4):
-        raise UnsupportedImageError(f"{len(comps)}-component JPEG is not supported yet")
     if len(comps) == 3:
         if jfif:
             color = 1
         elif adobe:
             color = int(transform != 0)
         else:
-            color = int([c[0] for c in comps] != [82, 71, 66])
+            # jdapimin.c: unknown ids are YCbCr in a DCT file, RGB in a
+            # lossless one.
+            color = int([c[0] for c in comps] != [82, 71, 66] and not lossless)
     elif len(comps) == 4:
         # jdapimin.c: Adobe transform 0 is CMYK, any other YCCK; no Adobe
         # marker, CMYK.
@@ -227,7 +268,8 @@ def parse(data: bytes, metadata_only: bool = False) -> JpegFile:
         color = 0
     quant = np.stack([latched.get(i, np.zeros(64, np.uint16)) for i in range(len(comps))])
     smoothing = bool(scans) and progressive and _smoothing_ok(coef_bits, quant)
-    return JpegFile(data, exif, width, height, comps, color, progressive, scans, quant, smoothing)
+    return JpegFile(data, exif, width, height, comps, color, progressive, scans, quant, smoothing,
+                    arithmetic, lossless, coef_bits[:, :10])
 
 
 def _check_progression(ss: int, se: int, ah: int, al: int, ns: int) -> None:
@@ -264,20 +306,25 @@ def decode(jpg: JpegFile, native) -> tuple[str, np.ndarray, None]:
         raise CorruptImageError("JPEG without a scan")
     if {ci for scan in jpg.scans for ci, _, _ in scan[3]} != set(range(len(jpg.components))):
         raise TruncatedImageError("JPEG whose scans leave a component out")
-    if jpg.needs_smoothing:
+    if jpg.lossless and jpg.color:
         raise UnsupportedImageError(
-            "progressive JPEG whose scans leave low-frequency coefficients unrefined: libjpeg"
-            " decodes it with block smoothing, which is not supported yet")
-    frame = [jpg.width, jpg.height, len(jpg.components), jpg.color, int(jpg.progressive)]
+            f"lossless JPEG in {'YCbCr' if jpg.color == 1 else 'YCCK'} is not supported:"
+            " libjpeg-turbo, which Pillow decodes with, converts no colour space of a lossless"
+            " file")
+    coding = (int(jpg.progressive) | 2 * int(jpg.arithmetic) | 4 * int(jpg.lossless)
+              | 8 * int(jpg.needs_smoothing))
+    frame = [jpg.width, jpg.height, len(jpg.components), jpg.color, coding]
     for _, h, v, _ in jpg.components:
         frame += [h, v]
+    frame += jpg.coef_bits.reshape(-1).tolist()
     scans = np.zeros((len(jpg.scans), 20), np.int32)
-    for s, (off, n, ri, members, _, band) in enumerate(jpg.scans):
+    for s, (off, n, ri, members, _, band, _) in enumerate(jpg.scans):
         scans[s, :8] = (off, n, ri, len(members), *band)
         for j, member in enumerate(members):
             scans[s, 8 + 3 * j : 11 + 3 * j] = member
     huff = np.stack([scan[4] for scan in jpg.scans])
-    px = native.jpeg_decode(jpg.data, np.asarray(frame, np.int32), jpg.quant, scans, huff,
+    cond = np.stack([scan[6] for scan in jpg.scans])
+    px = native.jpeg_decode(jpg.data, np.asarray(frame, np.int32), jpg.quant, scans, huff, cond,
                             len(jpg.components))
     if jpg.mode == "CMYK":
         px = 255 - px  # Pillow reads every 4-component JPEG as "CMYK;I"

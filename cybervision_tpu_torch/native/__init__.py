@@ -6,7 +6,8 @@ native.cpp is a copy of cybervision_tpu/native/native.cpp; every entry
 point is bound here: the affine lanes' writers and meshers and the SFM
 track merge. imagedecode.cpp is the port's own: PNG unfiltering, TIFF
 PackBits, LZW, zstd and CCITT, BMP RLE, GIF LZW, TGA, SGI, PCX and ICNS
-RLE, QOI, baseline and progressive JPEG (cybervision_tpu_torch.imageio);
+RLE, QOI, sequential, progressive and lossless JPEG, Huffman or arithmetic
+coded (cybervision_tpu_torch.imageio);
 webpdecode.cpp WebP's VP8L, VP8 and ALPH bitstreams; imageencode.cpp the JPEG writer's scan
 (imageio.jpeg_encode).
 The shared library builds with make into this directory at its first
@@ -74,7 +75,7 @@ _SIGNATURES = {
     "zstd_strip": ([_U8P, _L, _U8P, _L], _L),
     "zstd_frames": ([_U8P, _L, _U8P, _L], _L),
     "icns_rle": ([_U8P, _L, _L, _U8P], _L),
-    "jpeg_decode": ([_U8P, _L, _I32P, _U16P, _I32P, _L, _U8P, _U8P], _L),
+    "jpeg_decode": ([_U8P, _L, _I32P, _U16P, _I32P, _L, _U8P, _U8P, _U8P], _L),
     "jpeg_encode_scan": ([_U8P, _L, _L, _L, _U16P, _U8P, _U8P, _L], _L),
     "webp_vp8l_decode": ([_U8P, _L, _L, _L, ctypes.POINTER(ctypes.c_uint32)], _L),
     "webp_vp8_decode": ([_U8P, _L, _L, _L, _U8P], _L),
@@ -527,17 +528,20 @@ def icns_rle(src: bytes, size: int) -> np.ndarray:
 
 
 def jpeg_decode(data: bytes, frame: np.ndarray, quant: np.ndarray, scans: np.ndarray,
-                huff: np.ndarray, channels: int) -> np.ndarray:
-    """Pixels of a sequential or progressive JPEG whose markers
-    imageio.jpeg parsed: (H, W) for one component, (H, W, 3) for three,
-    (H, W, 4) for four. frame, quant, scans and huff as imagedecode.cpp's
-    jpeg_decode takes them."""
+                huff: np.ndarray, cond: np.ndarray, channels: int) -> np.ndarray:
+    """Pixels of a sequential, progressive or lossless JPEG, Huffman or
+    arithmetic coded, whose markers imageio.jpeg parsed: (H, W) for one
+    component, (H, W, 3) for three, (H, W, 4) for four. frame, quant,
+    scans, huff and cond (the arithmetic conditioning of each scan) as
+    imagedecode.cpp's jpeg_decode takes them."""
     frame = np.ascontiguousarray(frame, np.int32)
     quant = np.ascontiguousarray(quant, np.uint16)
     scans = np.ascontiguousarray(scans, np.int32)
     huff = np.ascontiguousarray(huff, np.uint8)
+    cond = np.ascontiguousarray(cond, np.uint8)
     if scans.ndim != 2 or scans.shape[1] != 20 or huff.shape != (len(scans), 8, 272) \
-            or quant.shape != (frame[2], 64) or channels != frame[2]:
+            or cond.shape != (len(scans), 48) or quant.shape != (frame[2], 64) \
+            or channels != frame[2] or len(frame) != 5 + 12 * channels:
         raise ValueError("jpeg_decode: tables do not match the frame")
     w, h = int(frame[0]), int(frame[1])
     out = np.empty((h, w, channels) if channels > 1 else (h, w), np.uint8)
@@ -545,7 +549,7 @@ def jpeg_decode(data: bytes, frame: np.ndarray, quant: np.ndarray, scans: np.nda
     code = load().jpeg_decode(
         dptr, len(data), _ptr(frame, ctypes.c_int32), _ptr(quant, ctypes.c_uint16),
         _ptr(scans, ctypes.c_int32), len(scans), _ptr(huff, ctypes.c_uint8),
-        _ptr(out, ctypes.c_uint8),
+        _ptr(cond, ctypes.c_uint8), _ptr(out, ctypes.c_uint8),
     )
     if code < 0:
         _decode_error(code, "jpeg_decode")

@@ -10,12 +10,15 @@
 //     PCX (PcxDecode.c), Sun raster (SunRleDecode.c) and Windows Paint
 //     (MspImagePlugin.py), IM's packed float samples (BitDecode.c) and
 //     QOI's op stream (QoiImagePlugin.py);
-//   * baseline and progressive JPEG (jdhuff.c, jdphuff.c): Huffman
-//     decoding with restart intervals, every progressive scan kind into
-//     one coefficient buffer, dequantisation, libjpeg's accurate integer
-//     IDCT (jidctint.c, "islow"), its "fancy" triangle upsampling
+//   * sequential and progressive JPEG, Huffman (jdhuff.c, jdphuff.c) or
+//     arithmetic coded (jdarith.c), with restart intervals, every
+//     progressive scan kind into one coefficient buffer, libjpeg-turbo's
+//     block smoothing of incomplete progressive files (jdcoefct.c), its
+//     accurate integer IDCT as its SIMD code computes it (jidctint.c's
+//     "islow" in 16-bit lanes), its "fancy" triangle upsampling
 //     (jdsample.c) and its fixed-point YCbCr->RGB and YCCK->CMYK
-//     conversions (jdcolor.c) -- the defaults of the libjpeg(-turbo) that
+//     conversions (jdcolor.c); and 8-bit lossless JPEG (jdlhuff.c,
+//     jddiffct.c, jdlossls.c) -- the defaults of the libjpeg-turbo that
 //     Pillow decodes with, so the pixels are the same bit for bit.
 // Every function returns a count >= 0 or a negative error code (see
 // imageio/__init__.py): -1 corrupt data, -2 truncated data,
@@ -59,6 +62,7 @@ struct Huffman {
   uint8_t vals[256];
   uint8_t look_len[256];  // 0: code longer than 8 bits
   uint8_t look_val[256];
+  int total = 0;  // symbols defined
   bool defined = false;
 };
 
@@ -69,6 +73,7 @@ bool build_huffman(const uint8_t *spec, Huffman &h) {
   for (int l = 0; l < 16; l++) total += counts[l];
   if (total == 0) return false;  // not defined for this scan
   if (total > 256) return false;
+  h.total = total;
   std::memcpy(h.vals, spec + 16, 256);
   int code = 0, k = 0;
   std::memset(h.look_len, 0, sizeof(h.look_len));
@@ -103,17 +108,20 @@ class BitReader {
  public:
   BitReader(const uint8_t *p, long n) : p_(p), end_(p + n) {}
 
-  // Align to a byte boundary and step over a restart marker (RSTn).
-  // Returns false when the next bytes are no restart marker.
+  // Drop the buffered bits and step over the next restart marker (RSTn),
+  // skipping any bytes before it as libjpeg's next_marker does. Returns
+  // false when the segment ends first (the marker after it is no RSTn).
   bool restart() {
     bits_ = 0;
     pad_ = 0;
     acc_ = 0;
     hit_end_ = false;
-    while (p_ < end_ && *p_ == 0xFF && p_ + 1 < end_ && p_[1] == 0xFF) p_++;
-    if (p_ + 1 < end_ && p_[0] == 0xFF && p_[1] >= 0xD0 && p_[1] <= 0xD7) {
-      p_ += 2;
-      return true;
+    while (p_ < end_) {
+      if (p_[0] == 0xFF && p_ + 1 < end_ && p_[1] >= 0xD0 && p_[1] <= 0xD7) {
+        p_ += 2;
+        return true;
+      }
+      p_++;
     }
     return false;
   }
@@ -192,7 +200,15 @@ struct Component {
   const uint16_t *qt;    // 64, natural order
 };
 
-// libjpeg's jpeg_idct_islow (jidctint.c), CONST_BITS 13, PASS1_BITS 2.
+// libjpeg-turbo's accurate integer IDCT as its x86-64 SIMD code runs it
+// (jidctint-sse2.asm / -avx2.asm, which Pillow's libjpeg-turbo uses):
+// jidctint.c's islow, CONST_BITS 13, PASS1_BITS 2, with the products of
+// pairs formed as pmaddwd forms them, and 16-bit lanes: the dequantised
+// coefficients and the sums in0 +- in4, in7 + in3 and in5 + in1 wrap, each
+// pass's output saturates to 16 bits, the samples to 8 bits (packsswb),
+// and a block whose AC coefficients are all zero takes the DC shortcut
+// (shifted in 16 bits). On coefficients in range it is jidctint.c's
+// result; on extreme ones (corrupt data) it is the SIMD code's.
 constexpr int kConstBits = 13;
 constexpr int kPass1Bits = 2;
 constexpr long F_0_298631336 = 2446, F_0_390180644 = 3196, F_0_541196100 = 4433,
@@ -200,116 +216,62 @@ constexpr long F_0_298631336 = 2446, F_0_390180644 = 3196, F_0_541196100 = 4433,
                F_1_501321110 = 12299, F_1_847759065 = 15137, F_1_961570560 = 16069,
                F_2_053119869 = 16819, F_2_562915447 = 20995, F_3_072711026 = 25172;
 
-inline long descale(long x, int n) { return (x + (1L << (n - 1))) >> n; }
+inline int16_t wrap16(long v) { return (int16_t)(uint16_t)(v & 0xFFFF); }
+inline long sat(long v, long lo, long hi) { return v < lo ? lo : (v > hi ? hi : v); }
 
-// The IDCT's output range limit: (x & 1023) read through libjpeg's
-// sample_range_limit + CENTERJSAMPLE table.
-inline uint8_t idct_limit(long x) {
-  int v = (int)(x & 1023);
-  if (v >= 512) v -= 1024;
-  v += 128;
-  return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+// One 8-point pass over in[0..7]: the eight outputs before descaling.
+inline void idct_pass(const int16_t *in, long *o) {
+  const long z2 = in[2], z3 = in[6];
+  const long tmp3 = z2 * (F_0_541196100 + F_0_765366865) + z3 * F_0_541196100;
+  const long tmp2 = z2 * F_0_541196100 + z3 * (F_0_541196100 - F_1_847759065);
+  const long tmp0 = (long)wrap16((long)in[0] + in[4]) * (1L << kConstBits);
+  const long tmp1 = (long)wrap16((long)in[0] - in[4]) * (1L << kConstBits);
+  const long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const long i7 = in[7], i5 = in[5], i3 = in[3], i1 = in[1];
+  const long q3 = wrap16(i7 + i3), q4 = wrap16(i5 + i1);
+  const long z3p = q3 * (F_1_175875602 - F_1_961570560) + q4 * F_1_175875602;
+  const long z4p = q3 * F_1_175875602 + q4 * (F_1_175875602 - F_0_390180644);
+  const long t0 = i7 * (F_0_298631336 - F_0_899976223) + i1 * -F_0_899976223 + z3p;
+  const long t3 = i7 * -F_0_899976223 + i1 * (F_1_501321110 - F_0_899976223) + z4p;
+  const long t1 = i5 * (F_2_053119869 - F_2_562915447) + i3 * -F_2_562915447 + z4p;
+  const long t2 = i5 * -F_2_562915447 + i3 * (F_3_072711026 - F_2_562915447) + z3p;
+  o[0] = tmp10 + t3;
+  o[7] = tmp10 - t3;
+  o[1] = tmp11 + t2;
+  o[6] = tmp11 - t2;
+  o[2] = tmp12 + t1;
+  o[5] = tmp12 - t1;
+  o[3] = tmp13 + t0;
+  o[4] = tmp13 - t0;
 }
 
 void idct_islow(const int16_t *coef, const uint16_t *qt, uint8_t *out, long stride) {
-  long ws[64];
-  for (int c = 0; c < 8; c++) {
-    const int16_t *in = coef + c;
-    const uint16_t *q = qt + c;
-    long z2, z3, z1, z4, z5, tmp0, tmp1, tmp2, tmp3, tmp10, tmp11, tmp12, tmp13;
-    z2 = (long)in[16] * q[16];
-    z3 = (long)in[48] * q[48];
-    z1 = (z2 + z3) * F_0_541196100;
-    tmp2 = z1 + z3 * -F_1_847759065;
-    tmp3 = z1 + z2 * F_0_765366865;
-    z2 = (long)in[0] * q[0];
-    z3 = (long)in[32] * q[32];
-    tmp0 = (z2 + z3) * (1L << kConstBits);
-    tmp1 = (z2 - z3) * (1L << kConstBits);
-    tmp10 = tmp0 + tmp3;
-    tmp13 = tmp0 - tmp3;
-    tmp11 = tmp1 + tmp2;
-    tmp12 = tmp1 - tmp2;
-    tmp0 = (long)in[56] * q[56];
-    tmp1 = (long)in[40] * q[40];
-    tmp2 = (long)in[24] * q[24];
-    tmp3 = (long)in[8] * q[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    z4 = tmp1 + tmp3;
-    z5 = (z3 + z4) * F_1_175875602;
-    tmp0 = tmp0 * F_0_298631336;
-    tmp1 = tmp1 * F_2_053119869;
-    tmp2 = tmp2 * F_3_072711026;
-    tmp3 = tmp3 * F_1_501321110;
-    z1 = z1 * -F_0_899976223;
-    z2 = z2 * -F_2_562915447;
-    z3 = z3 * -F_1_961570560;
-    z4 = z4 * -F_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits - kPass1Bits;
-    ws[c + 0] = (int)descale(tmp10 + tmp3, sh);
-    ws[c + 56] = (int)descale(tmp10 - tmp3, sh);
-    ws[c + 8] = (int)descale(tmp11 + tmp2, sh);
-    ws[c + 48] = (int)descale(tmp11 - tmp2, sh);
-    ws[c + 16] = (int)descale(tmp12 + tmp1, sh);
-    ws[c + 40] = (int)descale(tmp12 - tmp1, sh);
-    ws[c + 24] = (int)descale(tmp13 + tmp0, sh);
-    ws[c + 32] = (int)descale(tmp13 - tmp0, sh);
+  int16_t ws[64];  // pass 1's output, ws[row * 8 + column]
+  bool ac_zero = true;
+  for (int i = 8; i < 64 && ac_zero; i++) ac_zero = coef[i] == 0;
+  if (ac_zero) {
+    for (int c = 0; c < 8; c++) {
+      const int16_t dc = wrap16((long)wrap16((long)coef[c] * qt[c]) * (1L << kPass1Bits));
+      for (int r = 0; r < 8; r++) ws[r * 8 + c] = dc;
+    }
+  } else {
+    for (int c = 0; c < 8; c++) {
+      int16_t in[8];
+      long o[8];
+      for (int r = 0; r < 8; r++) in[r] = wrap16((long)coef[r * 8 + c] * qt[r * 8 + c]);
+      idct_pass(in, o);
+      const int sh = kConstBits - kPass1Bits;
+      for (int r = 0; r < 8; r++)
+        ws[r * 8 + c] = (int16_t)sat((o[r] + (1L << (sh - 1))) >> sh, -32768, 32767);
+    }
   }
   for (int r = 0; r < 8; r++) {
-    const long *w = ws + r * 8;
-    uint8_t *o = out + r * stride;
-    long z1, z2, z3, z4, z5, tmp0, tmp1, tmp2, tmp3, tmp10, tmp11, tmp12, tmp13;
-    z2 = w[2];
-    z3 = w[6];
-    z1 = (z2 + z3) * F_0_541196100;
-    tmp2 = z1 + z3 * -F_1_847759065;
-    tmp3 = z1 + z2 * F_0_765366865;
-    tmp0 = (w[0] + w[4]) * (1L << kConstBits);
-    tmp1 = (w[0] - w[4]) * (1L << kConstBits);
-    tmp10 = tmp0 + tmp3;
-    tmp13 = tmp0 - tmp3;
-    tmp11 = tmp1 + tmp2;
-    tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    z4 = tmp1 + tmp3;
-    z5 = (z3 + z4) * F_1_175875602;
-    tmp0 = tmp0 * F_0_298631336;
-    tmp1 = tmp1 * F_2_053119869;
-    tmp2 = tmp2 * F_3_072711026;
-    tmp3 = tmp3 * F_1_501321110;
-    z1 = z1 * -F_0_899976223;
-    z2 = z2 * -F_2_562915447;
-    z3 = z3 * -F_1_961570560;
-    z4 = z4 * -F_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
+    long o[8];
+    idct_pass(ws + r * 8, o);
     const int sh = kConstBits + kPass1Bits + 3;
-    o[0] = idct_limit(descale(tmp10 + tmp3, sh));
-    o[7] = idct_limit(descale(tmp10 - tmp3, sh));
-    o[1] = idct_limit(descale(tmp11 + tmp2, sh));
-    o[6] = idct_limit(descale(tmp11 - tmp2, sh));
-    o[2] = idct_limit(descale(tmp12 + tmp1, sh));
-    o[5] = idct_limit(descale(tmp12 - tmp1, sh));
-    o[3] = idct_limit(descale(tmp13 + tmp0, sh));
-    o[4] = idct_limit(descale(tmp13 - tmp0, sh));
+    uint8_t *row = out + r * stride;
+    for (int c = 0; c < 8; c++)
+      row[c] = (uint8_t)(sat(sat((o[c] + (1L << (sh - 1))) >> sh, -32768, 32767), -128, 127) + 128);
   }
 }
 
@@ -422,11 +384,11 @@ inline void ac_refine(BitReader &br, const Huffman &ac, int ss, int se, int al, 
 // jdsample.c with do_fancy_upsampling: h2v1 and h2v2 "fancy" triangle
 // filters for widths above 2, h1v2 fancy, otherwise replication). The
 // image rows above and below are the first and last real rows (jdmainct.c
-// context rows). `plane` holds bh*8 rows of bw*8 samples; writes
-// out_h x out_w samples (the caller crops to the image).
-void upsample(const Component &c, int hmax, int vmax, const uint8_t *plane,
-              uint8_t *out, long out_w, long out_h) {
-  const long stride = (long)c.bw * 8;
+// context rows). `plane` holds the component's rows, `stride` samples
+// apart; writes out_h x out_w samples (the caller crops to the image).
+// Without `fancy` (lossless files) every case replicates.
+void upsample(const Component &c, int hmax, int vmax, const uint8_t *plane, long stride,
+              bool fancy, uint8_t *out, long out_w, long out_h) {
   const int hx = hmax / c.h, vx = vmax / c.v;
   const long dw = c.dw, dh = c.dh;
   auto row = [&](long r) {
@@ -438,7 +400,7 @@ void upsample(const Component &c, int hmax, int vmax, const uint8_t *plane,
     for (long y = 0; y < out_h; y++) std::memcpy(out + y * out_w, row(y), out_w);
     return;
   }
-  if (hx == 2 && vx == 1 && dw > 2) {  // h2v1_fancy_upsample
+  if (fancy && hx == 2 && vx == 1 && dw > 2) {  // h2v1_fancy_upsample
     std::vector<uint8_t> tmp(2 * dw);
     for (long y = 0; y < out_h; y++) {
       const uint8_t *in = row(y);
@@ -458,7 +420,7 @@ void upsample(const Component &c, int hmax, int vmax, const uint8_t *plane,
     }
     return;
   }
-  if (hx == 1 && vx == 2) {  // h1v2_fancy_upsample
+  if (fancy && hx == 1 && vx == 2) {  // h1v2_fancy_upsample
     for (long y = 0; y < out_h; y++) {
       long r = y / 2;
       bool above = (y % 2) == 0;
@@ -470,7 +432,7 @@ void upsample(const Component &c, int hmax, int vmax, const uint8_t *plane,
     }
     return;
   }
-  if (hx == 2 && vx == 2 && dw > 2) {  // h2v2_fancy_upsample
+  if (fancy && hx == 2 && vx == 2 && dw > 2) {  // h2v2_fancy_upsample
     std::vector<uint8_t> tmp(2 * dw);
     for (long y = 0; y < out_h; y++) {
       long r = y / 2;
@@ -792,6 +754,481 @@ void fax_fill(const FaxRow &row, long lastx, uint8_t *out) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Arithmetic-coded JPEG (libjpeg's jdarith.c and jaricom.c).
+
+// T.81 table D.2 packed as jaricom.c packs it: Qe << 16 | next index after
+// an MPS << 8 | switch-MPS flag << 7 | next index after an LPS. Entry 113
+// is the fixed 0.5 estimate of signs and refinement bits.
+#define ARI(qe, lps, mps, sw) (((int32_t)(qe) << 16) | ((mps) << 8) | ((sw) << 7) | (lps))
+constexpr int32_t kAriTab[114] = {
+    ARI(0x5a1d, 1, 1, 1),     ARI(0x2586, 14, 2, 0),    ARI(0x1114, 16, 3, 0),
+    ARI(0x080b, 18, 4, 0),    ARI(0x03d8, 20, 5, 0),    ARI(0x01da, 23, 6, 0),
+    ARI(0x00e5, 25, 7, 0),    ARI(0x006f, 28, 8, 0),    ARI(0x0036, 30, 9, 0),
+    ARI(0x001a, 33, 10, 0),   ARI(0x000d, 35, 11, 0),   ARI(0x0006, 9, 12, 0),
+    ARI(0x0003, 10, 13, 0),   ARI(0x0001, 12, 13, 0),   ARI(0x5a7f, 15, 15, 1),
+    ARI(0x3f25, 36, 16, 0),   ARI(0x2cf2, 38, 17, 0),   ARI(0x207c, 39, 18, 0),
+    ARI(0x17b9, 40, 19, 0),   ARI(0x1182, 42, 20, 0),   ARI(0x0cef, 43, 21, 0),
+    ARI(0x09a1, 45, 22, 0),   ARI(0x072f, 46, 23, 0),   ARI(0x055c, 48, 24, 0),
+    ARI(0x0406, 49, 25, 0),   ARI(0x0303, 51, 26, 0),   ARI(0x0240, 52, 27, 0),
+    ARI(0x01b1, 54, 28, 0),   ARI(0x0144, 56, 29, 0),   ARI(0x00f5, 57, 30, 0),
+    ARI(0x00b7, 59, 31, 0),   ARI(0x008a, 60, 32, 0),   ARI(0x0068, 62, 33, 0),
+    ARI(0x004e, 63, 34, 0),   ARI(0x003b, 32, 35, 0),   ARI(0x002c, 33, 9, 0),
+    ARI(0x5ae1, 37, 37, 1),   ARI(0x484c, 64, 38, 0),   ARI(0x3a0d, 65, 39, 0),
+    ARI(0x2ef1, 67, 40, 0),   ARI(0x261f, 68, 41, 0),   ARI(0x1f33, 69, 42, 0),
+    ARI(0x19a8, 70, 43, 0),   ARI(0x1518, 72, 44, 0),   ARI(0x1177, 73, 45, 0),
+    ARI(0x0e74, 74, 46, 0),   ARI(0x0bfb, 75, 47, 0),   ARI(0x09f8, 77, 48, 0),
+    ARI(0x0861, 78, 49, 0),   ARI(0x0706, 79, 50, 0),   ARI(0x05cd, 48, 51, 0),
+    ARI(0x04de, 50, 52, 0),   ARI(0x040f, 50, 53, 0),   ARI(0x0363, 51, 54, 0),
+    ARI(0x02d4, 52, 55, 0),   ARI(0x025c, 53, 56, 0),   ARI(0x01f8, 54, 57, 0),
+    ARI(0x01a4, 55, 58, 0),   ARI(0x0160, 56, 59, 0),   ARI(0x0125, 57, 60, 0),
+    ARI(0x00f6, 58, 61, 0),   ARI(0x00cb, 59, 62, 0),   ARI(0x00ab, 61, 63, 0),
+    ARI(0x008f, 61, 32, 0),   ARI(0x5b12, 65, 65, 1),   ARI(0x4d04, 80, 66, 0),
+    ARI(0x412c, 81, 67, 0),   ARI(0x37d8, 82, 68, 0),   ARI(0x2fe8, 83, 69, 0),
+    ARI(0x293c, 84, 70, 0),   ARI(0x2379, 86, 71, 0),   ARI(0x1edf, 87, 72, 0),
+    ARI(0x1aa9, 87, 73, 0),   ARI(0x174e, 72, 74, 0),   ARI(0x1424, 72, 75, 0),
+    ARI(0x119c, 74, 76, 0),   ARI(0x0f6b, 74, 77, 0),   ARI(0x0d51, 75, 78, 0),
+    ARI(0x0bb6, 77, 79, 0),   ARI(0x0a40, 77, 48, 0),   ARI(0x5832, 80, 81, 1),
+    ARI(0x4d1c, 88, 82, 0),   ARI(0x438e, 89, 83, 0),   ARI(0x3bdd, 90, 84, 0),
+    ARI(0x34ee, 91, 85, 0),   ARI(0x2eae, 92, 86, 0),   ARI(0x299a, 93, 87, 0),
+    ARI(0x2516, 86, 71, 0),   ARI(0x5570, 88, 89, 1),   ARI(0x4ca9, 95, 90, 0),
+    ARI(0x44d9, 96, 91, 0),   ARI(0x3e22, 97, 92, 0),   ARI(0x3824, 99, 93, 0),
+    ARI(0x32b4, 99, 94, 0),   ARI(0x2e17, 93, 86, 0),   ARI(0x56a8, 95, 96, 1),
+    ARI(0x4f46, 101, 97, 0),  ARI(0x47e5, 102, 98, 0),  ARI(0x41cf, 103, 99, 0),
+    ARI(0x3c3d, 104, 100, 0), ARI(0x375e, 99, 93, 0),   ARI(0x5231, 105, 102, 0),
+    ARI(0x4c0f, 106, 103, 0), ARI(0x4639, 107, 104, 0), ARI(0x415e, 103, 99, 0),
+    ARI(0x5627, 105, 106, 1), ARI(0x50e7, 108, 107, 0), ARI(0x4b85, 109, 103, 0),
+    ARI(0x5597, 110, 109, 0), ARI(0x504f, 111, 107, 0), ARI(0x5a10, 110, 111, 1),
+    ARI(0x5522, 112, 109, 0), ARI(0x59eb, 112, 111, 1), ARI(0x5a1d, 113, 113, 0)};
+#undef ARI
+
+// jdarith.c's decoder over one scan's entropy-coded segment. Its restart
+// markers are the only markers inside; the segment's end stands for the
+// marker after it. Once a marker is met the decoder is fed zeros, as
+// libjpeg feeds them, until a restart steps over it.
+class ArithDecoder {
+ public:
+  ArithDecoder(const uint8_t *p, long n) : p_(p), end_(p + n) {}
+
+  void reset() {
+    c_ = 0;
+    a_ = 0;
+    ct_ = -16;  // read 2 bytes into C first
+    broken_ = false;
+  }
+
+  // A spectral or magnitude overflow in corrupt data: libjpeg warns and
+  // decodes nothing more until the next restart.
+  bool broken() const { return broken_; }
+  void set_broken() { broken_ = true; }
+
+  // jdmarker.c read_restart_marker for RSTn `want`, with
+  // jpeg_resync_to_restart's choices, then a fresh decoder.
+  void restart(int want) {
+    int m = marker_ ? marker_code_ : next_marker();
+    for (;;) {
+      int action;
+      if (m < 0) {
+        action = 3;  // a marker that is no RSTn: left for the scan's end
+      } else if (m == want) {
+        action = 1;
+      } else if (m == ((want + 1) & 7) || m == ((want + 2) & 7)) {
+        action = 3;
+      } else if (m == ((want - 1) & 7) || m == ((want - 2) & 7)) {
+        action = 2;
+      } else {
+        action = 1;
+      }
+      if (action == 1) {
+        marker_ = false;
+        break;
+      }
+      if (action == 3) {
+        marker_ = true;
+        marker_code_ = m;
+        break;
+      }
+      m = next_marker();
+    }
+    reset();
+  }
+
+  // arith_decode: one binary decision with the statistics bin *st.
+  int decode(uint8_t *st) {
+    while (a_ < 0x8000) {
+      if (--ct_ < 0) {
+        c_ = (c_ << 8) | byte();
+        if ((ct_ += 8) < 0) {
+          if (++ct_ == 0) a_ = 0x8000;  // the 2 initial bytes are in
+        }
+      }
+      a_ <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = (int)(qe & 0xFF);
+    qe >>= 8;
+    const int nm = (int)(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a_ - qe;
+    a_ = temp;
+    temp <<= ct_;
+    if (c_ >= temp) {
+      c_ -= temp;
+      if (a_ < qe) {
+        a_ = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a_ = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a_ < 0x8000) {
+      if (a_ < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+ private:
+  // get_byte with arith_decode's marker handling: 0xFF00 is 0xFF, a
+  // marker is read and then stands for zero data.
+  int byte() {
+    if (marker_) return 0;
+    if (p_ >= end_) {
+      marker_ = true;
+      marker_code_ = -1;
+      return 0;
+    }
+    int d = *p_++;
+    if (d != 0xFF) return d;
+    if (p_ < end_ && *p_ == 0x00) {
+      p_++;
+      return 0xFF;
+    }
+    marker_ = true;
+    marker_code_ = p_ < end_ ? (*p_++ & 7) : -1;
+    return 0;
+  }
+
+  // next_marker: skip to the next marker; its RSTn number, or -1 for the
+  // segment's end.
+  int next_marker() {
+    while (p_ < end_) {
+      if (*p_ == 0xFF && p_ + 1 < end_ && p_[1] != 0x00) {
+        int m = p_[1] & 7;
+        p_ += 2;
+        return m;
+      }
+      p_++;
+    }
+    return -1;
+  }
+
+  const uint8_t *p_;
+  const uint8_t *end_;
+  int64_t c_ = 0, a_ = 0;
+  int ct_ = -16;
+  bool marker_ = false;
+  int marker_code_ = -1;
+  bool broken_ = false;
+};
+
+// The statistics of one scan: DC and AC bins of the 16 arithmetic
+// conditioning tables, the fixed bin, and each table's L, U and Kx (DAC).
+struct ArithStats {
+  uint8_t dc[16][64];
+  uint8_t ac[16][256];
+  uint8_t fixed = 113;
+  const uint8_t *cond;  // 48 bytes: L[16], U[16], Kx[16]
+};
+
+// One DC difference (F.2.4.1 with F.1.4.4.1's conditioning): updates the
+// component's context and its last value (mod 2^16). False on a
+// magnitude overflow.
+bool arith_dc(ArithDecoder &d, ArithStats &s, int tbl, int &ctx, int &last) {
+  uint8_t *st = s.dc[tbl] + ctx;
+  if (d.decode(st) == 0) {
+    ctx = 0;
+    return true;
+  }
+  const int sign = d.decode(st + 1);
+  st += 2 + sign;
+  int m = d.decode(st);
+  if (m) {
+    st = s.dc[tbl] + 20;
+    while (d.decode(st)) {
+      if ((m <<= 1) == 0x8000) return false;
+      st += 1;
+    }
+  }
+  const int lo = s.cond[tbl], hi = s.cond[16 + tbl];
+  if (m < (int)((1L << lo) >> 1))
+    ctx = 0;
+  else if (m > (int)((1L << hi) >> 1))
+    ctx = 12 + sign * 4;
+  else
+    ctx = 4 + sign * 4;
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (d.decode(st)) v |= m;
+  v += 1;
+  if (sign) v = -v;
+  last = (last + v) & 0xFFFF;
+  return true;
+}
+
+// The AC coefficients ss..se of one block (F.2.4.2, G.1.3.2), each scaled
+// by 2^al. False on a spectral or magnitude overflow.
+bool arith_ac(ArithDecoder &d, ArithStats &s, int tbl, int ss, int se, int al, int16_t *blk) {
+  const int kx = s.cond[32 + tbl];
+  for (int k = ss; k <= se; k++) {
+    uint8_t *st = s.ac[tbl] + 3 * (k - 1);
+    if (d.decode(st)) break;  // EOB
+    while (d.decode(st + 1) == 0) {
+      st += 3;
+      if (++k > se) return false;
+    }
+    const int sign = d.decode(&s.fixed);
+    st += 2;
+    int m = d.decode(st);
+    if (m && d.decode(st)) {
+      m <<= 1;
+      st = s.ac[tbl] + (k <= kx ? 189 : 217);
+      while (d.decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (d.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    blk[kNatural[k]] = (int16_t)(int)((unsigned)v << al);
+  }
+  return true;
+}
+
+// decode_mcu_AC_refine: the bit al of the band ss..se. False on a
+// spectral overflow.
+bool arith_ac_refine(ArithDecoder &d, ArithStats &s, int tbl, int ss, int se, int al,
+                     int16_t *blk) {
+  const int p1 = 1 << al, m1 = (int)(-1U << al);
+  int kex = se;
+  for (; kex > 0; kex--)
+    if (blk[kNatural[kex]]) break;
+  for (int k = ss; k <= se; k++) {
+    uint8_t *st = s.ac[tbl] + 3 * (k - 1);
+    if (k > kex && d.decode(st)) break;  // EOB
+    for (;;) {
+      int16_t &c = blk[kNatural[k]];
+      if (c) {  // previously nonzero: one correction bit
+        if (d.decode(st + 2)) c = (int16_t)(c < 0 ? c + m1 : c + p1);
+        break;
+      }
+      if (d.decode(st + 1)) {  // newly nonzero
+        c = (int16_t)(d.decode(&s.fixed) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > se) return false;
+    }
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// libjpeg-turbo's block smoothing (jdcoefct.c decompress_smooth_data) of a
+// progressive file whose last scans leave some of AC 1-9 unrefined: each
+// block's zero coefficients among them are estimated from the 5x5
+// neighbourhood of DC values, or, when a component had no AC scan at all,
+// its DC and AC 1-9 from a Gaussian-like kernel over the same window.
+
+inline int smooth_pred(long num, long q, int al, bool clamp) {
+  int pred;
+  if (num >= 0) {
+    pred = (int)(((q << 7) + num) / (q << 8));
+    if (clamp && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  } else {
+    pred = (int)(((q << 7) - num) / (q << 8));
+    if (clamp && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    pred = -pred;
+  }
+  return pred;
+}
+
+// The IDCT of every block of one component with smoothing, into `plane`
+// (blocks of 8x8 samples, stride bw * 8). vsamp: the component's v;
+// total_imcu: the frame's iMCU rows; coef_bits: the latched bits of
+// zigzag positions 0-9 after the last scan.
+void idct_smoothed(const Component &k, int vsamp, long total_imcu, const int32_t *coef_bits,
+                   uint8_t *plane) {
+  const long stride = (long)k.bw * 8;
+  const long hib = (k.dh + 7) / 8, wib = (k.dw + 7) / 8;
+  const long last_imcu = total_imcu - 1, last_col = wib - 1;
+  const uint16_t *qt = k.qt;
+  const long q00 = qt[0], q01 = qt[1], q10 = qt[8], q20 = qt[16], q11 = qt[9], q02 = qt[2],
+             q03 = qt[3], q12 = qt[10], q21 = qt[17], q30 = qt[24];
+  bool change_dc = true;
+  for (int i = 1; i < 10; i++) change_dc = change_dc && coef_bits[i] == -1;
+  auto block = [&](long row, long col) { return &k.coef[((size_t)row * k.bw + col) * 64]; };
+  int16_t ws[64];
+  for (long imcu = 0; imcu < total_imcu; imcu++) {
+    long block_rows = vsamp;
+    if (imcu == last_imcu) {
+      block_rows = hib % vsamp;
+      if (block_rows == 0) block_rows = vsamp;
+    }
+    const long image_block_rows = block_rows * total_imcu;
+    for (long br = 0; br < block_rows; br++) {
+      const long row = imcu * vsamp + br;
+      const long ibr = imcu * block_rows + br;  // libjpeg-turbo's count
+      const long prev = ibr > 0 ? row - 1 : row;
+      const long pprev = ibr > 1 ? row - 2 : prev;
+      const long next = ibr < image_block_rows - 1 ? row + 1 : row;
+      const long nnext = ibr < image_block_rows - 2 ? row + 2 : next;
+      const long rows[5] = {pprev, prev, row, next, nnext};
+      int dc[5][5];  // [row][column - 2 .. column + 2]
+      for (int r = 0; r < 5; r++)
+        for (int c = 0; c < 5; c++) dc[r][c] = block(rows[r], 0)[0];
+      for (long bn = 0; bn <= last_col; bn++) {
+        std::memcpy(ws, block(row, bn), sizeof(ws));
+        if (bn == 0 && bn < last_col)
+          for (int r = 0; r < 5; r++) dc[r][3] = dc[r][4] = block(rows[r], 1)[0];
+        if (bn + 1 < last_col)
+          for (int r = 0; r < 5; r++) dc[r][4] = block(rows[r], bn + 2)[0];
+#define DC(i) ((long)dc[((i) - 1) / 5][((i) - 1) % 5])
+        int al;
+        if ((al = coef_bits[1]) != 0 && ws[1] == 0) {
+          long num = q00 * (change_dc
+              ? (-DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6) + 13 * DC(7) - 13 * DC(9) + 3 * DC(10)
+                 - 3 * DC(11) + 38 * DC(12) - 38 * DC(14) + 3 * DC(15) - 3 * DC(16) + 13 * DC(17)
+                 - 13 * DC(19) + 3 * DC(20) - DC(21) - DC(22) + DC(24) + DC(25))
+              : (-7 * DC(11) + 50 * DC(12) - 50 * DC(14) + 7 * DC(15)));
+          ws[1] = (int16_t)smooth_pred(num, q01, al, true);
+        }
+        if ((al = coef_bits[2]) != 0 && ws[8] == 0) {
+          long num = q00 * (change_dc
+              ? (-DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) - DC(5) - DC(6) + 13 * DC(7)
+                 + 38 * DC(8) + 13 * DC(9) - DC(10) + DC(16) - 13 * DC(17) - 38 * DC(18)
+                 - 13 * DC(19) + DC(20) + DC(21) + 3 * DC(22) + 3 * DC(23) + 3 * DC(24) + DC(25))
+              : (-7 * DC(3) + 50 * DC(8) - 50 * DC(18) + 7 * DC(23)));
+          ws[8] = (int16_t)smooth_pred(num, q10, al, true);
+        }
+        if ((al = coef_bits[3]) != 0 && ws[16] == 0) {
+          long num = q00 * (change_dc
+              ? (DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9) - 5 * DC(12) - 14 * DC(13)
+                 - 5 * DC(14) + 2 * DC(17) + 7 * DC(18) + 2 * DC(19) + DC(23))
+              : (-DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18) - DC(23)));
+          ws[16] = (int16_t)smooth_pred(num, q20, al, true);
+        }
+        if ((al = coef_bits[4]) != 0 && ws[9] == 0) {
+          long num = q00 * (change_dc
+              ? (-DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) - 9 * DC(17) + 9 * DC(19) + DC(21)
+                 - DC(25))
+              : (DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19) - DC(2) - DC(20) + DC(22)
+                 - DC(24) + DC(4) - DC(6) + 10 * DC(7) - 10 * DC(9)));
+          ws[9] = (int16_t)smooth_pred(num, q11, al, true);
+        }
+        if ((al = coef_bits[5]) != 0 && ws[2] == 0) {
+          long num = q00 * (change_dc
+              ? (2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11) + 7 * DC(12) - 14 * DC(13)
+                 + 7 * DC(14) + DC(15) + 2 * DC(17) - 5 * DC(18) + 2 * DC(19))
+              : (-DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14) - DC(15)));
+          ws[2] = (int16_t)smooth_pred(num, q02, al, true);
+        }
+        if (change_dc) {
+          if ((al = coef_bits[6]) != 0 && ws[3] == 0) {
+            long num = q00 * (DC(7) - DC(9) + 2 * DC(12) - 2 * DC(14) + DC(17) - DC(19));
+            ws[3] = (int16_t)smooth_pred(num, q03, al, true);
+          }
+          if ((al = coef_bits[7]) != 0 && ws[10] == 0) {
+            long num = q00 * (DC(7) - 3 * DC(8) + DC(9) - DC(17) + 3 * DC(18) - DC(19));
+            ws[10] = (int16_t)smooth_pred(num, q12, al, true);
+          }
+          if ((al = coef_bits[8]) != 0 && ws[17] == 0) {
+            long num = q00 * (DC(7) - DC(9) - 3 * DC(12) + 3 * DC(14) + DC(17) - DC(19));
+            ws[17] = (int16_t)smooth_pred(num, q21, al, true);
+          }
+          if ((al = coef_bits[9]) != 0 && ws[24] == 0) {
+            long num = q00 * (DC(7) + 2 * DC(8) + DC(9) - DC(17) - 2 * DC(18) - DC(19));
+            ws[24] = (int16_t)smooth_pred(num, q30, al, true);
+          }
+          long num = q00 * (-2 * DC(1) - 6 * DC(2) - 8 * DC(3) - 6 * DC(4) - 2 * DC(5)
+                            - 6 * DC(6) + 6 * DC(7) + 42 * DC(8) + 6 * DC(9) - 6 * DC(10)
+                            - 8 * DC(11) + 42 * DC(12) + 152 * DC(13) + 42 * DC(14)
+                            - 8 * DC(15) - 6 * DC(16) + 6 * DC(17) + 42 * DC(18) + 6 * DC(19)
+                            - 6 * DC(20) - 2 * DC(21) - 6 * DC(22) - 8 * DC(23) - 6 * DC(24)
+                            - 2 * DC(25));
+          ws[0] = (int16_t)smooth_pred(num, q00, 0, false);
+        }
+#undef DC
+        idct_islow(ws, qt, plane + row * 8 * stride + bn * 8, stride);
+        for (int r = 0; r < 5; r++)
+          for (int c = 0; c < 4; c++) dc[r][c] = dc[r][c + 1];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Lossless JPEG (libjpeg-turbo's jdlhuff.c, jddiffct.c and jdlossls.c):
+// Huffman-coded sample differences, undifferenced row by row with the
+// scan's predictor (Ss, 1-7), scaled up by the point transform (Al).
+
+struct LosslessPlane {
+  int h, v;              // sampling factors
+  long dw, dh;           // samples
+  long pw, ph;           // padded to whole MCUs
+  std::vector<int32_t> diff;   // ph x pw differences of the current scan
+  std::vector<int32_t> undiff; // ph x pw undifferenced samples (0..65535)
+  std::vector<uint8_t> out;    // dh x dw samples
+  bool first_row = true;       // jpeg_undifference_first_row pending
+};
+
+// Undifference one row y of a component with predictor psv and point
+// transform pt, then write its scaled samples.
+void undifference_row(LosslessPlane &p, long y, int psv, int pt) {
+  const int32_t *d = &p.diff[(size_t)y * p.pw];
+  int32_t *u = &p.undiff[(size_t)y * p.pw];
+  const long w = p.dw;
+  if (p.first_row) {
+    int ra = (d[0] + (1 << (8 - pt - 1))) & 0xFFFF;
+    u[0] = ra;
+    for (long x = 1; x < w; x++) u[x] = ra = (d[x] + ra) & 0xFFFF;
+    p.first_row = false;
+  } else {
+    const int32_t *prev = u - p.pw;
+    int rb = prev[0];
+    int ra = (d[0] + rb) & 0xFFFF;
+    u[0] = ra;
+    for (long x = 1; x < w; x++) {
+      const int rc = rb;
+      rb = prev[x];
+      long pred;
+      switch (psv) {
+        case 1: pred = ra; break;
+        case 2: pred = rb; break;
+        case 3: pred = rc; break;
+        case 4: pred = (long)ra + rb - rc; break;
+        case 5: pred = ra + (((long)rb - rc) >> 1); break;
+        case 6: pred = rb + (((long)ra - rc) >> 1); break;
+        default: pred = ((long)ra + rb) >> 1; break;
+      }
+      u[x] = ra = (int)((d[x] + pred) & 0xFFFF);
+    }
+  }
+  uint8_t *o = &p.out[(size_t)y * p.dw];
+  for (long x = 0; x < w; x++) o[x] = (uint8_t)(u[x] << pt);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1059,29 +1496,39 @@ long gif_lzw(const uint8_t *src, long n, long bits, long interlace, long xsize, 
   }
 }
 
-// Baseline (sequential) or progressive Huffman JPEG with 1, 3 or 4
-// components.
+// Sequential, progressive or lossless JPEG, Huffman or arithmetic coded,
+// with 1, 3 or 4 components.
 // frame: [width, height, ncomp, colour (0: as stored, 1: YCbCr -> RGB,
-//         2: YCCK -> CMYK), progressive, then per component h, v].
+//         2: YCCK -> CMYK), coding (1: progressive, 2: arithmetic,
+//         4: lossless, 8: block smoothing), then per component h, v, then
+//         (with block smoothing) per component the bits still unsent of
+//         zigzag coefficients 0-9 after the last scan (coef_bits, -1:
+//         never sent)].
 // quant: ncomp x 64 uint16 tables, natural order (each component's table
-//        as latched at its first scan).
+//        as latched at its first scan; unused by lossless files).
 // scans: per scan [offset, length, restart_interval, ns, Ss, Se, Ah, Al,
-//        then 4 x (component index, dc table, ac table)].
+//        then 4 x (component index, dc table, ac table)]; a lossless
+//        scan's Ss is its predictor and Al its point transform.
 // huff:  per scan 8 x 272 bytes (DC tables 0-3 then AC tables 0-3, each 16
 //        counts + 256 values; all-zero counts: not defined).
+// cond:  per scan 48 bytes, the arithmetic conditioning of tables 0-15 as
+//        the DAC segments before the scan left it: L, then U, then Kx.
 // out:   height x width x ncomp bytes.
-// Every scan decodes into one coefficient buffer; then the IDCT,
-// upsampling and colour conversion run once.
+// Every DCT scan decodes into one coefficient buffer; then the IDCT (with
+// block smoothing when asked), upsampling and colour conversion run once.
 // Returns 0 or a negative error code.
 long jpeg_decode(const uint8_t *data, long data_len, const int32_t *frame,
                  const uint16_t *quant, const int32_t *scans, long nscans,
-                 const uint8_t *huff, uint8_t *out) {
+                 const uint8_t *huff, const uint8_t *cond, uint8_t *out) {
   const long width = frame[0], height = frame[1];
   const int ncomp = frame[2];
   const int color = frame[3];
-  const bool progressive = frame[4] != 0;
+  const int coding = frame[4];
+  const bool progressive = coding & 1, arith = coding & 2, lossless = coding & 4;
+  const bool smoothing = (coding & 8) && progressive;
   if (ncomp != 1 && ncomp != 3 && ncomp != 4) return kUnsupported;
   if (width <= 0 || height <= 0) return kCorrupt;
+  if (lossless && (progressive || color != 0)) return kUnsupported;
   int hmax = 1, vmax = 1;
   std::vector<Component> comps(ncomp);
   for (int c = 0; c < ncomp; c++) {
@@ -1091,8 +1538,13 @@ long jpeg_decode(const uint8_t *data, long data_len, const int32_t *frame,
     if (comps[c].h > hmax) hmax = comps[c].h;
     if (comps[c].v > vmax) vmax = comps[c].v;
   }
-  const long mcux = (width + 8 * hmax - 1) / (8 * hmax);
-  const long mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+  const int32_t *coef_bits = frame + 5 + 2 * ncomp;
+  // A DCT file's MCU is 8x8 samples of a 1x1 component, a lossless one's
+  // 1 sample.
+  const int unit = lossless ? 1 : 8;
+  const long mcux = (width + unit * hmax - 1) / (unit * hmax);
+  const long mcuy = (height + unit * vmax - 1) / (unit * vmax);
+  std::vector<LosslessPlane> planes(lossless ? ncomp : 0);
   for (int c = 0; c < ncomp; c++) {
     Component &k = comps[c];
     if (hmax % k.h || vmax % k.v) return kUnsupported;
@@ -1100,8 +1552,21 @@ long jpeg_decode(const uint8_t *data, long data_len, const int32_t *frame,
     k.bh = (int)(mcuy * k.v);
     k.dw = (int)((width * k.h + hmax - 1) / hmax);
     k.dh = (int)((height * k.v + vmax - 1) / vmax);
-    k.coef.assign((size_t)k.bw * k.bh * 64, 0);
     k.qt = quant + 64 * c;
+    if (lossless) {
+      LosslessPlane &p = planes[c];
+      p.h = k.h;
+      p.v = k.v;
+      p.dw = k.dw;
+      p.dh = k.dh;
+      p.pw = k.bw;
+      p.ph = k.bh;
+      p.diff.assign((size_t)p.pw * p.ph, 0);
+      p.undiff.assign((size_t)p.pw * p.ph, 0);
+      p.out.assign((size_t)p.dw * p.dh, 0);
+    } else {
+      k.coef.assign((size_t)k.bw * k.bh * 64, 0);
+    }
   }
 
   for (long s = 0; s < nscans; s++) {
@@ -1110,24 +1575,170 @@ long jpeg_decode(const uint8_t *data, long data_len, const int32_t *frame,
     int ns = sc[3];
     const int ss = sc[4], se = sc[5], ah = sc[6], al = sc[7];
     if (off < 0 || len < 0 || off + len > data_len || ns < 1 || ns > 4) return kCorrupt;
-    // Which tables the scan reads: a sequential scan both, a progressive
-    // DC first scan its DC tables, a DC refinement none, an AC scan its AC
-    // table.
+    // Which tables the scan reads: a sequential or lossless scan its DC
+    // tables (and a sequential one its AC tables), a progressive DC first
+    // scan its DC tables, a DC refinement none, an AC scan its AC table.
     const bool need_dc = !progressive || (ss == 0 && ah == 0);
-    const bool need_ac = !progressive || ss > 0;
+    const bool need_ac = !lossless && (!progressive || ss > 0);
     Huffman tables[8];
     const uint8_t *spec = huff + s * 8 * 272;
-    for (int t = 0; t < 8; t++) build_huffman(spec + t * 272, tables[t]);
+    if (!arith)
+      for (int t = 0; t < 8; t++) build_huffman(spec + t * 272, tables[t]);
     int ci[4], td[4], ta[4];
     for (int j = 0; j < ns; j++) {
       ci[j] = sc[8 + 3 * j];
       td[j] = sc[9 + 3 * j];
       ta[j] = sc[10 + 3 * j];
-      if (ci[j] < 0 || ci[j] >= ncomp || td[j] < 0 || td[j] > 3 || ta[j] < 0 || ta[j] > 3)
+      const int ntab = arith ? 16 : 4;
+      if (ci[j] < 0 || ci[j] >= ncomp || td[j] < 0 || td[j] >= ntab || ta[j] < 0 || ta[j] >= ntab)
         return kCorrupt;
-      if ((need_dc && !tables[td[j]].defined) || (need_ac && !tables[4 + ta[j]].defined))
+      if (!arith && ((need_dc && !tables[td[j]].defined) || (need_ac && !tables[4 + ta[j]].defined)))
         return kCorrupt;
+      if (lossless)  // jdhuff.c: a lossless DC table's symbols are 0-16
+        for (int i = 0; i < 256; i++)
+          if (tables[td[j]].vals[i] > 16 && i < tables[td[j]].total) return kCorrupt;
     }
+    // Non-interleaved: one block (or sample) per MCU over the component's
+    // own grid; interleaved: h x v of each component per MCU.
+    long mcols, mrows;
+    if (ns == 1) {
+      const Component &k = comps[ci[0]];
+      mcols = (k.dw + unit - 1) / unit;
+      mrows = (k.dh + unit - 1) / unit;
+    } else {
+      mcols = mcux;
+      mrows = mcuy;
+    }
+
+    if (lossless) {
+      // jddiffct.c: restarts come at MCU-row boundaries only.
+      if (ri % mcols) return kCorrupt;
+      const long restart_rows = ri / mcols;
+      for (int c = 0; c < ncomp; c++) planes[c].first_row = true;
+      BitReader br(data + off, len);
+      long rows_to_go = restart_rows;
+      bool insufficient = false;
+      // iMCU rows: an interleaved scan's MCU row, or v rows of the one
+      // component (fewer in the last).
+      const long total_imcu = (height + vmax - 1) / vmax;
+      long mrow = 0;
+      for (long imcu = 0; imcu < total_imcu; imcu++) {
+        long nrows = 1;
+        if (ns == 1) {
+          const long v = comps[ci[0]].v;
+          nrows = v;
+          if (imcu == total_imcu - 1 && comps[ci[0]].dh % v) nrows = comps[ci[0]].dh % v;
+        }
+        for (long yo = 0; yo < nrows; yo++, mrow++) {
+          if (restart_rows) {
+            if (rows_to_go == 0) {
+              if (br.restart()) insufficient = false;
+              for (int c = 0; c < ncomp; c++) planes[c].first_row = true;
+              rows_to_go = restart_rows;
+            }
+          }
+          if (insufficient) {  // out of data: zero differences, predictors reset
+            for (int j = 0; j < ns; j++) {
+              LosslessPlane &p = planes[ci[j]];
+              const long rows = ns == 1 ? 1 : p.v;
+              std::fill_n(&p.diff[(size_t)mrow * rows * p.pw], (size_t)rows * p.pw, 0);
+            }
+            for (int c = 0; c < ncomp; c++) planes[c].first_row = true;
+          } else {
+            for (long mx = 0; mx < mcols; mx++)
+              for (int j = 0; j < ns; j++) {
+                LosslessPlane &p = planes[ci[j]];
+                const Huffman &dc = tables[td[j]];
+                const int bv = ns == 1 ? 1 : p.v, bh = ns == 1 ? 1 : p.h;
+                for (int by = 0; by < bv; by++)
+                  for (int bx = 0; bx < bh; bx++) {
+                    int t = br.decode(dc);
+                    int d = 0;
+                    if (t == 16)
+                      d = 32768;
+                    else if (t)
+                      d = extend(br.bits(t), t);
+                    p.diff[(size_t)(mrow * bv + by) * p.pw + mx * bh + bx] = d;
+                  }
+              }
+            insufficient = br.hit_end();
+          }
+          if (restart_rows) rows_to_go--;
+        }
+        for (int j = 0; j < ns; j++) {
+          LosslessPlane &p = planes[ci[j]];
+          const long first = imcu * p.v;
+          for (long y = first; y < std::min<long>(first + p.v, p.dh); y++)
+            undifference_row(p, y, ss, al);
+        }
+      }
+      continue;
+    }
+
+    if (arith) {
+      ArithDecoder dec(data + off, len);
+      dec.reset();
+      ArithStats st;
+      st.cond = cond + s * 48;
+      int ctx[4], last[4];
+      auto reset = [&]() {
+        for (int j = 0; j < ns; j++) {
+          if (need_dc) std::memset(st.dc[td[j]], 0, 64);
+          if (need_ac) std::memset(st.ac[ta[j]], 0, 256);
+          ctx[j] = last[j] = 0;
+        }
+      };
+      reset();
+      auto block = [&](int j, int16_t *blk) -> bool {
+        if (!progressive) {
+          if (!arith_dc(dec, st, td[j], ctx[j], last[j])) return false;
+          blk[0] = (int16_t)last[j];
+          return arith_ac(dec, st, ta[j], 1, 63, 0, blk);
+        }
+        if (ss == 0 && ah == 0) {
+          if (!arith_dc(dec, st, td[j], ctx[j], last[j])) return false;
+          blk[0] = (int16_t)(int)((unsigned)last[j] << al);
+          return true;
+        }
+        if (ss == 0) {
+          if (dec.decode(&st.fixed)) blk[0] = (int16_t)(blk[0] | (1 << al));
+          return true;
+        }
+        if (ah == 0) return arith_ac(dec, st, ta[j], ss, se, al, blk);
+        return arith_ac_refine(dec, st, ta[j], ss, se, al, blk);
+      };
+      long todo = ri;
+      int next_rst = 0;
+      for (long m = 0; m < mcols * mrows; m++) {
+        if (ri > 0) {
+          if (todo == 0) {
+            dec.restart(next_rst);
+            next_rst = (next_rst + 1) & 7;
+            reset();
+            todo = ri;
+          }
+          todo--;
+        }
+        if (dec.broken()) continue;
+        const long my = m / mcols, mx = m % mcols;
+        bool ok = true;
+        for (int j = 0; j < ns && ok; j++) {
+          Component &k = comps[ci[j]];
+          if (ns == 1) {
+            ok = block(j, &k.coef[((size_t)my * k.bw + mx) * 64]);
+          } else {
+            for (int by = 0; by < k.v && ok; by++)
+              for (int bx = 0; bx < k.h && ok; bx++) {
+                size_t row = (size_t)my * k.v + by, col = (size_t)mx * k.h + bx;
+                ok = block(j, &k.coef[(row * k.bw + col) * 64]);
+              }
+          }
+        }
+        if (!ok) dec.set_broken();
+      }
+      continue;
+    }
+
     BitReader br(data + off, len);
     int pred[4] = {0, 0, 0, 0};
     long eobrun = 0;
@@ -1148,28 +1759,18 @@ long jpeg_decode(const uint8_t *data, long data_len, const int32_t *frame,
         ac_refine(br, ac, ss, se, al, eobrun, blk);
       }
     };
-    // Non-interleaved: one block per MCU over the component's own block
-    // grid; interleaved: h x v blocks of each component per MCU.
-    long mcols, mrows;
-    if (ns == 1) {
-      const Component &k = comps[ci[0]];
-      mcols = (k.dw + 7) / 8;
-      mrows = (k.dh + 7) / 8;
-    } else {
-      mcols = mcux;
-      mrows = mcuy;
-    }
     const long total = mcols * mrows;
     long todo = ri;  // MCUs left in this restart interval
     bool skip = false;
     for (long m = 0; m < total; m++) {
       if (ri > 0) {
         if (todo == 0) {
-          br.restart();
+          // libjpeg keeps its out-of-data flag when no restart marker
+          // follows (jdhuff.c process_restart).
+          if (br.restart()) skip = false;
           pred[0] = pred[1] = pred[2] = pred[3] = 0;
           eobrun = 0;
           todo = ri;
-          skip = false;
         }
         todo--;
       }
@@ -1191,24 +1792,38 @@ long jpeg_decode(const uint8_t *data, long data_len, const int32_t *frame,
     }
   }
 
-  // IDCT every block into its component plane, then upsample to full
-  // resolution and convert.
-  const long full_w = mcux * hmax * 8, full_h = mcuy * vmax * 8;
+  // Each component's plane at its own resolution (the IDCT of every
+  // block, or the lossless samples), then upsampled to full resolution
+  // and converted. A lossless file has no fancy upsampling (libjpeg-turbo
+  // does it only for DCT sizes above 1).
+  const long full_w = lossless ? width : mcux * hmax * 8;
+  const long full_h = lossless ? height : mcuy * vmax * 8;
   std::vector<std::vector<uint8_t>> up(ncomp);
   for (int c = 0; c < ncomp; c++) {
     Component &k = comps[c];
-    const long stride = (long)k.bw * 8;
-    std::vector<uint8_t> plane((size_t)stride * k.bh * 8);
-    for (long by = 0; by < k.bh; by++)
-      for (long bx = 0; bx < k.bw; bx++)
-        idct_islow(&k.coef[((size_t)by * k.bw + bx) * 64], k.qt,
-                   plane.data() + by * 8 * stride + bx * 8, stride);
-    std::vector<int16_t>().swap(k.coef);
+    std::vector<uint8_t> plane;
+    long stride;
+    if (lossless) {
+      plane.swap(planes[c].out);
+      stride = k.dw;
+    } else {
+      stride = (long)k.bw * 8;
+      plane.resize((size_t)stride * k.bh * 8);
+      if (smoothing) {
+        idct_smoothed(k, k.v, mcuy, coef_bits + 10 * c, plane.data());
+      } else {
+        for (long by = 0; by < k.bh; by++)
+          for (long bx = 0; bx < k.bw; bx++)
+            idct_islow(&k.coef[((size_t)by * k.bw + bx) * 64], k.qt,
+                       plane.data() + by * 8 * stride + bx * 8, stride);
+      }
+      std::vector<int16_t>().swap(k.coef);
+    }
     up[c].resize((size_t)full_w * full_h);
     const long ow = std::min<long>(full_w, (long)k.dw * (hmax / k.h));
     const long oh = std::min<long>(full_h, (long)k.dh * (vmax / k.v));
     std::vector<uint8_t> tmp((size_t)ow * oh);
-    upsample(k, hmax, vmax, plane.data(), tmp.data(), ow, oh);
+    upsample(k, hmax, vmax, plane.data(), stride, !lossless, tmp.data(), ow, oh);
     for (long y = 0; y < height; y++) std::memcpy(&up[c][y * full_w], &tmp[y * ow], width);
   }
   if (ncomp == 1) {

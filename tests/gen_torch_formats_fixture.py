@@ -20,8 +20,10 @@
   PNG and zstd TIFF files of phase 8 (l) (chip_smoke.codec_files,
   "codecs") and of its icons (chip_smoke.icon_files, "icons"), of the
   Sun raster, IM, MSP, XBM and XPM files of phase 8 (m)
-  (chip_smoke.legacy_files, "legacy") and of the damaged LZMA TIFF below
-  ("lzma damaged");
+  (chip_smoke.legacy_files, "legacy"), of the damaged LZMA TIFF below
+  ("lzma damaged") and of the arithmetic-coded and lossless JPEGs of
+  phase 8 (n) that Pillow reads (chip_smoke.jpeg_coding_files, "jpeg
+  codings", read with Pillow's read block raised to the whole file);
 * tests/fixtures/torch_lzma_damaged.tif: a 64x256 gradient as one
   xz-compressed strip (no check) with bits flipped where liblzma fills the
   strip before it finds the damage, so that Pillow's libtiff reads it
@@ -45,7 +47,7 @@ The port must decode the files to those planes and encode the arrays to
 those bytes (tests/test_torch_images.py, tests/test_torch_jpeg_encode.py,
 tests/test_torch_gif_webp.py, tests/test_torch_raster_formats.py and
 tests/test_torch_icons_codecs.py and tests/test_torch_legacy_rasters.py
-here; chip_smoke.py phase 8 (e), (f) and (h)-(m) on the card, with Pillow
+here; chip_smoke.py phase 8 (e), (f) and (h)-(n) on the card, with Pillow
 blocked).
 """
 
@@ -174,6 +176,24 @@ def legacy_planes() -> dict:
     return out
 
 
+def jpeg_coding_planes() -> dict:
+    """{file name: Pillow's plane hashes} of phase 8 (n)'s files that
+    Pillow reads (chip_smoke.jpeg_coding_files), with its read block
+    raised to the file: Pillow fails on arithmetic-coded data past its
+    first 64 KiB read, libjpeg-turbo given the whole file decodes it."""
+    img1, img2, _ = chip_smoke.synth_sem_pair(chip_smoke.SIZE, chip_smoke.SIZE)
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        for kind, paths in chip_smoke.jpeg_coding_files(td, img1, img2).items():
+            for path in paths if kind != "refused" else ():
+                with Image.open(path) as im:
+                    im.decodermaxblock = os.path.getsize(path)
+                    out[os.path.basename(path)] = {
+                        "l": sha256(np.asarray(im.convert("L")).tobytes()),
+                        "rgb": sha256(np.asarray(im.convert("RGB")).tobytes())}
+    return out
+
+
 def lzma_damaged_strip() -> tuple[np.ndarray, bytes]:
     """(pixels, strip) of the damaged LZMA fixture: the 64x256 gradient of
     tests/test_torch_icons_codecs.py::test_seeded_lzma_damage_reads_where_pillow_reads
@@ -220,7 +240,8 @@ def main():
     with open(chip_smoke.FORMATS_SHA256, "w") as fh:
         json.dump({"decoder": decoder, "encoder": encoder, "phase8": phase8_planes(),
                    "gif_webp": gif_webp_planes(), "raster": raster_planes(), "codecs": codecs,
-                   "icons": icons, "legacy": legacy_planes(), "lzma damaged": lzma_fixture()},
+                   "icons": icons, "legacy": legacy_planes(), "lzma damaged": lzma_fixture(),
+                   "jpeg codings": jpeg_coding_planes()},
                   fh, indent=1,
                   sort_keys=True)
         fh.write("\n")

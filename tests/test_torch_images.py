@@ -8,8 +8,9 @@ refuses it too.
 The files are written at test time from a numpy seed: by Pillow, or, for
 what Pillow does not write (big-endian TIFF, 16-bit RGB PNG, every PNG
 row filter, Adam7 and 1/2/4-bit PNG, an eXIf chunk after the image
-data, tiled, planar, 16-bit RGB and BigTIFF files, YCCK JPEG), by the
-small writers here, with Pillow as the reader of record.
+data, tiled, planar, 16-bit RGB and BigTIFF files, YCCK JPEG, JPEG-in-TIFF
+strips coded arithmetically or losslessly), by the small writers here and
+chip_smoke.py's, with Pillow as the reader of record.
 """
 
 import io
@@ -227,9 +228,29 @@ def _jpeg_stream(px: np.ndarray, tables: bool) -> tuple[bytes, bytes]:
     return chip_smoke.split_jpeg_tables(buf.getvalue()) if tables else (b"", buf.getvalue())
 
 
+def _arith_strip(part: np.ndarray) -> bytes:
+    """An arithmetic-coded YCbCr 4:2:0 JPEG of RGB (rows, w, 3) samples, a
+    strip of a JPEG TIFF (chip_smoke.arith_jpeg; libjpeg's quality-80
+    tables)."""
+    from cybervision_tpu_torch.imageio.jpeg_encode import quant_tables
+
+    h, w = part.shape[:2]
+    sampling = [(2, 2), (1, 1), (1, 1)]
+    quant = quant_tables(80)
+    return chip_smoke.arith_jpeg(chip_smoke.dct_coefficients(
+        chip_smoke.ycbcr_planes(part, sampling), quant, sampling, w, h), quant, w, h, sampling)
+
+
+def _lossless_strip(part: np.ndarray) -> bytes:
+    """A lossless JPEG (predictor 6) of (rows, w, c) samples, a strip of a
+    JPEG TIFF (chip_smoke.lossless_jpeg)."""
+    return chip_smoke.lossless_jpeg([part[:, :, k] for k in range(part.shape[2])], 6)
+
+
 def _tiff_file(path, px, endian="<", big=False, tile=None, planar=False, compression=1,
                predictor=1, photometric=None, extra=None, rows_per_strip=7, extra_tags=(),
-               bits=None, fill_order=1, t4_options=0, jpeg_tables=True, codec=None):
+               bits=None, fill_order=1, t4_options=0, jpeg_tables=True, codec=None,
+               jpeg_coder=None):
     """A TIFF of px ((h, w) or (h, w, c): uint8, uint16, int16, int32,
     uint32, float32 or float64 samples; 1, 2, 4 or 12-bit ones as `bits`
     of a uint8 / uint16 array) in strips or `tile` = (width, length) tiles
@@ -241,7 +262,8 @@ def _tiff_file(path, px, endian="<", big=False, tile=None, planar=False, compres
     floating-point predictor (3), fill order 2 (every strip's bytes
     bit-reversed), classic or BigTIFF; extra_tags: (tag, type, values or
     bytes); codec: the coder (raw bytes -> bytes) of any other
-    compression."""
+    compression; jpeg_coder: the JPEG coder (samples -> a whole JPEG
+    stream, no JPEGTables) of each strip or tile in place of Pillow's."""
     h, w = px.shape[:2]
     spp = 1 if px.ndim == 2 else px.shape[2]
     px3 = px.reshape(h, w, spp)
@@ -273,7 +295,9 @@ def _tiff_file(path, px, endian="<", big=False, tile=None, planar=False, compres
                         diff = planes.astype(np.int64)
                         diff[:, spp if not planar else 1 :] -= planes[:, : -(spp if not planar else 1)]
                         raw = (diff % 256).astype(np.uint8).tobytes()
-                if compression == 7:
+                if compression == 7 and jpeg_coder:
+                    chunk = jpeg_coder(part)
+                elif compression == 7:
                     tables, chunk = _jpeg_stream(part, jpeg_tables)
                 elif compression in (2, 3, 4):
                     chunk = _ccitt(part.reshape(rows, -1), compression, t4_options)
@@ -967,6 +991,11 @@ CASES = {
                                              photometric=6, extra_tags=[(530, 3, [2, 2])]),
     "tif jpeg gray tiles (MM)": _sample_tiff("L", size=(45, 50), compression=7, tile=(16, 32),
                                              endian=">"),
+    "tif jpeg arithmetic YCbCr 2x2 strips": _sample_tiff(
+        "RGB", compression=7, rows_per_strip=16, photometric=6, extra_tags=[(530, 3, [2, 2])],
+        jpeg_coder=_arith_strip),
+    "tif jpeg lossless RGB strips": _sample_tiff("RGB", compression=7, rows_per_strip=16,
+                                                 jpeg_coder=_lossless_strip),
     "tif sem F32 databar 60": _sample_tiff("F32", databar=60),
     "tif sem jpeg YCbCr databar 60": _sample_tiff("RGB", databar=60, compression=7,
                                                   rows_per_strip=16, photometric=6,
@@ -1063,24 +1092,24 @@ def test_jpeg_and_lzw_without_native_name_the_compiler(tmp_path, monkeypatch):
             timages.SourceImage.load(path)
 
 
-def _sof_rewritten(path, rng, marker: int, precision: int = 8):
-    """A baseline JPEG whose SOF0 marker (and sample precision) is
-    rewritten: the frame of an arithmetic-coded, lossless or 12-bit
-    file, the rest of the file unchanged."""
+def _sof_rewritten(path, rng, marker: int, precision: int = 8, components: int = 3):
+    """A baseline JPEG whose SOF0 marker, sample precision or component
+    count is rewritten: the frame of a 12-bit, hierarchical or
+    2-component file, the rest of the file unchanged."""
     buf = io.BytesIO()
     Image.fromarray(_texture(rng, 24, 24, 3)).save(buf, "JPEG")
     data = bytearray(buf.getvalue())
     at = data.find(b"\xff\xc0")
-    data[at + 1], data[at + 4] = marker, precision
+    data[at + 1], data[at + 4], data[at + 9] = marker, precision, components
     with open(path, "wb") as fh:
         fh.write(bytes(data))
 
 
 # kind -> (extension, whether Pillow reads the file)
 UNSUPPORTED = {
-    "arithmetic-coded jpeg": ("jpg", False),
     "12-bit jpeg": ("jpg", False),
-    "lossless jpeg": ("jpg", False),
+    "hierarchical jpeg": ("jpg", False),
+    "2-component jpeg": ("jpg", False),
     "jpeg 2000 (jp2 boxes)": ("jp2", True),
     "jpeg 2000 (j2k codestream)": ("j2k", True),
     "avif": ("avif", True),
@@ -1089,8 +1118,17 @@ UNSUPPORTED = {
     "uncompressed YCbCr tiff": ("tif", False),
     "LAB tiff": ("tif", False),
 }
-# Kinds Pillow does not read either: refused without "yet".
-PILLOW_REFUSES_TOO = ("uncompressed YCbCr tiff", "LAB tiff")
+# Kinds Pillow does not read either, refused without "yet", and what the
+# port's refusal says: the TIFFs and hierarchical JPEG by name; 12-bit
+# and 2-component JPEG fail Pillow's open, so Image.open tries its other
+# plugins and none takes them.
+PILLOW_REFUSES_TOO = {
+    "uncompressed YCbCr tiff": "not supported: Pillow",
+    "LAB tiff": "not supported: Pillow",
+    "hierarchical jpeg": "not supported: libjpeg-turbo",
+    "12-bit jpeg": "nor any other Pillow plugin",
+    "2-component jpeg": "nor any other Pillow plugin",
+}
 
 
 def _unsupported(kind, path):
@@ -1106,14 +1144,14 @@ def _unsupported(kind, path):
         idx, colours = chip_smoke.quantised(np.asarray(im), 4)
         with open(path, "wb") as fh:
             fh.write(chip_smoke.xpm_file(idx, colours, 1))
-    elif kind in PILLOW_REFUSES_TOO:
+    elif kind.endswith("tiff"):
         im.convert("YCbCr" if kind.startswith("uncompressed YCbCr") else "LAB").save(path)
-    elif kind == "arithmetic-coded jpeg":
-        _sof_rewritten(path, rng, 0xC9)
     elif kind == "12-bit jpeg":
         _sof_rewritten(path, rng, 0xC1, precision=12)
-    elif kind == "lossless jpeg":
-        _sof_rewritten(path, rng, 0xC3)
+    elif kind == "hierarchical jpeg":
+        _sof_rewritten(path, rng, 0xC5)
+    elif kind == "2-component jpeg":
+        _sof_rewritten(path, rng, 0xC0, components=2)
 
 
 @pytest.mark.parametrize("kind", sorted(UNSUPPORTED))
@@ -1121,8 +1159,9 @@ def test_unsupported_formats_raise_their_named_error(tmp_path, kind):
     """The kinds the readers leave out (ROADMAP.md) raise
     UnsupportedImageError with "not supported yet"; where Pillow reads
     the file, the refusal is a gap of the port, named. The kinds Pillow
-    does not read either (uncompressed YCbCr and CIELAB TIFF: the JAX
-    package fails on them) are refused without "yet"."""
+    does not read either (uncompressed YCbCr and CIELAB TIFF, 12-bit,
+    hierarchical and 2-component JPEG: the JAX package fails on them) are
+    refused without "yet"."""
     ext, pillow_reads = UNSUPPORTED[kind]
     path = str(tmp_path / f"u.{ext}")
     _unsupported(kind, path)
@@ -1131,7 +1170,7 @@ def test_unsupported_formats_raise_their_named_error(tmp_path, kind):
             im.load()
     if kind in PILLOW_REFUSES_TOO:
         assert isinstance(_jax_load(path), Exception)
-        with pytest.raises(UnsupportedImageError, match="not supported: Pillow") as err:
+        with pytest.raises(UnsupportedImageError, match=PILLOW_REFUSES_TOO[kind]) as err:
             timages.SourceImage.load(path)
         assert "yet" not in str(err.value)
         return
@@ -1172,10 +1211,11 @@ def _jpeg_scans(data: bytes) -> list[tuple[int, int]]:
 def test_progressive_jpeg_needing_block_smoothing_raises():
     """A progressive file whose last refinement scan is cut leaves AC
     1-9 of a component unrefined: libjpeg decodes it with block
-    smoothing (its pixels differ from the plain decode), the port raises
-    the named error. Cutting a scan that leaves every such coefficient
-    refined (the first AC scan of Y's 1-5 band, refined later) needs no
-    smoothing: the port then decodes Pillow's planes."""
+    smoothing. The port, which refused it until it smoothed too, now
+    raises nothing: its planes are Pillow's, and differ from the plain
+    decode. Cutting a scan that leaves every such coefficient refined
+    (the first AC scan of Y's 1-5 band, refined later) needs no
+    smoothing. tests/test_torch_jpeg_codings.py holds smoothing in depth."""
     from cybervision_tpu_torch.imageio import jpeg
 
     buf = io.BytesIO()
@@ -1191,14 +1231,11 @@ def test_progressive_jpeg_needing_block_smoothing_raises():
             ref = np.asarray(im.convert("RGB"))
         parsed = jpeg.parse(broken)
         assert parsed.needs_smoothing == smoothed
+        np.testing.assert_array_equal(imageio.to_rgb(*imageio.ImageFile("JPEG", parsed).decode()), ref)
         if smoothed:
-            with pytest.raises(UnsupportedImageError, match="block smoothing"):
-                imageio.ImageFile("JPEG", parsed).decode()
             parsed.needs_smoothing = False  # the plain decode, which libjpeg does not give
             plain = imageio.to_rgb(*imageio.ImageFile("JPEG", parsed).decode())
             assert (plain != ref).any()
-        else:
-            np.testing.assert_array_equal(imageio.to_rgb(*imageio.ImageFile("JPEG", parsed).decode()), ref)
 
 
 @pytest.mark.parametrize("chunk", range(4))
