@@ -218,7 +218,17 @@ Phases, each of which raises on failure:
        refused without "yet". Every plane has the committed SHA-256 of
        Pillow's ("jpeg codings", read with Pillow's read block raised to
        the whole file, since Pillow fails on arithmetic data past its
-       first 64 KiB).
+       first 64 KiB);
+   (o) with Pillow blocked as well (pillow_rest_files): phase 3's pair as
+       colour old-style JPEG-in-TIFFs (ojpeg_tiff: 2x2, tables only) ->
+       PLY, byte-equal to reconstruct's on the decoded planes, as
+       PackBits RGB PSDs -> PNG depth map and as BITPIX 8 FITS files ->
+       PLY, each byte-equal to reconstruct's on the arrays; BASELINE #3's
+       views as CMYK PSDs -> OBJ with --focal-length=43 and (f)'s gates;
+       an interchange-format old-style JPEG-in-TIFF, BITPIX 16 and
+       GZIP_1 FITS, DCX, GBR, IM Tools, IPTC (a JPEG), McIdas, PIXAR and
+       XV files decoded, each timed. Every plane has the committed
+       SHA-256 of Pillow's ("pillow rest").
    One JSON record per run: seconds, phases, decode seconds per file and
    plane, encode (and write) seconds per depth map, launches, the card's
    name and power limit.
@@ -233,7 +243,9 @@ package, and needs no Pillow: images are built in memory or written by
 its own writers (write_tiff, write_bmp, write_gif, write_pgm16,
 write_spider, write_tga_rle, write_png_text_exif, icon_files,
 sun_raster, im_file, msp_file, xbm_file, xpm_file, arith_jpeg,
-lossless_jpeg, writers.encode_png) and the committed fixtures. It prints whether Pillow
+lossless_jpeg, huffman_jpeg, ojpeg_tiff, psd_file, fits_file, dcx_file,
+gbr_file, imt_file, iptc_file, mcidas_file, pixar_file, xv_thumbnail,
+writers.encode_png) and the committed fixtures. It prints whether Pillow
 is installed on the card's machine.
 """
 
@@ -2844,6 +2856,7 @@ def phase_cli_files(counters, smi: str, texture_obj_sha: str) -> dict:
         records.update(cli_codecs_icons(cap, smi, td, img1, img2))
         records.update(cli_legacy_rasters(cap, smi, td, img1, img2))
         records.update(cli_jpeg_codings(cap, smi, td, img1, img2))
+        records.update(cli_pillow_rest(cap, smi, td, img1, img2))
     torch.cuda.empty_cache()
     return records
 
@@ -4638,6 +4651,660 @@ def cli_jpeg_codings(cap, smi: str, td: str, img1, img2) -> dict:
           f" {time.perf_counter() - t_phase:.1f} s")
     if pil:
         raise AssertionError("(n): Pillow was imported")
+    return records
+
+
+# Phase 8 (o)'s writers: old-style JPEG-in-TIFF, PSD, FITS and the small
+# raw formats, which Pillow does not write (tests/test_torch_pillow_rest.py
+# uses them too). Plain Python and numpy.
+
+
+def _scan_entries(coefs: list[np.ndarray], sampling, members, width: int, height: int,
+                  restart: int) -> dict:
+    """The symbols of one baseline scan over the components `members`, in
+    coding order: arrays seg (restart interval), cls (0 DC, 1 AC), tab
+    (table min(c, 1)), symbol, extra (bits), extra_n (their count)."""
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    if len(members) == 1:
+        c = members[0]
+        dw = -(-width * sampling[c][0] // hmax)
+        dh = -(-height * sampling[c][1] // vmax)
+        bw, bh = -(-dw // 8), -(-dh // 8)
+        blocks = coefs[c][:bh, :bw].reshape(-1, 64)
+        comp = np.full(len(blocks), c)
+        mcu = np.arange(len(blocks))
+    else:
+        mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+        parts, comps = [], []
+        for c in members:
+            h, v = sampling[c]
+            b = coefs[c][: mcuy * v, : mcux * h].reshape(mcuy, v, mcux, h, 64)
+            parts.append(b.transpose(0, 2, 1, 3, 4).reshape(mcuy, mcux, v * h, 64))
+            comps.append(np.full((mcuy, mcux, v * h), c))
+        blocks = np.concatenate(parts, axis=2).reshape(-1, 64)
+        comp = np.concatenate(comps, axis=2).reshape(-1)
+        mcu = np.repeat(np.arange(mcux * mcuy), len(comp) // (mcux * mcuy))
+    zz = blocks[:, JPEG_NATURAL].astype(np.int64)
+    seg = mcu // restart if restart else np.zeros(len(mcu), np.int64)
+    diff = np.zeros(len(zz), np.int64)
+    for c in members:
+        idx = np.flatnonzero(comp == c)
+        dc = zz[idx, 0]
+        prev = np.r_[0, dc[:-1]]
+        prev[np.r_[True, seg[idx][1:] != seg[idx][:-1]]] = 0
+        diff[idx] = dc - prev
+
+    def size_bits(v):
+        mag = np.abs(v)
+        n = np.zeros(v.shape, np.int64)
+        nz = mag > 0
+        n[nz] = np.floor(np.log2(mag[nz])).astype(np.int64) + 1
+        return n, np.where(v >= 0, v, v + (1 << n) - 1) & ((1 << n) - 1)
+
+    dc_n, dc_x = size_bits(diff)
+    rows_b, cols_k = np.nonzero(zz[:, 1:])
+    cols_k = cols_k + 1
+    prev_k = np.r_[0, cols_k[:-1]]
+    prev_k[np.r_[True, rows_b[1:] != rows_b[:-1]]] = 0
+    run = cols_k - prev_k - 1
+    ac_n, ac_x = size_bits(zz[rows_b, cols_k])
+    zrl = run // 16
+    zrl_b = np.repeat(rows_b, zrl)
+    last = np.zeros(len(zz), np.int64)
+    last[rows_b] = cols_k  # rows_b ascends: each block's last nonzero coefficient
+    eob_b = np.flatnonzero(last < 63)
+    n_ac = len(rows_b) + len(zrl_b) + len(eob_b)
+    block = np.concatenate([np.arange(len(zz)), rows_b, zrl_b, eob_b])
+    key = np.concatenate([np.zeros(len(zz), np.int64), 2 * cols_k,
+                          np.repeat(2 * cols_k - 1, zrl), np.full(len(eob_b), 200)])
+    order = np.lexsort((key, block))
+    block = block[order]
+    return {
+        "seg": seg[block], "tab": np.minimum(comp, 1)[block],
+        "cls": np.concatenate([np.zeros(len(zz), np.int64), np.ones(n_ac, np.int64)])[order],
+        "symbol": np.concatenate([dc_n, (run % 16) << 4 | ac_n, np.full(len(zrl_b), 0xF0),
+                                  np.zeros(len(eob_b), np.int64)])[order],
+        "extra": np.concatenate([dc_x, ac_x, np.zeros(len(zrl_b) + len(eob_b), np.int64)])[order],
+        "extra_n": np.concatenate([dc_n, ac_n, np.zeros(len(zrl_b) + len(eob_b),
+                                                         np.int64)])[order],
+    }
+
+
+def _huffman_specs(scans: list[dict]) -> dict:
+    """Huffman tables optimised (jchuff.c's way) over the symbols of
+    `scans`: {("dc" or "ac", table): (16 counts, symbols)}."""
+    specs = {}
+    for kind, k in (("dc", 0), ("ac", 1)):
+        for t in sorted({int(t) for e in scans for t in np.unique(e["tab"])}):
+            freq = sum(np.bincount(e["symbol"][(e["cls"] == k) & (e["tab"] == t)], minlength=256)
+                       for e in scans)
+            specs[(kind, t)] = _huffman_code_lengths(freq[:256])
+    return specs
+
+
+def _pack_scan(e: dict, specs: dict) -> list[bytes]:
+    """The scan's entropy-coded data, one bytes object per restart
+    interval (padded with 1 bits, no RSTn markers)."""
+    code = np.zeros(len(e["symbol"]), np.int64)
+    code_n = np.zeros(len(e["symbol"]), np.int64)
+    for (kind, t), spec in specs.items():
+        sel = (e["cls"] == (kind == "ac")) & (e["tab"] == t)
+        lookup = _huffman_codes(*spec)
+        values = np.array([lookup.get(s, (0, 0)) for s in range(256)], np.int64)
+        code[sel], code_n[sel] = values[e["symbol"][sel], 0], values[e["symbol"][sel], 1]
+    seg = e["seg"]
+    bounds = np.r_[0, np.flatnonzero(seg[1:] != seg[:-1]) + 1, len(seg)]
+    return [_pack_bits(np.stack([code[a:b], e["extra"][a:b]], 1).reshape(-1),
+                       np.stack([code_n[a:b], e["extra_n"][a:b]], 1).reshape(-1))
+            for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def huffman_scan(coefs: list[np.ndarray], sampling, members, width: int, height: int,
+                 restart: int = 0) -> tuple[list[bytes], dict]:
+    """The entropy-coded data of one baseline (Huffman, sequential) scan
+    over the components `members` of quantised DCT coefficients `coefs`
+    (as arith_jpeg takes them): one bytes object per restart interval of
+    `restart` MCUs (all of it when 0), each padded with 1 bits, without
+    the RSTn markers; and its Huffman tables, optimised as jchuff.c does,
+    {("dc" or "ac", table): (16 counts, symbols)}. Component c codes with
+    tables min(c, 1)."""
+    e = _scan_entries(coefs, sampling, members, width, height, restart)
+    specs = _huffman_specs([e])
+    return _pack_scan(e, specs), specs
+
+
+def _huffman_segments(specs: dict) -> bytes:
+    return b"".join(_segment(0xC4, bytes([(kind == "ac") << 4 | t]) + bytes(counts)
+                             + bytes(symbols))
+                    for (kind, t), (counts, symbols) in sorted(specs.items()))
+
+
+def huffman_jpeg(coefs: list[np.ndarray], quant: np.ndarray, width: int, height: int,
+                 sampling=None, interleaved: bool = True, restart: int = 0,
+                 markers: bytes = b"") -> tuple[bytes, list[tuple[int, int]]]:
+    """A baseline JPEG (SOF0, optimised Huffman tables) of `coefs` (as
+    arith_jpeg takes them): one interleaved scan, or one scan per
+    component; a DRI of `restart` MCUs and RSTn markers; `markers` after
+    SOI. Also the (offset, length) of each restart interval's data in the
+    file, scan by scan (where a TIFF's strips point)."""
+    n = len(coefs)
+    sampling = sampling or [(1, 1)] * n
+    out = bytearray(b"\xff\xd8" + markers)
+    for t in sorted({min(c, 1) for c in range(n)}):
+        out += _segment(0xDB, bytes([t]) + quant[t][JPEG_NATURAL].astype(np.uint8).tobytes())
+    out += _segment(0xC0, struct.pack(">BHHB", 8, height, width, n) + b"".join(
+        bytes([c + 1, sampling[c][0] << 4 | sampling[c][1], min(c, 1)]) for c in range(n)))
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    places = []
+    scans = [_scan_entries(coefs, sampling, members, width, height, restart)
+             for members in ([tuple(range(n))] if interleaved else [(c,) for c in range(n)])]
+    specs = _huffman_specs(scans)
+    out += _huffman_segments(specs)  # every table before the first scan
+    for members, e in zip([tuple(range(n))] if interleaved else [(c,) for c in range(n)], scans):
+        segments = _pack_scan(e, specs)
+        out += _segment(0xDA, bytes([len(members)]) + b"".join(
+            bytes([c + 1, min(c, 1) << 4 | min(c, 1)]) for c in members) + b"\x00\x3f\x00")
+        for k, data in enumerate(segments):
+            if k:
+                out += bytes([0xFF, 0xD0 + (k - 1) % 8])
+            places.append((len(out), len(data)))
+            out += data
+    return bytes(out + b"\xff\xd9"), places
+
+
+def _tiff_entries(entries: dict, blobs: list[bytes], endian: str = "<") -> bytes:
+    """A classic TIFF of one IFD: `entries` {tag: (type, values)}, a value
+    given as ("blob", k) is the offset of blobs[k], written after the IFD
+    (the only value of a BYTE, ASCII or UNDEFINED tag: blobs[k] itself);
+    RATIONAL values are (numerator, denominator) pairs."""
+    sizes = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 7: "B", 11: "f", 12: "d"}
+    head = 8 + 2 + 12 * len(entries) + 4
+    at, offsets, tail = head, [], bytearray()
+    for b in blobs:
+        offsets.append(at + len(tail))
+        tail += b + b"\0" * (len(b) % 2)
+    ifd = bytearray(struct.pack(endian + "H", len(entries)))
+    for tag in sorted(entries):
+        typ, values = entries[tag]
+        if typ in (1, 2, 7) and len(values) == 1 and isinstance(values[0], tuple):
+            # A byte string held in a blob: its length and offset.
+            k = values[0][1]
+            ifd += struct.pack(endian + "HHII", tag, typ, len(blobs[k]), offsets[k])
+            continue
+        values = [offsets[v[1]] if isinstance(v, tuple) and v[0] == "blob" else v
+                  for v in values]
+        fmt = sizes[typ]
+        raw = (bytes(values) if typ in (1, 2, 7) else
+               struct.pack(endian + fmt * len(values) if typ != 5 else endian + "II" * len(values),
+                           *(values if typ != 5 else [x for v in values for x in v])))
+        count = len(values)
+        if len(raw) <= 4:
+            ifd += struct.pack(endian + "HHI", tag, typ, count) + raw.ljust(4, b"\0")
+        else:
+            ifd += struct.pack(endian + "HHII", tag, typ, count, head + len(tail))
+            tail += raw + b"\0" * (len(raw) % 2)
+    magic = b"II*\0" if endian == "<" else b"MM\0*"
+    return magic + struct.pack(endian + "I", 8) + bytes(ifd) + b"\0\0\0\0" + bytes(tail)
+
+
+def ojpeg_tiff(img: np.ndarray, layout: str = "tables", subsampling=(2, 2),
+               rows_per_strip: int | None = None, tile: tuple[int, int] | None = None,
+               planar: int = 1, quality: int = 90, sem_text: str | None = None,
+               extra_tags: dict | None = None) -> bytes:
+    """An old-style JPEG-in-TIFF (compression 6) of (H, W) gray or (H, W,
+    3) RGB `img` (YCbCr, subsampled by `subsampling`, photometric 6),
+    as libtiff's tif_ojpeg.c reads it: one JPEG frame over the image
+    (strips) or over a column of tiles (`tile` = (width, length), the
+    tile width at least the image's), each strip or tile one restart
+    interval. layout "tables": the strips hold the entropy-coded data
+    only, the tables in JPEGQTables / JPEGDCTables / JPEGACTables (one
+    per component) and JPEGProc 1; "interchange": JPEGInterchangeFormat
+    holds a whole JPEG stream (with DRI and RSTn markers) and the strips
+    point into it. planar 2 (interchange only, 1x1): one scan per
+    component. sem_text: the FEI tag 34683."""
+    from cybervision_tpu_torch.imageio.jpeg_encode import quant_tables
+
+    quant = quant_tables(quality)
+    h, w = img.shape[:2]
+    colour = img.ndim == 3
+    hs, vs = subsampling if colour else (1, 1)
+    sampling = [(hs, vs), (1, 1), (1, 1)] if colour else [(1, 1)]
+    if tile:
+        sw, sl = tile
+        across = -(-w // sw)
+        if across != 1:
+            raise ValueError("ojpeg_tiff: one column of tiles")
+        total = -(-h // sl) * sl
+    else:
+        sw, sl = w, rows_per_strip or h
+        total = h
+    pad = np.pad(img, ((0, total - h), (0, sw - w)) + ((0, 0),) * (img.ndim - 2), mode="edge")
+    planes = ycbcr_planes(pad, sampling) if colour else [pad]
+    coefs = dct_coefficients(planes, quant, sampling, sw, total)
+    n_strips = -(-total // sl) if tile else -(-h // sl)
+    restart = -(-sw // (8 * hs)) * (sl // (8 * vs)) if n_strips > 1 else 0
+    spp = 3 if colour else 1
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * spp), 259: (3, [6]),
+               262: (3, [6 if colour else 1]), 277: (3, [spp]), 284: (3, [planar])}
+    if colour:
+        entries[530] = (3, [hs, vs])
+    if tile:
+        entries[322], entries[323] = (4, [sw]), (4, [sl])
+    else:
+        entries[278] = (4, [sl])
+    off_tag, count_tag = (324, 325) if tile else (273, 279)
+    blobs: list[bytes] = []
+    if sem_text is not None:
+        blobs.append(sem_text.encode() + b"\0")
+        entries[34683] = (2, [("blob", len(blobs) - 1)])
+    if layout == "interchange":
+        stream, places = huffman_jpeg(coefs, quant, sw, total, sampling, planar == 1, restart)
+        blobs.append(stream)
+        k = len(blobs) - 1
+        entries[513], entries[514] = (4, [("blob", k)]), (4, [len(stream)])
+        base = ("blob", k)
+        # The strips' offsets inside the stream, fixed up once it is placed.
+        entries[off_tag] = (4, [("in", k, p) for p, _ in places])
+        entries[count_tag] = (4, [n for _, n in places])
+    else:
+        if planar != 1:
+            raise ValueError("ojpeg_tiff: planar files need the interchange layout")
+        segments, specs = huffman_scan(coefs, sampling, tuple(range(spp)), sw, total, restart)
+        first = len(blobs)
+        blobs += segments
+        qt = [quant[min(c, 1)][JPEG_NATURAL].astype(np.uint8).tobytes() for c in range(spp)]
+        dc = [bytes(specs[("dc", min(c, 1))][0]) + bytes(specs[("dc", min(c, 1))][1])
+              for c in range(spp)]
+        ac = [bytes(specs[("ac", min(c, 1))][0]) + bytes(specs[("ac", min(c, 1))][1])
+              for c in range(spp)]
+        tables = len(blobs)
+        blobs += qt + dc + ac
+        entries[512] = (3, [1])
+        entries[519] = (4, [("blob", tables + c) for c in range(spp)])
+        entries[520] = (4, [("blob", tables + spp + c) for c in range(spp)])
+        entries[521] = (4, [("blob", tables + 2 * spp + c) for c in range(spp)])
+        entries[off_tag] = (4, [("blob", first + k) for k in range(len(segments))])
+        entries[count_tag] = (4, [len(s) for s in segments])
+    entries.update(extra_tags or {})
+    # Offsets inside a blob: its offset plus the place.
+    fixed = {}
+    for tag, (typ, values) in entries.items():
+        if any(isinstance(v, tuple) and v[0] == "in" for v in values):
+            fixed[tag] = values
+            entries[tag] = (typ, [("blob", v[1]) if isinstance(v, tuple) else v for v in values])
+    data = bytearray(_tiff_entries(entries, blobs))
+    if fixed:
+        # Rewrite the "in" values: the blob's offset (now in the IFD) plus
+        # the place; the IFD holds them as LONGs.
+        n = struct.unpack_from("<H", data, 8)[0]
+        for e in range(n):
+            tag, typ, count, value = struct.unpack_from("<HHII", data, 10 + 12 * e)
+            if tag not in fixed:
+                continue
+            at = 10 + 12 * e + 8 if count == 1 else value
+            for j, v in enumerate(fixed[tag]):
+                (base_off,) = struct.unpack_from("<I", data, at + 4 * j)
+                struct.pack_into("<I", data, at + 4 * j, base_off + v[2])
+    return bytes(data)
+
+
+def packbits(rows: np.ndarray) -> tuple[list[int], bytes]:
+    """Each row of (n, W) uint8 in PackBits, as Photoshop writes PSD rows:
+    runs of 3-128 equal bytes as (257 - k, value), the bytes between them
+    as literals of up to 128 (n - 1, bytes). (Each row's byte count, the
+    data.)"""
+    n, w = rows.shape
+    a = rows.reshape(-1).astype(np.int64)
+    col = np.tile(np.arange(w), n)
+    new = np.r_[True, a[1:] != a[:-1]] | (col == 0)
+    starts = np.flatnonzero(new)
+    run_id = np.cumsum(new) - 1
+    length = np.diff(np.r_[starts, a.size])[run_id]
+    pos = np.arange(a.size) - starts[run_id]
+    chunk = np.minimum(length - (pos - pos % 128), 128)
+    in_run = chunk >= 3
+    run_head = in_run & (pos % 128 == 0)
+    lit = ~in_run
+    lit_new = lit & (np.r_[True, ~lit[:-1]] | (col == 0))
+    group_start = np.maximum.accumulate(np.where(lit_new, np.arange(a.size), 0))
+    lit_pos = np.arange(a.size) - group_start
+    group_id = np.cumsum(lit_new) - 1
+    group_len = np.bincount(group_id[lit], minlength=int(lit_new.sum()))
+    lit_chunk = np.minimum(group_len[group_id] - (lit_pos - lit_pos % 128), 128)
+    lit_head = lit & (lit_pos % 128 == 0)
+    emit = np.where(in_run, np.where(run_head, 2, 0), np.where(lit_head, 2, 1))
+    at = np.cumsum(emit) - emit
+    out = np.zeros(int(emit.sum()), np.uint8)
+    out[at[run_head]] = (257 - chunk[run_head]) & 0xFF
+    out[at[run_head] + 1] = a[run_head]
+    out[at[lit_head]] = lit_chunk[lit_head] - 1
+    out[at[lit_head] + 1] = a[lit_head]
+    rest = lit & ~lit_head
+    out[at[rest]] = a[rest]
+    counts = np.add.reduceat(emit, np.arange(0, a.size, w)).tolist()
+    return counts, out.tobytes()
+
+
+def psd_file(channels: np.ndarray, psd_mode: int, width: int, depth: int = 8,
+             compressed: bool = False, colour_data: bytes = b"", layers: bool = False) -> bytes:
+    """A Photoshop file whose composite image is `channels` (C, H, row
+    bytes) uint8 as stored (bitmap mode: rows of (width + 7) // 8 bytes,
+    set bits black; CMYK: each ink inverted), raw or PackBits (per-row
+    counts); colour mode `psd_mode` (0 bitmap, 1 gray, 2 indexed, 3 RGB,
+    4 CMYK, 7 multichannel, 8 duotone, 9 Lab), an image resource
+    (the resolution info), and with `layers` a layer and mask section of
+    one layer (a copy of the composite, raw)."""
+    c, h, row_bytes = channels.shape
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, c, h, width, depth, psd_mode)
+    resolution = struct.pack(">IHHIHH", 72 << 16, 1, 1, 72 << 16, 1, 1)
+    resources = b"8BIM" + struct.pack(">H", 1005) + b"\0\0" + struct.pack(">I", len(resolution)) \
+        + resolution
+    layer_block = b""
+    if layers:
+        record = struct.pack(">iiiiH", 0, 0, h, width, c) + b"".join(
+            struct.pack(">hI", k, 2 + h * row_bytes) for k in range(c))
+        record += b"8BIMnorm" + bytes([255, 0, 0, 0]) + struct.pack(">I", 4 + 4 + 4) \
+            + struct.pack(">II", 0, 0) + b"\x03Top"
+        info = struct.pack(">h", 1) + record + b"".join(
+            b"\0\0" + ch.tobytes() for ch in channels)
+        info += b"\0" * (len(info) % 2)
+        layer_block = struct.pack(">I", len(info)) + info + struct.pack(">I", 0)
+    out = head + struct.pack(">I", len(colour_data)) + colour_data \
+        + struct.pack(">I", len(resources)) + resources + struct.pack(">I", len(layer_block)) \
+        + layer_block
+    if compressed:
+        counts, data = packbits(channels.reshape(c * h, row_bytes))
+        return out + b"\0\x01" + struct.pack(f">{c * h}H", *counts) + data
+    return out + b"\0\0" + channels.tobytes()
+
+
+def _fits_cards(cards: list[tuple[str, str]]) -> bytes:
+    text = "".join(f"{k:<8}= {v:>20}".ljust(80) for k, v in cards) + "END".ljust(80)
+    return text.encode().ljust(-(-len(text) // 2880) * 2880, b" ")
+
+
+def fits_file(px: np.ndarray, bitpix: int, compressed: bool = False,
+              empty_primary: bool = False) -> bytes:
+    """A FITS file of the (H, W) image `px` (top row first), stored as
+    FITS stores an image: big-endian samples of BITPIX `bitpix` (8, 16,
+    32, -32, -64), the bottom row first. `compressed`: an empty primary
+    header and a tile-compressed BINTABLE (ZIMAGE, ZCMPTYPE 'GZIP_1'),
+    one gzip member a row of 4-byte big-endian words; `empty_primary`: the
+    image in an IMAGE extension after an empty primary header."""
+    import gzip
+
+    h, w = px.shape
+    dtype = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    rows = np.ascontiguousarray(px[::-1])
+    if not compressed:
+        data = rows.astype(dtype).tobytes()
+        axes = [("BITPIX", str(bitpix)), ("NAXIS", "2"), ("NAXIS1", str(w)), ("NAXIS2", str(h))]
+        body = data.ljust(-(-len(data) // 2880) * 2880, b"\0")
+        if not empty_primary:
+            return _fits_cards([("SIMPLE", "T"), *axes]) + body
+        return _fits_cards([("SIMPLE", "T"), ("BITPIX", "8"), ("NAXIS", "0"), ("EXTEND", "T")]) \
+            + _fits_cards([("XTENSION", "'IMAGE   '"), *axes, ("PCOUNT", "0"),
+                           ("GCOUNT", "1")]) + body
+    tiles = [gzip.compress(r.astype(">i4").tobytes(), mtime=0) for r in rows]
+    heap = b"".join(tiles)
+    table = b"".join(struct.pack(">ii", len(t), sum(map(len, tiles[:k])))
+                     for k, t in enumerate(tiles))
+    body = (table + heap).ljust(-(-(len(table) + len(heap)) // 2880) * 2880, b"\0")
+    return _fits_cards([("SIMPLE", "T"), ("BITPIX", "8"), ("NAXIS", "0"), ("EXTEND", "T")]) \
+        + _fits_cards([("XTENSION", "'BINTABLE'"), ("BITPIX", "8"), ("NAXIS", "2"),
+                       ("NAXIS1", "8"), ("NAXIS2", str(h)), ("PCOUNT", str(len(heap))),
+                       ("GCOUNT", "1"), ("TFIELDS", "1"), ("TTYPE1", "'COMPRESSED_DATA'"),
+                       ("TFORM1", f"'1PB({max(map(len, tiles))})'"), ("ZIMAGE", "T"),
+                       ("ZBITPIX", str(bitpix)), ("ZNAXIS", "2"), ("ZNAXIS1", str(w)),
+                       ("ZNAXIS2", str(h)), ("ZCMPTYPE", "'GZIP_1  '")]) + body
+
+
+def pcx_file(px: np.ndarray, palette: np.ndarray | None = None) -> bytes:
+    """A PCX (version 5, run-length coded) of (H, W) gray or indices (with
+    a (256, 3) palette) or (H, W, 3) RGB: each byte of 0xC0 and up as a
+    run of one, the others as themselves."""
+    h, w = px.shape[:2]
+    planes = 3 if px.ndim == 3 else 1
+    stride = w + w % 2
+    rows = np.zeros((h, planes, stride), np.uint8)
+    rows[:, :, :w] = px.transpose(0, 2, 1) if planes == 3 else px[:, None]
+    flat = rows.reshape(-1)
+    high = flat >= 0xC0
+    out = np.zeros(len(flat) + int(high.sum()), np.uint8)
+    at = np.arange(len(flat)) + np.cumsum(high) - high
+    out[at[high]] = 0xC1
+    out[at + high] = flat
+    head = struct.pack("<BBBBHHHHHH", 10, 5, 1, 8, 0, 0, w - 1, h - 1, 72, 72) + bytes(48) \
+        + bytes([0, planes]) + struct.pack("<HH", stride, 1)
+    tail = b"" if palette is None else b"\x0c" + np.ascontiguousarray(palette, np.uint8).tobytes()
+    return head.ljust(128, b"\0") + out.tobytes() + tail
+
+
+def dcx_file(pages: list[bytes]) -> bytes:
+    """An Intel DCX of the PCX files `pages`."""
+    at = 4 + 4 * (len(pages) + 1)
+    offsets = []
+    for p in pages:
+        offsets.append(at)
+        at += len(p)
+    return struct.pack(f"<I{len(pages)}II", 0x3ADE68B1, *offsets, 0) + b"".join(pages)
+
+
+def gbr_file(px: np.ndarray, version: int = 2, name: str = "brush") -> bytes:
+    """A GIMP brush of (H, W) gray or (H, W, 4) RGBA."""
+    h, w = px.shape[:2]
+    depth = 4 if px.ndim == 3 else 1
+    tail = name.encode() + b"\0"
+    if version == 1:
+        head = struct.pack(">5I", 20 + len(tail), 1, w, h, depth)
+    else:
+        head = struct.pack(">5I", 28 + len(tail), 2, w, h, depth) + b"GIMP" + struct.pack(">I", 25)
+    return head + tail + np.ascontiguousarray(px, np.uint8).tobytes()
+
+
+def imt_file(px: np.ndarray) -> bytes:
+    """An IM Tools file of (H, W) gray: its key lines, a form feed, the
+    rows."""
+    h, w = px.shape
+    return b"* IM Tools\nwidth %d\nheight %d\npixel n8\n\x0c" % (w, h) + px.tobytes()
+
+
+def iptc_file(payload: bytes, size: tuple[int, int], layers: int = 1, component: int = 0,
+              band: int | None = None, compression: int = 1, chunk: int = 30000) -> bytes:
+    """An IPTC/NAA file: records 1 and 2, then the image's record 3
+    fields (layers, size, compression, band) and `payload` in (8, 10)
+    fields of at most `chunk` bytes (an extended size past 32767)."""
+    def field(rec, ds, data):
+        if len(data) < 0x8000:
+            return bytes([0x1C, rec, ds]) + struct.pack(">H", len(data)) + data
+        return bytes([0x1C, rec, ds, 0x84]) + struct.pack(">I", len(data)) + data
+
+    out = field(1, 0, b"\0\x04") + field(2, 0, b"\0\x04") + field(2, 5, b"seeded image")
+    out += field(3, 60, bytes([layers, component]))
+    out += field(3, 20, struct.pack(">H", size[0])) + field(3, 30, struct.pack(">H", size[1]))
+    out += field(3, 120, bytes([compression]))
+    if band is not None:
+        out += field(3, 65, bytes([band + 1]))
+    for k in range(0, max(len(payload), 1), chunk):
+        out += field(8, 10, payload[k : k + chunk])
+    return out + field(9, 10, b"")
+
+
+def mcidas_file(px: np.ndarray, prefix: int = 0) -> bytes:
+    """A McIdas area file of (H, W) uint8, >u2 or >i4 samples, each line
+    led by `prefix` bytes."""
+    h, w = px.shape
+    size = px.dtype.itemsize
+    words = [0] * 65
+    words[2], words[9], words[10], words[11], words[14] = 4, h, w, size, 1
+    words[15], words[34] = prefix, 256
+    head = struct.pack(">64i", *words[1:])
+    rows = np.ascontiguousarray(px.astype(px.dtype.newbyteorder(">"))).view(np.uint8).reshape(h, -1)
+    rows = np.concatenate([np.full((h, prefix), 0x5A, np.uint8), rows], axis=1)
+    return head + rows.tobytes()
+
+
+def pixar_file(rgb: np.ndarray) -> bytes:
+    """A PIXAR raster of (H, W, 3) RGB."""
+    h, w = rgb.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<4H", head, 416, h, w, 0, 0)
+    struct.pack_into("<2H", head, 424, 14, 2)
+    return bytes(head) + np.ascontiguousarray(rgb, np.uint8).tobytes()
+
+
+def xv_thumbnail(idx: np.ndarray) -> bytes:
+    """An XV thumbnail of (H, W) 3-3-2 indices."""
+    h, w = idx.shape
+    return (b"P7 332\n#XVVERSION:Version 2.28  Rev: 9/26/92\n#IMGINFO:%dx%d RGB\n"
+            b"#END_OF_COMMENTS\n%d %d 255\n" % (w, h, w, h)) + idx.astype(np.uint8).tobytes()
+
+
+def pillow_rest_files(td: str, img1, img2) -> dict[str, list[str]]:
+    """Phase 8 (o)'s inputs: phase 3's pair as colour (gray in all three
+    channels) old-style JPEG-in-TIFFs, 2x2 subsampled, tables-only layout,
+    64 rows a strip (ojpeg_tiff), as PackBits RGB PSDs and as BITPIX 8
+    FITS files; BASELINE #3's views (tint) as CMYK PSDs (raw); and, decoded
+    only, the first view as an interchange-format old-style JPEG-in-TIFF
+    (2x1, 64 rows a strip), a BITPIX 16 FITS, a GZIP_1 tile-compressed
+    FITS, a DCX of two pages, a GIMP brush (RGBA), an IM Tools file, an
+    IPTC/NAA file holding a JPEG (huffman_jpeg), a McIdas area (16-bit
+    samples behind 4-byte line prefixes), a PIXAR raster and an XV
+    thumbnail. tests/gen_torch_formats_fixture.py writes the same files
+    and commits the SHA-256 of Pillow's planes of them ("pillow rest")."""
+    from cybervision_tpu_torch.imageio.jpeg_encode import quant_tables
+
+    views, _, _, _ = render_perspective(PERSP_W, PERSP_H, PERSP_CAMS[:1], exact_focal=True)
+    files: dict[str, list[str]] = {"ojpeg": [], "psd": [], "fits": [], "cmyk psd": [],
+                                   "decode only": []}
+    blobs = {}
+    for k, (img, view) in enumerate(zip((img1, img2), views)):
+        rgb = np.repeat(img[:, :, None], 3, axis=2)
+        blobs[("ojpeg", f"rest_{k}.tif")] = ojpeg_tiff(rgb, "tables", (2, 2), rows_per_strip=64)
+        blobs[("psd", f"rest_{k}.psd")] = psd_file(rgb.transpose(2, 0, 1), 3, img.shape[1],
+                                                   compressed=True)
+        blobs[("fits", f"rest_{k}.fits")] = fits_file(img, 8)
+        # Photoshop stores each CMYK channel inverted (0: full ink).
+        blobs[("cmyk psd", f"rest_view_{k}.psd")] = psd_file(
+            255 - cmyk(tint(view)).transpose(2, 0, 1), 4, view.shape[1])
+    rgb = tint(views[0])
+    gray = (rgb.astype(np.uint32) @ np.array([19595, 38470, 7471]) + 0x8000 >> 16).astype(np.uint8)
+    quant = quant_tables(JPEG_CODING_QUALITY)
+    coefs = dct_coefficients([gray], quant, [(1, 1)], gray.shape[1], gray.shape[0])
+    iptc_jpeg, _ = huffman_jpeg(coefs, quant, gray.shape[1], gray.shape[0])
+    rgba = np.concatenate([rgb, gray[:, :, None]], axis=2)
+    idx332 = (rgb[:, :, 0] & 0xE0) | (rgb[:, :, 1] >> 3 & 0x1C) | rgb[:, :, 2] >> 6
+    for name, data in (
+            ("rest_interchange.tif", ojpeg_tiff(rgb, "interchange", (2, 1), rows_per_strip=64)),
+            ("rest_16.fits", fits_file(gray.astype(np.int64) * 200, 16)),
+            ("rest_gzip.fits", fits_file(gray, 8, compressed=True)),
+            ("rest.dcx", dcx_file([pcx_file(rgb), pcx_file(gray)])),
+            ("rest.gbr", gbr_file(rgba)), ("rest.imt", imt_file(gray)),
+            ("rest.iim", iptc_file(iptc_jpeg, gray.shape[::-1], compression=5)),
+            ("rest.mcidas", mcidas_file(gray.astype(">u2") * 3, prefix=4)),
+            ("rest.pxr", pixar_file(rgb)), ("rest.xv", xv_thumbnail(idx332))):
+        blobs[("decode only", name)] = data
+    for (kind, name), data in blobs.items():
+        files[kind].append(os.path.join(td, name))
+        with open(files[kind][-1], "wb") as fh:
+            fh.write(data)
+    return files
+
+
+def cli_pillow_rest(cap, smi: str, td: str, img1, img2) -> dict:
+    """Phase 8 (o), with every import of Pillow blocked (_NoPillow):
+    pillow_rest_files' pairs through cli.main. The old-style JPEG-in-TIFF
+    pair -> PLY, equal to reconstruct's on the decoded planes (libtiff's
+    YCbCr conversion of the JPEG's samples); the PSD pair -> PNG depth map
+    (--interpolation=none) and the FITS pair -> PLY, each equal to
+    reconstruct's on the arrays (their planes are the arrays); the CMYK
+    PSD views -> OBJ with --focal-length=43 (PSD carries no EXIF), with
+    cli_exif_jpeg_pair's gates. Then the decode-only files, each timed.
+    Every plane has the committed SHA-256 of Pillow's ("pillow rest")."""
+    from cybervision_tpu_torch.config import (
+        InterpolationMode, MeshMode, ProjectionMode, ReconstructionConfig,
+    )
+    from cybervision_tpu_torch.images import SourceImage
+    from cybervision_tpu_torch.reconstruction import reconstruct
+
+    with open(FORMATS_SHA256) as fh:
+        committed = json.load(fh)["pillow rest"]
+    t_phase = t0 = time.perf_counter()
+    files = pillow_rest_files(td, img1, img2)
+    written = time.perf_counter() - t0
+    aff = ProjectionMode.AFFINE
+    ply_cfg = ReconstructionConfig(projection=aff, mesh=MeshMode.VERTEX_COLORS)
+    records = {}
+
+    def same_as_pillow(src, path, rgb_plane=None):
+        want = committed[os.path.basename(path)]
+        rgb_plane = src.load_rgb_plane() if rgb_plane is None else rgb_plane
+        return _plane_sha(src.img) == want["l"] and _plane_sha(rgb_plane) == want["rgb"]
+
+    with _NoPillow():
+        srcs = {kind: [SourceImage.load(p) for p in files[kind]]
+                for kind in ("ojpeg", "psd", "fits", "cmyk psd")}
+        hashes = {kind: all(same_as_pillow(s, p) for s, p in zip(srcs[kind], files[kind]))
+                  for kind in srcs}
+        exact = all(np.array_equal(s.img, im) for kind in ("psd", "fits")
+                    for s, im in zip(srcs[kind], (img1, img2)))
+        print(f"(o) files written in {written:.2f} s"
+              f" ({[os.path.getsize(p) for ps in files.values() for p in ps]} bytes); planes equal"
+              f" to Pillow's (SHA-256) {hashes}; PSD and FITS gray planes equal to the arrays"
+              f" {exact}")
+        if not all(hashes.values()) or not exact:
+            raise AssertionError("(o): the decoded planes are not Pillow's")
+
+        plain = [SourceImage(im) for im in (img1, img2)]
+        mem = []
+        for s in srcs["ojpeg"]:
+            src = SourceImage(s.img)
+            src.load_rgb_plane = functools.partial(np.array, s.load_rgb_plane())
+            mem.append(src)
+        for kind, run_name, ext, cfg, args, images in (
+                ("ojpeg", "ojpeg tiff ply", "ply", ply_cfg, ["--mesh=vertex-colors"], mem),
+                ("psd", "psd png", "png", ReconstructionConfig(
+                    projection=aff, interpolation=InterpolationMode.NONE),
+                 ["--interpolation=none"], plain),
+                ("fits", "fits ply", "ply", ply_cfg, ["--mesh=vertex-colors"], plain)):
+            label = f"(o) {kind} pair {SIZE}x{SIZE} -> {ext.upper()}"
+            ref, out = os.path.join(td, f"mem_o_{kind}.{ext}"), os.path.join(td, f"o_{kind}.{ext}")
+            reconstruct(["a", "b"], ref, cfg, quiet=True, images=images)
+            run = cap.main(["--projection=parallel", *args, *files[kind], out])
+            records[run_name] = cli_record(f"(o) {kind}", run["seconds"], run["rec"].phases,
+                                           run["decode"], run["launches"], smi,
+                                           *([run["encode"]] if ext == "png" else []))
+            same = _sha(out) == _sha(ref)
+            print(f"{label}: {ext.upper()} equal to the in-memory run's"
+                  f" ({'the decoded planes' if kind == 'ojpeg' else 'the arrays'}) {same}")
+            if not same:
+                raise AssertionError(f"{label}: the {ext.upper()} differs from the in-memory"
+                                     " run's")
+
+        records["cmyk psd obj"] = cli_exif_jpeg_pair(
+            cap, smi, td, "(o) CMYK PSD pair", f"(o) CMYK PSD pair {PERSP_W}x{PERSP_H} -> OBJ",
+            files["cmyk psd"], srcs["cmyk psd"], {}, (PERSP_W, PERSP_H),
+            focal_arg=PERSP_FOCAL_35MM)
+
+        decode, ok = {}, {}
+        for p in files["decode only"]:
+            t0 = time.perf_counter()
+            s = SourceImage.load(p)
+            rgb_plane = s.load_rgb_plane()
+            decode[os.path.basename(p)] = time.perf_counter() - t0
+            ok[os.path.basename(p)] = same_as_pillow(s, p, rgb_plane)
+        print(f"(o) decoded only: planes equal to Pillow's (SHA-256) {ok}; decode seconds"
+              f" {json.dumps({k: round(v, 4) for k, v in decode.items()})}")
+        if not all(ok.values()):
+            raise AssertionError("(o): the decode-only planes are not Pillow's")
+        pil = any(m == "PIL" or m.startswith("PIL.") for m in sys.modules)
+    print(f"(o) Pillow imported during the runs {pil}; (o) took"
+          f" {time.perf_counter() - t_phase:.1f} s")
+    if pil:
+        raise AssertionError("(o): Pillow was imported")
     return records
 
 

@@ -2,14 +2,16 @@
 1-16 bits included, EXIF from eXIf or a "Raw profile type exif" text
 chunk), TIFF (the FEI SEM format; strips or tiles, chunky or planar, 1 to
 32-bit integer and float samples, gray, palette, RGB, LA, PA and CMYK,
-LZW, Deflate, LZMA, zstd, CCITT and JPEG strips, classic or BigTIFF),
+LZW, Deflate, LZMA, zstd, CCITT, JPEG and old-style JPEG strips, classic
+or BigTIFF),
 JPEG (sequential or progressive; gray, YCbCr, RGB, CMYK or YCCK), BMP
 and headerless DIB (palettes, 16 to 32 bits, bit fields, RLE), GIF (the
 first frame), WebP (lossless, lossy with alpha, VP8X with EXIF, an
 animation's first frame), Netpbm (PBM, PGM, PPM, PFM, plain or binary),
 ICO and CUR (PNG or BMP entries), ICNS (PNG entries, 24-bit RLE icons
-and their masks), SPIDER, TGA, SGI, PCX, QOI, Sun raster, IM, MSP, XBM
-and XPM, giving what the JAX
+and their masks), SPIDER, TGA, SGI, PCX and DCX, QOI, Sun raster, IM,
+MSP, XBM, XPM, PSD (the composite), FITS (raw or GZIP_1 tiles), GBR, IM
+Tools, IPTC/NAA, McIdas, PIXAR and XV thumbnails, giving what the JAX
 package reads through Pillow — the SEM metadata tag, the EXIF focal
 length, and the planes of convert("L") and convert("RGB"), bit for bit.
 A file goes to the reader of the plugin Pillow's Image.open would pick
@@ -19,24 +21,24 @@ rgba_encode (TIFF, BMP).
 The containers are parsed here in Python; the pixel loops run in the
 native library (native/imagedecode.cpp, native/webpdecode.cpp), built at
 first use. PNG, uncompressed BMP, TGA and SGI, Netpbm, SPIDER, raw Sun
-rasters, IM, MSP version 1, XBM, XPM and uncompressed, PackBits, Deflate
-or LZMA TIFF have a numpy path for when it cannot be built; JPEG, LZW,
-zstd, CCITT, JPEG-in-TIFF, RLE BMP, TGA, SGI, ICNS, Sun and MSP version
-2, IM's bit-packed floats, PCX, QOI, GIF and WebP then raise
-NativeDecoderError.
+rasters, IM, MSP version 1, XBM, XPM, raw PSD, FITS, GBR, IM Tools,
+McIdas, PIXAR, XV thumbnails and uncompressed, PackBits, Deflate or LZMA
+TIFF have a numpy path for when it cannot be built; JPEG, LZW, zstd,
+CCITT, JPEG-in-TIFF (both kinds), RLE BMP, TGA, SGI, ICNS, Sun and MSP
+version 2, IM's bit-packed floats, PCX and DCX, PackBits PSD, QOI, GIF
+and WebP then raise NativeDecoderError.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import re
 import struct
 
 import numpy as np
 
 from cybervision_tpu_torch.imageio import (
-    bmp, exif, gif, icns, ico, im, jpeg, msp, netpbm, pcx, png, qoi, sgi, spider, sun, tga, tiff,
-    webp, xbm, xpm,
+    bmp, exif, fits, gbr, gif, icns, ico, im, imt, iptc, jpeg, mcidas, msp, netpbm, pcx, pixar,
+    png, psd, qoi, sgi, spider, sun, tga, tiff, webp, xbm, xpm, xvthumb,
 )
 from cybervision_tpu_torch.imageio.convert import to_l, to_rgb
 from cybervision_tpu_torch.imageio.errors import (
@@ -114,14 +116,15 @@ class ImageFile:
 # struct.error) passes the file on to the next plugin. TGA and SPIDER have
 # no accept test, so which plugin claims a file depends on the order;
 # identify follows it. The formats the readers do not take are refused by
-# name where their magic claims the file; the plugins before TGA without an
-# accept test (IM, whose reader checks it, IMT, IPTC, PCD) and those with a
-# loose one (GBR, CUR, ICO) get their open checks too, so that a TGA or
-# SPIDER file reaches its reader only where Pillow's would.
+# name where their magic claims the file. Each reader's parse makes its
+# plugin's open checks (NotThisFormat where the open passes the file on:
+# IM, IM Tools and IPTC have no accept test, GBR a loose one); PCD's
+# checks, and CUR's and ICO's loose tests, are made here, so that a TGA
+# or SPIDER file reaches its reader only where Pillow's would.
 
 
-def _u32(data: bytes, at: int, endian: str = "<") -> int | None:
-    return struct.unpack_from(endian + "I", data, at)[0] if len(data) >= at + 4 else None
+def _u32(data: bytes, at: int) -> int | None:
+    return struct.unpack_from("<I", data, at)[0] if len(data) >= at + 4 else None
 
 
 def _u16(data: bytes, at: int) -> int | None:
@@ -132,63 +135,6 @@ def _entries(data: bytes) -> bool:
     """CUR and ICO: a directory of at least one 16-byte entry, all there."""
     n = _u16(data, 4)
     return bool(n) and len(data) >= 6 + 16 * n
-
-
-def _gbr(data: bytes) -> bool:
-    """GbrImagePlugin's accept test and open checks."""
-    head = [_u32(data, 4 * k, ">") for k in range(5)]
-    if None in head[:2] or head[0] < 20 or head[1] not in (1, 2):
-        return False
-    if None in head or head[2] == 0 or head[3] == 0 or head[4] not in (1, 4):
-        return False
-    return head[1] == 1 or data[20:24] == b"GIMP"
-
-
-_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
-
-
-def _imt(data: bytes) -> bool:
-    """ImtImagePlugin's open: "key value" lines with a width, a height and
-    "pixel n8" (the open's mode and size checks)."""
-    buffer, pos = data[:100], 100
-    if b"\n" not in buffer:
-        return False
-    width = height = 0
-    gray = False
-    while True:
-        if buffer:
-            s, buffer = buffer[:1], buffer[1:]
-        else:
-            s, pos = data[pos : pos + 1], pos + 1
-        if not s or s == b"\x0c":
-            break
-        if b"\n" not in buffer:
-            buffer, pos = buffer + data[pos : pos + 100], pos + 100
-        lines = buffer.split(b"\n")
-        s += lines.pop(0)
-        buffer = b"\n".join(lines)
-        if len(s) == 1 or len(s) > 100:
-            break
-        if s[0] == ord("*"):
-            continue
-        m = _IMT_FIELD.match(s)
-        if not m:
-            break
-        key, value = m.group(1, 2)
-        try:
-            if key == b"width":
-                width = int(value)
-            elif key == b"height":
-                height = int(value)
-        except ValueError:
-            return True  # Pillow's open fails on the file
-        gray |= key == b"pixel" and value == b"n8"
-    return gray and width > 0 and height > 0
-
-
-def _iptc(data: bytes) -> bool:
-    s = data[:5]
-    return len(s) >= 3 and s[0] == 0x1C and s[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240)
 
 
 def _avif(prefix: bytes) -> bool:
@@ -211,7 +157,7 @@ _PLUGINS = (
      ("BUFR", "Pillow names it but reads no pixels")),
     ("CUR", lambda d: d.startswith(b"\0\0\2\0") and _entries(d), "CUR"),
     ("PCX", pcx.accept, "PCX"),
-    ("DCX", lambda d: _u32(d, 0) == 0x3ADE68B1, "DCX (multi-page PCX)"),
+    ("DCX", lambda d: _u32(d, 0) == pcx.DCX_MAGIC, "DCX"),
     ("DDS", lambda d: d.startswith(b"DDS "), "DDS"),
     ("EPS", lambda d: d.startswith(b"%!PS") or _u32(d, 0) == 0xC6D3D0C5,
      "EPS (PostScript, which Pillow renders through Ghostscript)"),
@@ -219,7 +165,7 @@ _PLUGINS = (
     ("FLI", lambda d: len(d) >= 16 and _u16(d, 4) in (0xAF11, 0xAF12) and _u16(d, 14) in (0, 3),
      "FLI/FLC animation"),
     ("FTEX", lambda d: d.startswith(b"FTEX"), "FTEX texture"),
-    ("GBR", _gbr, "GBR (GIMP brush)"),
+    ("GBR", gbr.accept, "GBR"),
     ("GRIB", lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1,
      ("GRIB", "Pillow names it but reads no pixels")),
     ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n"),
@@ -229,16 +175,16 @@ _PLUGINS = (
     ("ICNS", lambda d: d.startswith(b"icns"), "ICNS"),
     ("ICO", lambda d: d.startswith(b"\0\0\1\0") and _entries(d), "ICO"),
     ("IM", lambda d: True, "IM"),
-    ("IMT", _imt, "IM Tools"),
-    ("IPTC", _iptc, "IPTC/NAA"),
-    ("MCIDAS", lambda d: d.startswith(b"\0\0\0\0\0\0\0\x04"), "McIdas area"),
+    ("IMT", lambda d: True, "IMT"),
+    ("IPTC", lambda d: True, "IPTC"),
+    ("MCIDAS", lambda d: d.startswith(mcidas.MAGIC), "MCIDAS"),
     ("MPEG", lambda d: d.startswith(b"\0\0\x01\xb3"),
      ("MPEG", "Pillow identifies the stream but reads no pixels")),
     ("TIFF", lambda d: d[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"), "TIFF"),
     ("MSP", msp.accept, "MSP"),
     ("PCD", lambda d: len(d) >= 2048 + 1539 and d[2048:2052] == b"PCD_", "Kodak Photo CD"),
-    ("PIXAR", lambda d: d.startswith(b"\x80\xe8\0\0"), "PIXAR raster"),
-    ("PSD", lambda d: d.startswith(b"8BPS"), "PSD (Photoshop)"),
+    ("PIXAR", lambda d: d.startswith(pixar.MAGIC), "PIXAR"),
+    ("PSD", lambda d: d.startswith(psd.MAGIC), "PSD"),
     ("QOI", lambda d: d.startswith(qoi.MAGIC), "QOI"),
     ("SGI", sgi.accept, "SGI"),
     ("SPIDER", lambda d: True, "SPIDER"),
@@ -250,17 +196,22 @@ _PLUGINS = (
      ("WMF/EMF", "Pillow draws it only through a handler registered on Windows")),
     ("XBM", xbm.accept, "XBM"),
     ("XPM", xpm.accept, "XPM"),
-    ("XVTHUMB", lambda d: d.startswith(b"P7 332"), "XV thumbnail"),
+    ("XVTHUMB", lambda d: d.startswith(xvthumb.MAGIC), "XVThumb"),
 )
 _PARSERS = {"PNG": png.parse, "TIFF": tiff.parse, "BMP": bmp.parse, "DIB": bmp.parse_dib,
             "GIF": gif.parse, "WebP": webp.parse, "PPM": netpbm.parse, "CUR": ico.parse_cur,
             "PCX": pcx.parse, "ICNS": icns.parse, "ICO": ico.parse, "QOI": qoi.parse,
             "SGI": sgi.parse, "SPIDER": spider.parse, "TGA": tga.parse, "IM": im.parse,
-            "MSP": msp.parse, "SUN": sun.parse, "XBM": xbm.parse, "XPM": xpm.parse}
+            "MSP": msp.parse, "SUN": sun.parse, "XBM": xbm.parse, "XPM": xpm.parse,
+            "DCX": pcx.parse_dcx, "FITS": fits.parse, "GBR": gbr.parse, "IMT": imt.parse,
+            "IPTC": iptc.parse, "MCIDAS": mcidas.parse, "PIXAR": pixar.parse, "PSD": psd.parse,
+            "XVThumb": xvthumb.parse}
 _DECODERS = {"PNG": png, "TIFF": tiff, "JPEG": jpeg, "BMP": bmp, "DIB": bmp, "GIF": gif,
              "WebP": webp, "PPM": netpbm, "CUR": bmp, "PCX": pcx, "ICNS": icns, "ICO": ico,
              "QOI": qoi, "SGI": sgi, "SPIDER": spider, "TGA": tga, "IM": im, "MSP": msp,
-             "SUN": sun, "XBM": xbm, "XPM": xpm}
+             "SUN": sun, "XBM": xbm, "XPM": xpm, "DCX": pcx, "FITS": fits, "GBR": gbr,
+             "IMT": imt, "IPTC": iptc, "MCIDAS": mcidas, "PIXAR": pixar, "PSD": psd,
+             "XVThumb": xvthumb}
 
 
 def identify(data: bytes, metadata_only: bool = False) -> tuple[str, object]:
@@ -282,9 +233,10 @@ def identify(data: bytes, metadata_only: bool = False) -> tuple[str, object]:
         except NotThisFormat:
             continue
     raise UnsupportedImageError("this file format is not supported: neither the readers (PNG,"
-                                " TIFF, JPEG, BMP and DIB, GIF, WebP, Netpbm, PCX, ICO and CUR,"
-                                " ICNS, IM, MSP, QOI, SGI, SPIDER, Sun raster, TGA, XBM, XPM)"
-                                " nor any other Pillow plugin take it")
+                                " TIFF, JPEG, BMP and DIB, GIF, WebP, Netpbm, PCX and DCX, ICO"
+                                " and CUR, ICNS, IM, IM Tools, IPTC/NAA, MSP, McIdas, PIXAR, PSD,"
+                                " FITS, GBR, QOI, SGI, SPIDER, Sun raster, TGA, XBM, XPM, XV"
+                                " thumbnail) nor any other Pillow plugin take it")
 
 
 def open_image(path: str, metadata_only: bool = False) -> ImageFile:

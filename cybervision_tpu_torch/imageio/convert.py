@@ -16,6 +16,8 @@ bit, from the modes the readers return:
     (255 - K) - C * (255 - K) / 255 with libImaging's MULDIV255 rounding;
     "L" from "CMYK" goes through that RGB (Pillow has no direct
     converter);
+  * "LAB" (a Lab PSD) converts to neither: Pillow has no "L" from it,
+    and its "RGB" goes through LittleCMS, which the port does not carry;
   * "L" from "YCbCr" is Y; "RGB" from "YCbCr" is ConvertYCbCr.c's
     ImagingConvertYCbCr2RGB: Y plus Cr's (R), Cb's and Cr's (G) and Cb's
     (B) entries of fixed-point tables of 6 fraction bits, each entry
@@ -104,4 +106,8 @@ def to_rgb(mode: str, px: np.ndarray, palette: np.ndarray | None) -> np.ndarray:
         return _cmyk_rgb(px)
     if mode == "YCbCr":
         return _ycc_rgb(px)
+    if mode == "LAB":
+        raise UnsupportedImageError(
+            "conversion of LAB to RGB is not supported: Pillow converts it through LittleCMS's"
+            " Lab -> sRGB transform (and cannot convert it to L, so no run reaches it)")
     raise UnsupportedImageError(f"no conversion to RGB from {mode}")

@@ -18,7 +18,7 @@ EXIF_IFD = 0x8769
 FOCAL_LENGTH_35MM = 41989
 
 # type -> (bytes per value, struct code; None: a byte string)
-_TYPES = {
+TYPES = {
     1: (1, None),   # BYTE
     2: (1, None),   # ASCII
     3: (2, "H"),    # SHORT
@@ -70,12 +70,14 @@ def tiff_file_header(data: bytes) -> tuple[str, int, bool]:
     return (*tiff_header(data), False)
 
 
-def read_ifd(data: bytes, offset: int, endian: str,
-             big: bool = False) -> dict[int, tuple[int, bytes]]:
+def read_ifd(data: bytes, offset: int, endian: str, big: bool = False,
+             every_entry: bool = False) -> dict[int, tuple[int, bytes]]:
     """tag -> (type, raw value bytes) of the directory at `offset` (BigTIFF:
     an 8-byte entry count, 20-byte entries, values inline up to 8 bytes).
     Unknown types and empty values are skipped; a short read ends the
-    walk."""
+    walk, as in Pillow's parser. With `every_entry`, as libtiff reads a
+    directory: a value past the file skips only its entry, and the first
+    of two entries of a tag wins."""
     entries: dict[int, tuple[int, bytes]] = {}
     count_fmt, entry_fmt, inline_size = ("Q", "HHQ8s", 8) if big else ("H", "HHL4s", 4)
     entry_size = struct.calcsize(endian + entry_fmt)
@@ -88,17 +90,19 @@ def read_ifd(data: bytes, offset: int, endian: str,
             break
         tag, typ, n, inline = struct.unpack_from(endian + entry_fmt, data, pos)
         pos += entry_size
-        if typ not in _TYPES:
+        if typ not in TYPES:
             continue
-        size = n * _TYPES[typ][0]
+        size = n * TYPES[typ][0]
         if size > inline_size:
             (at,) = struct.unpack(endian + ("Q" if big else "L"), inline)
             raw = data[at : at + size]
             if len(raw) != size:
+                if every_entry:
+                    continue
                 break
         else:
             raw = inline[:size]
-        if not raw:
+        if not raw or (every_entry and tag in entries):
             continue
         entries[tag] = (typ, raw)
     return entries
@@ -114,7 +118,7 @@ def tag_value(entries: dict[int, tuple[int, bytes]], tag: int, endian: str):
     if tag not in entries:
         return None
     typ, raw = entries[tag]
-    size, code = _TYPES[typ]
+    size, code = TYPES[typ]
     if typ == 2:
         return (raw[:-1] if raw.endswith(b"\x00") else raw).decode("latin-1", "replace")
     if code is None:

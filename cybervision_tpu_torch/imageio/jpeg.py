@@ -49,7 +49,7 @@ _NATURAL = np.array([
 ])
 # The end of an entropy-coded segment: 0xFF neither stuffed (0xFF00) nor
 # starting a restart marker.
-_SEGMENT_END = re.compile(rb"\xff(?![\x00\xd0-\xd7])")
+SEGMENT_END = re.compile(rb"\xff(?![\x00\xd0-\xd7])")
 _HUFF_SPEC = 16 + 256
 # Frame markers: (progressive, arithmetic, lossless) of the ones read.
 _CODINGS = {0xC0: (False, False, False), 0xC1: (False, False, False), 0xC2: (True, False, False),
@@ -126,6 +126,12 @@ def parse(data: bytes, metadata_only: bool = False) -> JpegFile:
             raise TruncatedImageError("JPEG ends before its image data")
         marker = data[pos]
         pos += 1
+        if not scans and marker < 0xC0:
+            # Pillow's open, up to the first scan: 0xFF00 is skipped, any
+            # other marker below 0xFFC0 fails it (the file passes on).
+            if marker == 0x00:
+                continue
+            raise NotThisFormat("no marker found")
         if marker == 0xD9:  # EOI
             break
         if marker == 0x01 or 0xD0 <= marker <= 0xD8:
@@ -227,6 +233,10 @@ def parse(data: bytes, metadata_only: bool = False) -> JpegFile:
                     latched[ci] = qt[tq].copy()
             ss, se, a = body[1 + 2 * ns : 4 + 2 * ns]
             ah, al = a >> 4, a & 15
+            if not arithmetic:
+                if not scans and not progressive and not lossless:
+                    _standard_tables(huff)
+                _check_tables(huff, members, progressive, lossless, ss, ah)
             if lossless:
                 # jdlossls.c start_pass_lossless: a predictor 1-7, Pt below
                 # the precision.
@@ -241,7 +251,7 @@ def parse(data: bytes, metadata_only: bool = False) -> JpegFile:
                 # libjpeg only warns when a sequential scan's band is not
                 # the whole block, and decodes it as one.
                 ss, se, ah, al = 0, 63, 0, 0
-            m = _SEGMENT_END.search(data, pos)
+            m = SEGMENT_END.search(data, pos)
             if m is None:
                 raise TruncatedImageError("JPEG image data is truncated")
             scans.append((pos, m.start() - pos, restart, members, huff.copy(), (ss, se, ah, al),
@@ -272,6 +282,44 @@ def parse(data: bytes, metadata_only: bool = False) -> JpegFile:
                     arithmetic, lossless, coef_bits[:, :10])
 
 
+def _standard_tables(huff: np.ndarray) -> None:
+    """libjpeg-turbo's jinit_huff_decoder (std_huff_tables): DC and AC
+    tables 0 and 1 still undefined when a sequential frame starts
+    decoding are Annex K's (Motion JPEG frames leave them out)."""
+    from cybervision_tpu_torch.imageio.jpeg_encode import STD_HUFF
+
+    for row, spec in zip((0, 4, 1, 5), STD_HUFF):
+        if not huff[row, :16].any():
+            huff[row] = 0
+            huff[row, : len(spec)] = np.frombuffer(spec, np.uint8)
+
+
+def _check_tables(huff: np.ndarray, members: list, progressive: bool, lossless: bool, ss: int,
+                  ah: int) -> None:
+    """jdhuff.c jpeg_make_d_derived_tbl's checks of the tables a Huffman
+    scan reads (fatal in libjpeg): no code of all ones or past its
+    length, DC symbols at most 15 (16 lossless)."""
+    need_dc = not progressive or (ss == 0 and ah == 0)
+    need_ac = not lossless and (not progressive or ss > 0)
+    rows = {td for _, td, _ in members} if need_dc else set()
+    rows |= {4 + ta for _, _, ta in members} if need_ac else set()
+    if any(td > 3 or ta > 3 for _, td, ta in members) and rows:
+        raise CorruptImageError("JPEG scan of a Huffman table past 3")
+    for row in rows:
+        counts = huff[row, :16].astype(np.int64)
+        if not counts.any():
+            continue  # not defined: the native decoder refuses the scan
+        sizes = np.flatnonzero(counts) + 1
+        code = 0
+        for size in range(sizes[0], sizes[-1] + 1):
+            code += int(counts[size - 1])
+            if code >= 1 << size:
+                raise CorruptImageError("Bogus Huffman table definition")
+            code <<= 1
+        if row < 4 and (huff[row, 16 : 16 + counts.sum()] > (16 if lossless else 15)).any():
+            raise CorruptImageError("Bogus Huffman table definition")
+
+
 def _check_progression(ss: int, se: int, ah: int, al: int, ns: int) -> None:
     """jdphuff.c start_pass_phuff_decoder's checks, which libjpeg treats
     as fatal (JERR_BAD_PROGRESSION)."""
@@ -297,9 +345,29 @@ def _smoothing_ok(coef_bits: np.ndarray, quant: np.ndarray) -> bool:
     return bool((coef_bits[:, 1:10] != 0).any())
 
 
-def decode(jpg: JpegFile, native) -> tuple[str, np.ndarray, None]:
+def decode(jpg: JpegFile, native, strict_restarts: bool = False) -> tuple[str, np.ndarray, None]:
     """(mode, pixels, None): "L" (H, W), "RGB" (H, W, 3) or "CMYK" (H, W, 4)
-    uint8."""
+    uint8. `strict_restarts`: a restart marker that is not the next RSTn
+    fails the decode (libjpeg's resync as libtiff's old-style JPEG codec
+    sets it up) instead of being resynchronised."""
+    px = _decode(jpg, native, 32 * strict_restarts)
+    if jpg.mode == "CMYK":
+        px = 255 - px  # Pillow reads every 4-component JPEG as "CMYK;I"
+    return jpg.mode, px, None
+
+
+def decode_raw(jpg: JpegFile, native, strict_restarts: bool = False) -> list[np.ndarray]:
+    """Each component's samples at its own resolution over the whole MCU
+    grid (rows, columns) uint8, neither upsampled nor colour converted:
+    what libjpeg's jpeg_read_raw_data hands over (libtiff's old-style
+    JPEG codec reads colour this way). `strict_restarts` as for decode."""
+    if jpg.lossless:
+        raise UnsupportedImageError("raw samples of a lossless JPEG are not supported: libjpeg"
+                                    " gives none")
+    return _decode(jpg, native, 16 | 32 * strict_restarts)
+
+
+def _decode(jpg: JpegFile, native, flags: int):
     if native is None:
         raise native_missing("JPEG")
     if not jpg.scans:
@@ -312,7 +380,7 @@ def decode(jpg: JpegFile, native) -> tuple[str, np.ndarray, None]:
             " libjpeg-turbo, which Pillow decodes with, converts no colour space of a lossless"
             " file")
     coding = (int(jpg.progressive) | 2 * int(jpg.arithmetic) | 4 * int(jpg.lossless)
-              | 8 * int(jpg.needs_smoothing))
+              | 8 * int(jpg.needs_smoothing) | flags)
     frame = [jpg.width, jpg.height, len(jpg.components), jpg.color, coding]
     for _, h, v, _ in jpg.components:
         frame += [h, v]
@@ -324,8 +392,5 @@ def decode(jpg: JpegFile, native) -> tuple[str, np.ndarray, None]:
             scans[s, 8 + 3 * j : 11 + 3 * j] = member
     huff = np.stack([scan[4] for scan in jpg.scans])
     cond = np.stack([scan[6] for scan in jpg.scans])
-    px = native.jpeg_decode(jpg.data, np.asarray(frame, np.int32), jpg.quant, scans, huff, cond,
-                            len(jpg.components))
-    if jpg.mode == "CMYK":
-        px = 255 - px  # Pillow reads every 4-component JPEG as "CMYK;I"
-    return jpg.mode, px, None
+    return native.jpeg_decode(jpg.data, np.asarray(frame, np.int32), jpg.quant, scans, huff,
+                              cond, len(jpg.components))

@@ -34,7 +34,7 @@ _STD_QUANT = np.array([
 ], np.int64)
 
 # Annex K.3's Huffman tables: 16 code counts, then the symbols.
-_STD_HUFF = [bytes.fromhex(h) for h in (
+STD_HUFF = [bytes.fromhex(h) for h in (
     # DC luminance
     "00010501010101010100000000000000000102030405060708090a0b",
     # AC luminance
@@ -100,7 +100,7 @@ def encode_jpeg(pixels: np.ndarray, quality: int = DEFAULT_QUALITY) -> bytes:
     color = pixels.ndim == 3
     quant = quant_tables(quality)
     huff = np.zeros((4, 272), np.uint8)
-    for k, spec in enumerate(_STD_HUFF):
+    for k, spec in enumerate(STD_HUFF):
         huff[k, : len(spec)] = np.frombuffer(spec, np.uint8)
     tables = 2 if color else 1
     out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
@@ -110,7 +110,7 @@ def encode_jpeg(pixels: np.ndarray, quality: int = DEFAULT_QUALITY) -> bytes:
     out.append(_segment(0xC0, struct.pack(">BHHB", 8, h, w, len(comps))
                         + b"".join(bytes(c) for c in comps)))
     for k in range(2 * tables):
-        out.append(_segment(0xC4, bytes([_HUFF_IDS[k]]) + _STD_HUFF[k]))
+        out.append(_segment(0xC4, bytes([_HUFF_IDS[k]]) + STD_HUFF[k]))
     scan = [(1, 0x00), (2, 0x11), (3, 0x11)] if color else [(1, 0x00)]
     out.append(_segment(0xDA, bytes([len(scan)]) + b"".join(bytes(c) for c in scan)
                         + b"\x00\x3f\x00"))

@@ -15,6 +15,12 @@ does not move the planes of an 8 x 3 row 1 or 3 pixels wide to their
 place; the port reads those files as the specification says. PCX
 carries no metadata the readers use.
 
+DCX (Intel's multi-page PCX) as Pillow's DcxImagePlugin opens it: the
+magic 0x3ADE68B1, a table of up to 1024 little-endian page offsets ended
+by 0, and the first page, a PCX read as above from its offset (its
+palette tail still the file's last 769 bytes). A file without a page
+fails Pillow's open, which passes it on to the next plugin.
+
 The run-length code runs in the native library (imagedecode.cpp's
 pcx_rle); without it a PCX raises NativeDecoderError.
 """
@@ -36,6 +42,7 @@ from cybervision_tpu_torch.imageio.errors import (
 
 _HEADER = 128
 _TAIL = 769  # 0x0C and a 256-entry palette
+DCX_MAGIC = 0x3ADE68B1
 
 
 def accept(prefix: bytes) -> bool:
@@ -51,25 +58,27 @@ class PcxFile:
     planes: int
     stride: int  # bytes of each plane of a row
     palette: np.ndarray | None  # (256, 3) uint8
+    start: int = 0  # of the PCX header in `data` (a DCX page's offset)
 
 
-def parse(data: bytes) -> PcxFile:
-    """The header and palette, or the error Pillow's open raises
-    (NotThisFormat where it tries the next plugin)."""
-    if len(data) < 68 or not accept(data):
+def parse(data: bytes, start: int = 0) -> PcxFile:
+    """The header (at `start`) and palette, or the error Pillow's open
+    raises (NotThisFormat where it tries the next plugin)."""
+    head = data[start : start + 68]
+    if len(head) < 68 or not accept(head):
         raise NotThisFormat("not a PCX header")
-    x0, y0, x1, y1 = struct.unpack_from("<HHHH", data, 4)
+    x0, y0, x1, y1 = struct.unpack_from("<HHHH", head, 4)
     if x1 + 1 <= x0 or y1 + 1 <= y0:
         raise NotThisFormat("bad PCX image size")
-    version, bits, planes = data[1], data[3], data[65]
-    (given,) = struct.unpack_from("<H", data, 66)
+    version, bits, planes = head[1], head[3], head[65]
+    (given,) = struct.unpack_from("<H", head, 66)
     palette = None
     if bits == 1 and planes == 1:
         mode = "1"
     elif bits == 1 and planes in (2, 4):
         mode = "P"
         palette = np.zeros((256, 3), np.uint8)
-        palette[:16] = np.frombuffer(data, np.uint8, 48, 16).reshape(16, 3)
+        palette[:16] = np.frombuffer(head, np.uint8, 48, 16).reshape(16, 3)
     elif version == 5 and bits == 8 and planes == 1:
         mode = "L"
         if len(data) < _TAIL:
@@ -92,7 +101,24 @@ def parse(data: bytes) -> PcxFile:
     elif given != stride:
         stride += stride % 2
     bomb_check(size, "PCX image")
-    return PcxFile(data, size, mode, bits, planes, stride, palette)
+    return PcxFile(data, size, mode, bits, planes, stride, palette, start)
+
+
+def parse_dcx(data: bytes) -> PcxFile:
+    """A DCX's first page, or NotThisFormat where Pillow's open fails."""
+    if len(data) < 4 or struct.unpack_from("<I", data)[0] != DCX_MAGIC:
+        raise NotThisFormat("not a DCX file")
+    offsets = []
+    for i in range(1024):
+        if len(data) < 8 + 4 * i:
+            raise NotThisFormat("DCX page table cut short")
+        (offset,) = struct.unpack_from("<I", data, 4 + 4 * i)
+        if not offset:
+            break
+        offsets.append(offset)
+    if not offsets:
+        raise NotThisFormat("DCX without a page")
+    return parse(data, offsets[0])
 
 
 def decode(p: PcxFile, native) -> tuple[str, np.ndarray, np.ndarray | None]:
@@ -100,7 +126,7 @@ def decode(p: PcxFile, native) -> tuple[str, np.ndarray, np.ndarray | None]:
     if native is None:
         raise native_missing("PCX")
     w, h = p.size
-    lines = native.pcx_rle(p.data[_HEADER:], p.planes * p.stride, h)
+    lines = native.pcx_rle(p.data[p.start + _HEADER :], p.planes * p.stride, h)
     planes = lines.reshape(h, p.planes, p.stride)
     if p.bits == 1:
         bits = np.unpackbits(planes, axis=2)[:, :, :w]

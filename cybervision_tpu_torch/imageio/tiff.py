@@ -7,8 +7,10 @@ them to the JAX package.
 Strips and tiles may be uncompressed, PackBits (numpy without the native
 library), LZW, Deflate, LZMA (an xz stream, through liblzma as libtiff calls it:
 imageio/liblzma.py), zstd (native only), CCITT (modified Huffman, T.4 1D or
-2D, T.6: native only) or JPEG (compression 7: each strip or tile a JPEG
-stream completed by the JPEGTables tag, decoded by the JPEG reader); LZW,
+2D, T.6: native only), JPEG (compression 7: each strip or tile a JPEG
+stream completed by the JPEGTables tag, decoded by the JPEG reader) or
+old-style JPEG (compression 6, imageio/ojpeg.py, as libtiff decodes it);
+LZW,
 Deflate, LZMA and zstd with horizontal differencing (predictor 2) or the
 floating-point predictor (3) per row of a strip or tile, as libtiff
 applies them. Each codec decodes a strip until it is full, as libtiff's
@@ -52,7 +54,7 @@ import zlib
 import numpy as np
 
 from cybervision_tpu_torch.imageio import exif as ifd
-from cybervision_tpu_torch.imageio import liblzma
+from cybervision_tpu_torch.imageio import liblzma, ojpeg
 from cybervision_tpu_torch.imageio.errors import (
     CorruptImageError,
     TruncatedImageError,
@@ -318,7 +320,7 @@ def decode(t: TiffFile, native) -> tuple[str, np.ndarray, np.ndarray | None]:
         raise CorruptImageError("TIFF without its size")
     compression = t.get(_COMPRESSION, _RAW)
     if compression == _OLD_JPEG:
-        raise UnsupportedImageError("old-style JPEG-in-TIFF (compression 6) is not supported yet")
+        return ojpeg.decode(t, native)
     if compression not in (_RAW, _LZW, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS, _JPEG, _LZMA,
                            _ZSTD) + _CCITT:
         raise UnsupportedImageError(f"TIFF compression {compression} is not supported yet")

@@ -68,6 +68,7 @@ _SIGNATURES = {
     "tga_rle": ([_U8P, _L, _L, _L, _L, _U8P], _L),
     "sgi_rle": ([_U8P, _L, _L, _L, _L, _L, _U8P], _L),
     "pcx_rle": ([_U8P, _L, _L, _L, _U8P], _L),
+    "packbits_rows": ([_U8P, _L, _L, _L, _U8P], _L),
     "qoi_decode": ([_U8P, _L, _L, _L, _L, _U8P], _L),
     "sun_rle": ([_U8P, _L, _L, _U8P], _L),
     "msp_rle": ([_U8P, _L, _L, _L, _U8P], _L),
@@ -471,6 +472,17 @@ def pcx_rle(src: bytes, line_bytes: int, height: int) -> np.ndarray:
     return out
 
 
+def packbits_rows(src: bytes, row_bytes: int, rows: int) -> np.ndarray:
+    """PackBits rows as Pillow's packbits decoder reads them
+    (imagedecode.cpp's packbits_rows): (rows, row_bytes) uint8."""
+    sptr, _keep = _bytes_ptr(src)
+    out = np.zeros((rows, row_bytes), np.uint8)
+    code = load().packbits_rows(sptr, len(src), row_bytes, rows, _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "packbits_rows")
+    return out
+
+
 def sun_rle(src: bytes, total: int) -> np.ndarray:
     """A Sun raster's byte-encoded data (imagedecode.cpp's sun_rle): the
     first `total` bytes it decodes to, uint8."""
@@ -531,7 +543,9 @@ def jpeg_decode(data: bytes, frame: np.ndarray, quant: np.ndarray, scans: np.nda
                 huff: np.ndarray, cond: np.ndarray, channels: int) -> np.ndarray:
     """Pixels of a sequential, progressive or lossless JPEG, Huffman or
     arithmetic coded, whose markers imageio.jpeg parsed: (H, W) for one
-    component, (H, W, 3) for three, (H, W, 4) for four. frame, quant,
+    component, (H, W, 3) for three, (H, W, 4) for four; with the raw flag
+    (16) in frame[4], a list of each component's plane over the whole
+    MCU grid at its own resolution. frame, quant,
     scans, huff and cond (the arithmetic conditioning of each scan) as
     imagedecode.cpp's jpeg_decode takes them."""
     frame = np.ascontiguousarray(frame, np.int32)
@@ -544,7 +558,14 @@ def jpeg_decode(data: bytes, frame: np.ndarray, quant: np.ndarray, scans: np.nda
             or channels != frame[2] or len(frame) != 5 + 12 * channels:
         raise ValueError("jpeg_decode: tables do not match the frame")
     w, h = int(frame[0]), int(frame[1])
-    out = np.empty((h, w, channels) if channels > 1 else (h, w), np.uint8)
+    if frame[4] & 16:  # raw: every component's plane over the MCU grid
+        sampling = frame[5 : 5 + 2 * channels].reshape(channels, 2)
+        hmax, vmax = sampling.max(axis=0)
+        mcux, mcuy = -(-w // (8 * int(hmax))), -(-h // (8 * int(vmax)))
+        shapes = [(mcuy * int(v) * 8, mcux * int(hh) * 8) for hh, v in sampling]
+        out = np.empty(sum(a * b for a, b in shapes), np.uint8)
+    else:
+        out = np.empty((h, w, channels) if channels > 1 else (h, w), np.uint8)
     dptr, _keep = _bytes_ptr(data)
     code = load().jpeg_decode(
         dptr, len(data), _ptr(frame, ctypes.c_int32), _ptr(quant, ctypes.c_uint16),
@@ -553,6 +574,9 @@ def jpeg_decode(data: bytes, frame: np.ndarray, quant: np.ndarray, scans: np.nda
     )
     if code < 0:
         _decode_error(code, "jpeg_decode")
+    if frame[4] & 16:
+        ends = np.cumsum([a * b for a, b in shapes])[:-1]
+        return [p.reshape(shape) for p, shape in zip(np.split(out, ends), shapes)]
     return out
 
 

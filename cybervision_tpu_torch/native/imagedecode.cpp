@@ -126,6 +126,25 @@ class BitReader {
     return false;
   }
 
+  // libjpeg's read_restart_marker where a failed resync is fatal (as
+  // libtiff's old-style JPEG codec makes it): skip to the next marker
+  // (next_marker, over any other bytes), which must be RSTn `want`.
+  bool restart_strict(int want) {
+    bits_ = 0;
+    pad_ = 0;
+    acc_ = 0;
+    hit_end_ = false;
+    while (p_ < end_) {
+      if (p_[0] == 0xFF && p_ + 1 < end_ && p_[1] != 0x00 && p_[1] != 0xFF) {
+        if (p_[1] != 0xD0 + want) return false;
+        p_ += 2;
+        return true;
+      }
+      p_++;
+    }
+    return false;
+  }
+
   // Whether the current interval consumed bits past its data (libjpeg's
   // insufficient_data: zero bits were fed in). Looking ahead past the
   // data does not count.
@@ -1500,7 +1519,12 @@ long gif_lzw(const uint8_t *src, long n, long bits, long interlace, long xsize, 
 // with 1, 3 or 4 components.
 // frame: [width, height, ncomp, colour (0: as stored, 1: YCbCr -> RGB,
 //         2: YCCK -> CMYK), coding (1: progressive, 2: arithmetic,
-//         4: lossless, 8: block smoothing), then per component h, v, then
+//         4: lossless, 8: block smoothing, 16: raw: each component's
+//         plane at its own resolution over the whole MCU grid, neither
+//         upsampled nor converted, one after another, as libjpeg's
+//         jpeg_read_raw_data gives them), 32: a restart marker that is not
+//         the next RSTn is an error (libtiff's old-style JPEG codec makes
+//         libjpeg's resync fail)), then per component h, v, then
 //         (with block smoothing) per component the bits still unsent of
 //         zigzag coefficients 0-9 after the last scan (coef_bits, -1:
 //         never sent)].
@@ -1526,7 +1550,9 @@ long jpeg_decode(const uint8_t *data, long data_len, const int32_t *frame,
   const int coding = frame[4];
   const bool progressive = coding & 1, arith = coding & 2, lossless = coding & 4;
   const bool smoothing = (coding & 8) && progressive;
+  const bool raw = coding & 16, strict_restarts = coding & 32;
   if (ncomp != 1 && ncomp != 3 && ncomp != 4) return kUnsupported;
+  if (raw && lossless) return kUnsupported;
   if (width <= 0 || height <= 0) return kCorrupt;
   if (lossless && (progressive || color != 0)) return kUnsupported;
   int hmax = 1, vmax = 1;
@@ -1762,12 +1788,19 @@ long jpeg_decode(const uint8_t *data, long data_len, const int32_t *frame,
     const long total = mcols * mrows;
     long todo = ri;  // MCUs left in this restart interval
     bool skip = false;
+    int next_rst = 0;
     for (long m = 0; m < total; m++) {
       if (ri > 0) {
         if (todo == 0) {
-          // libjpeg keeps its out-of-data flag when no restart marker
-          // follows (jdhuff.c process_restart).
-          if (br.restart()) skip = false;
+          if (strict_restarts) {
+            if (!br.restart_strict(next_rst)) return kCorrupt;
+            next_rst = (next_rst + 1) & 7;
+            skip = false;
+          } else if (br.restart()) {
+            // libjpeg keeps its out-of-data flag when no restart marker
+            // follows (jdhuff.c process_restart).
+            skip = false;
+          }
           pred[0] = pred[1] = pred[2] = pred[3] = 0;
           eobrun = 0;
           todo = ri;
@@ -1799,6 +1832,7 @@ long jpeg_decode(const uint8_t *data, long data_len, const int32_t *frame,
   const long full_w = lossless ? width : mcux * hmax * 8;
   const long full_h = lossless ? height : mcuy * vmax * 8;
   std::vector<std::vector<uint8_t>> up(ncomp);
+  size_t raw_at = 0;
   for (int c = 0; c < ncomp; c++) {
     Component &k = comps[c];
     std::vector<uint8_t> plane;
@@ -1819,6 +1853,11 @@ long jpeg_decode(const uint8_t *data, long data_len, const int32_t *frame,
       }
       std::vector<int16_t>().swap(k.coef);
     }
+    if (raw) {  // the plane as jpeg_read_raw_data hands it over
+      std::memcpy(out + raw_at, plane.data(), plane.size());
+      raw_at += plane.size();
+      continue;
+    }
     up[c].resize((size_t)full_w * full_h);
     const long ow = std::min<long>(full_w, (long)k.dw * (hmax / k.h));
     const long oh = std::min<long>(full_h, (long)k.dh * (vmax / k.v));
@@ -1826,6 +1865,7 @@ long jpeg_decode(const uint8_t *data, long data_len, const int32_t *frame,
     upsample(k, hmax, vmax, plane.data(), stride, !lossless, tmp.data(), ow, oh);
     for (long y = 0; y < height; y++) std::memcpy(&up[c][y * full_w], &tmp[y * ow], width);
   }
+  if (raw) return 0;
   if (ncomp == 1) {
     for (long y = 0; y < height; y++) std::memcpy(out + y * width, &up[0][y * full_w], width);
     return 0;
@@ -2123,6 +2163,46 @@ long pcx_rle(const uint8_t *src, long n, long line_bytes, long height, uint8_t *
     if (x >= line_bytes) x = 0;
   }
   return 0;
+}
+
+// PackBits as Pillow's PackDecode.c reads it (PSD channels): 0x80 is
+// skipped, a byte n above it repeats the next byte 257 - n times, any
+// other byte n is a literal of the next n + 1 bytes; the part of a run or
+// literal past the end of its row of `row_bytes` is dropped (its bytes
+// are still consumed). Fills `rows` rows. Returns the bytes consumed, or
+// kTruncated when the data ends first.
+long packbits_rows(const uint8_t *src, long n, long row_bytes, long rows, uint8_t *out) {
+  if (row_bytes <= 0) return kCorrupt;
+  long i = 0, x = 0, y = 0;
+  while (y < rows) {
+    if (i >= n) return kTruncated;
+    const int c = src[i];
+    uint8_t *row = out + y * row_bytes;
+    if (c == 0x80) {
+      i++;
+      continue;
+    }
+    if (c & 0x80) {
+      if (i + 2 > n) return kTruncated;
+      long len = 257 - c;
+      if (len > row_bytes - x) len = row_bytes - x;
+      std::memset(row + x, src[i + 1], len);
+      x += len;
+      i += 2;
+    } else {
+      const long len = c + 1;
+      if (i + 1 + len > n) return kTruncated;
+      const long keep = len < row_bytes - x ? len : row_bytes - x;
+      std::memcpy(row + x, src + i + 1, keep);
+      x += keep;
+      i += 1 + len;
+    }
+    if (x >= row_bytes) {
+      x = 0;
+      y++;
+    }
+  }
+  return i;
 }
 
 // Sun raster's byte encoding (file type 2), as SunRleDecode.c reads it:

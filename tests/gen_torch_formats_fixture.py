@@ -21,9 +21,11 @@
   "codecs") and of its icons (chip_smoke.icon_files, "icons"), of the
   Sun raster, IM, MSP, XBM and XPM files of phase 8 (m)
   (chip_smoke.legacy_files, "legacy"), of the damaged LZMA TIFF below
-  ("lzma damaged") and of the arithmetic-coded and lossless JPEGs of
+  ("lzma damaged"), of the arithmetic-coded and lossless JPEGs of
   phase 8 (n) that Pillow reads (chip_smoke.jpeg_coding_files, "jpeg
-  codings", read with Pillow's read block raised to the whole file);
+  codings", read with Pillow's read block raised to the whole file) and
+  of the old-style JPEG-in-TIFF, PSD, FITS and small raw-format files of
+  phase 8 (o) (chip_smoke.pillow_rest_files, "pillow rest");
 * tests/fixtures/torch_lzma_damaged.tif: a 64x256 gradient as one
   xz-compressed strip (no check) with bits flipped where liblzma fills the
   strip before it finds the damage, so that Pillow's libtiff reads it
@@ -46,9 +48,9 @@ Run from the repo root:
 The port must decode the files to those planes and encode the arrays to
 those bytes (tests/test_torch_images.py, tests/test_torch_jpeg_encode.py,
 tests/test_torch_gif_webp.py, tests/test_torch_raster_formats.py and
-tests/test_torch_icons_codecs.py and tests/test_torch_legacy_rasters.py
-here; chip_smoke.py phase 8 (e), (f) and (h)-(n) on the card, with Pillow
-blocked).
+tests/test_torch_icons_codecs.py, tests/test_torch_legacy_rasters.py and
+tests/test_torch_pillow_rest.py here; chip_smoke.py phase 8 (e), (f) and
+(h)-(o) on the card, with Pillow blocked).
 """
 
 import hashlib
@@ -194,6 +196,18 @@ def jpeg_coding_planes() -> dict:
     return out
 
 
+def pillow_rest_planes() -> dict:
+    """{file name: Pillow's plane hashes} of phase 8 (o)'s files, which
+    chip_smoke.pillow_rest_files writes."""
+    img1, img2, _ = chip_smoke.synth_sem_pair(chip_smoke.SIZE, chip_smoke.SIZE)
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        for paths in chip_smoke.pillow_rest_files(td, img1, img2).values():
+            for path in paths:
+                out[os.path.basename(path)] = planes(path)
+    return out
+
+
 def lzma_damaged_strip() -> tuple[np.ndarray, bytes]:
     """(pixels, strip) of the damaged LZMA fixture: the 64x256 gradient of
     tests/test_torch_icons_codecs.py::test_seeded_lzma_damage_reads_where_pillow_reads
@@ -241,7 +255,7 @@ def main():
         json.dump({"decoder": decoder, "encoder": encoder, "phase8": phase8_planes(),
                    "gif_webp": gif_webp_planes(), "raster": raster_planes(), "codecs": codecs,
                    "icons": icons, "legacy": legacy_planes(), "lzma damaged": lzma_fixture(),
-                   "jpeg codings": jpeg_coding_planes()},
+                   "jpeg codings": jpeg_coding_planes(), "pillow rest": pillow_rest_planes()},
                   fh, indent=1,
                   sort_keys=True)
         fh.write("\n")
