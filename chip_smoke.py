@@ -228,7 +228,17 @@ Phases, each of which raises on failure:
        an interchange-format old-style JPEG-in-TIFF, BITPIX 16 and
        GZIP_1 FITS, DCX, GBR, IM Tools, IPTC (a JPEG), McIdas, PIXAR and
        XV files decoded, each timed. Every plane has the committed
-       SHA-256 of Pillow's ("pillow rest").
+       SHA-256 of Pillow's ("pillow rest");
+   (p) with Pillow blocked as well (block_texture_files): phase 3's pair as
+       DXT1 DDS files (bc1_file: each block's channel extremes as its
+       endpoints) -> PLY and as BC7 DDS files (DX10, bc7_mode6_blocks) ->
+       PNG depth map, each byte-equal to reconstruct's on the decoded
+       planes; BASELINE #3's views as BLP2 DXT5 files (dxt5_blocks) -> OBJ
+       with --focal-length=43 and (f)'s gates; a 4032x3024 BC7 plane,
+       seeded random BC6H (unsigned and signed) and BC5S blocks, a BC4, a
+       5:6:5, an LA and a palette DDS, BLP1 JPEG and palette files and
+       FTEX DXT1 and raw files decoded, each timed. Every plane has the
+       committed SHA-256 of Pillow's ("block textures").
    One JSON record per run: seconds, phases, decode seconds per file and
    plane, encode (and write) seconds per depth map, launches, the card's
    name and power limit.
@@ -245,7 +255,9 @@ write_spider, write_tga_rle, write_png_text_exif, icon_files,
 sun_raster, im_file, msp_file, xbm_file, xpm_file, arith_jpeg,
 lossless_jpeg, huffman_jpeg, ojpeg_tiff, psd_file, fits_file, dcx_file,
 gbr_file, imt_file, iptc_file, mcidas_file, pixar_file, xv_thumbnail,
-writers.encode_png) and the committed fixtures. It prints whether Pillow
+dds_file, bc1_file, bc7_mode6_blocks, dxt5_blocks, dds_masked, blp1_file,
+blp2_file, ftex_file, rgb_jpeg, writers.encode_png) and the committed
+fixtures. It prints whether Pillow
 is installed on the card's machine.
 """
 
@@ -2857,6 +2869,7 @@ def phase_cli_files(counters, smi: str, texture_obj_sha: str) -> dict:
         records.update(cli_legacy_rasters(cap, smi, td, img1, img2))
         records.update(cli_jpeg_codings(cap, smi, td, img1, img2))
         records.update(cli_pillow_rest(cap, smi, td, img1, img2))
+        records.update(cli_block_textures(cap, smi, td, img1, img2))
     torch.cuda.empty_cache()
     return records
 
@@ -5308,7 +5321,358 @@ def cli_pillow_rest(cap, smi: str, td: str, img1, img2) -> dict:
     return records
 
 
+
+# -- phase 8 (p): block textures --------------------------------------------------------
+
+DDPF_ALPHAPIXELS, DDPF_FOURCC, DDPF_PALETTE, DDPF_RGB, DDPF_LUMINANCE = (
+    0x1, 0x4, 0x20, 0x40, 0x20000)
+BC7_WEIGHTS = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64])
+
+
+def dds_file(size: tuple[int, int], payload: bytes, pfflags: int = DDPF_FOURCC,
+             fourcc: bytes = b"\0\0\0\0", bitcount: int = 0, masks=(0, 0, 0, 0),
+             dxgi: int | None = None) -> bytes:
+    """A DDS file of (width, height) `size`: the 124-byte header (caps,
+    height, width and pixel format flagged), its pixel format (`pfflags`,
+    `fourcc`, `bitcount`, the four channel masks), a DX10 extension naming
+    DXGI format `dxgi` where one is given, then `payload`."""
+    w, h = size
+    if dxgi is not None:
+        fourcc = b"DX10"
+    head = b"DDS " + struct.pack("<7I", 124, 0x1007, h, w, 0, 0, 0) + bytes(44)
+    head += struct.pack("<2I4sI4I", 32, pfflags, fourcc, bitcount, *masks)
+    head += struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + payload
+
+
+def texture_blocks(px: np.ndarray) -> np.ndarray:
+    """(n, 16, c) int64: the 4x4 blocks of (H, W, c) pixels, a row of
+    blocks after another, the edge pixels repeated out to a multiple of 4."""
+    h, w, c = px.shape
+    hp, wp = -(-h // 4) * 4, -(-w // 4) * 4
+    px = np.pad(px, ((0, hp - h), (0, wp - w), (0, 0)), mode="edge").astype(np.int64)
+    return px.reshape(hp // 4, 4, wp // 4, 4, c).transpose(0, 2, 1, 3, 4).reshape(-1, 16, c)
+
+
+def _nearest(blocks: np.ndarray, palette: np.ndarray) -> np.ndarray:
+    """(n, 16): each pixel's nearest entry of its block's (n, k, c) palette."""
+    d = ((blocks[:, :, None, :] - palette[:, None, :, :]) ** 2).sum(axis=3)
+    return d.argmin(axis=2)
+
+
+def _packed(idx: np.ndarray, bits: int) -> np.ndarray:
+    """(n,) uint64 of (n, 16) indices of `bits` bits, pixel 0 lowest."""
+    shifts = np.arange(16, dtype=np.uint64) * np.uint64(bits)
+    return np.bitwise_or.reduce(idx.astype(np.uint64) << shifts, axis=1)
+
+
+def bc1_colour_blocks(rgb: np.ndarray) -> np.ndarray:
+    """(n, 8) uint8 BC1 colour blocks of (H, W, 3) pixels: each block's
+    channel maxima and minima as the 5:6:5 endpoints c0 >= c1 (the
+    four-colour mode, one colour where they meet), each pixel the nearest
+    of the four colours."""
+    b = texture_blocks(rgb)
+
+    def q565(v):
+        return ((v[:, 0] * 31 + 127) // 255) << 11 | ((v[:, 1] * 63 + 127) // 255) << 5 \
+            | (v[:, 2] * 31 + 127) // 255
+
+    def rgb888(c):
+        return np.stack([(c >> 11) * 255 // 31, (c >> 5 & 63) * 255 // 63, (c & 31) * 255 // 31],
+                        axis=1)
+
+    c0, c1 = q565(b.max(axis=1)), q565(b.min(axis=1))
+    e0, e1 = rgb888(c0), rgb888(c1)
+    idx = _nearest(b, np.stack([e0, e1, (2 * e0 + e1) // 3, (e0 + 2 * e1) // 3], axis=1))
+    idx[c0 == c1] = 0
+    out = np.zeros((len(b), 8), np.uint8)
+    out[:, 0:2] = c0.astype("<u2").view(np.uint8).reshape(-1, 2)
+    out[:, 2:4] = c1.astype("<u2").view(np.uint8).reshape(-1, 2)
+    out[:, 4:8] = _packed(idx, 2).astype("<u4").view(np.uint8).reshape(-1, 4)
+    return out
+
+
+def bc3_alpha_blocks(plane: np.ndarray) -> np.ndarray:
+    """(n, 8) uint8 BC3 alpha (and BC4) blocks of an (H, W) plane: the
+    block's maximum and minimum as a0 > a1 (eight levels), each pixel the
+    nearest level; where they meet, one level."""
+    b = texture_blocks(plane[:, :, None])
+    a0, a1 = b.max(axis=1), b.min(axis=1)
+    k = np.arange(2, 8)
+    levels = np.concatenate([a0, a1, ((8 - k) * a0 + (k - 1) * a1) // 7], axis=1)
+    idx = _nearest(b, levels[:, :, None])
+    idx[a0[:, 0] == a1[:, 0]] = 0
+    out = np.zeros((len(b), 8), np.uint8)
+    out[:, 0], out[:, 1] = a0[:, 0], a1[:, 0]
+    out[:, 2:8] = _packed(idx, 3).astype("<u8").view(np.uint8).reshape(-1, 8)[:, :6]
+    return out
+
+
+def bc1_file(rgb: np.ndarray) -> bytes:
+    """A DXT1 DDS of (H, W, 3) pixels."""
+    return dds_file(rgb.shape[1::-1], bc1_colour_blocks(rgb).tobytes(), fourcc=b"DXT1")
+
+
+def dxt5_blocks(rgba: np.ndarray) -> bytes:
+    """BC3 (DXT5) blocks of (H, W, 4) pixels: the alpha block, then the
+    colour block."""
+    return np.concatenate([bc3_alpha_blocks(rgba[:, :, 3]), bc1_colour_blocks(rgba[:, :, :3])],
+                          axis=1).tobytes()
+
+
+def bc7_mode6_blocks(rgba: np.ndarray) -> bytes:
+    """BC7 blocks of (H, W, 4) pixels, all of mode 6 (one subset, RGBA
+    endpoints of 7 bits and a p-bit each, 4-bit indices): each block's
+    channel minima (p-bit 0) and maxima (p-bit 1) as its endpoints, each
+    pixel's index the weight nearest its projection onto the segment
+    between them, the endpoints swapped where pixel 0's index would need
+    its top bit (its anchor index has 3)."""
+    b = texture_blocks(rgba)
+    e0 = b.min(axis=1) >> 1 << 1
+    e1 = b.max(axis=1) | 1
+    span = e1 - e0
+    t = ((b - e0[:, None, :]) * span[:, None, :]).sum(axis=2) * 64
+    norm = np.maximum((span * span).sum(axis=1), 1)[:, None]
+    mids = (BC7_WEIGHTS[1:] + BC7_WEIGHTS[:-1]) / 2
+    idx = np.searchsorted(mids, t / norm).astype(np.int64)
+    flip = idx[:, 0] >= 8
+    idx[flip] = 15 - idx[flip]
+    e0[flip], e1[flip] = e1[flip].copy(), e0[flip].copy()
+    lo = np.full(len(b), 0x40, np.uint64)
+    for c in range(4):
+        lo |= (e0[:, c] >> 1).astype(np.uint64) << np.uint64(7 + 14 * c)
+        lo |= (e1[:, c] >> 1).astype(np.uint64) << np.uint64(14 + 14 * c)
+    lo |= (e0[:, 0] & 1).astype(np.uint64) << np.uint64(63)
+    hi = (e1[:, 0] & 1).astype(np.uint64) | idx[:, 0].astype(np.uint64) << np.uint64(1)
+    hi |= _packed(idx, 4) & ~np.uint64(15)
+    return np.stack([lo, hi], axis=1).astype("<u8").tobytes()
+
+
+def dds_masked(rgb: np.ndarray, bitcount: int, masks: tuple, alpha=None) -> bytes:
+    """An uncompressed DDS of (H, W, 3) pixels (and an (H, W) alpha plane)
+    in `bitcount` bits a pixel, each channel scaled down to its mask."""
+    chans = [rgb[:, :, 0], rgb[:, :, 1], rgb[:, :, 2]] + ([alpha] if alpha is not None else [])
+    value = np.zeros(rgb.shape[:2], np.uint64)
+    for ch, mask in zip(chans, masks):
+        if not mask:
+            continue
+        shift = (mask & -mask).bit_length() - 1
+        value |= (ch.astype(np.uint64) * np.uint64(mask >> shift) // np.uint64(255)) \
+            << np.uint64(shift)
+    data = value.astype("<u8").view(np.uint8).reshape(-1, 8)[:, : bitcount // 8].tobytes()
+    flags = DDPF_RGB | (DDPF_ALPHAPIXELS if alpha is not None else 0)
+    return dds_file(rgb.shape[1::-1], data, flags, bitcount=bitcount,
+                    masks=tuple(masks) + (0,) * (4 - len(masks)))
+
+
+def blp1_file(size: tuple[int, int], body: bytes, alpha: bool = False,
+              jpeg_header: bytes | None = None, encoding: int = 5) -> bytes:
+    """A BLP1 file: of compression 0 with `jpeg_header` (its JPEG split
+    into the shared header and the first mipmap's data, `body`), else of
+    compression 1 and `encoding`, `body` the 1,024-byte BGRA palette and
+    the indices."""
+    w, h = size
+    head = b"BLP1" + struct.pack("<iIIIiI", 0 if jpeg_header is not None else 1, 8 * alpha, w, h,
+                                 encoding, 0)
+    if jpeg_header is None:
+        offset, length, extra = 28 + 128 + 1024, len(body) - 1024, b""
+    else:
+        extra = struct.pack("<I", len(jpeg_header)) + jpeg_header
+        offset, length = 28 + 128 + len(extra), len(body)
+    return head + struct.pack("<16I", offset, *[0] * 15) + struct.pack(
+        "<16I", length, *[0] * 15) + extra + body
+
+
+def blp2_file(size: tuple[int, int], payload: bytes, encoding: int, alpha: bool = True,
+              alpha_encoding: int = 7, palette: bytes = bytes(1024)) -> bytes:
+    """A BLP2 file of compression 1: `encoding` 1 (indices into `palette`,
+    1,024 bytes of BGRA) or 2 (DXT blocks of `alpha_encoding` 0, 1 or 7)."""
+    w, h = size
+    head = b"BLP2" + struct.pack("<ibbbbII", 1, encoding, 8 * alpha, alpha_encoding, 0, w, h)
+    offset = 20 + 128 + len(palette)
+    return head + struct.pack("<16I", offset, *[0] * 15) + struct.pack(
+        "<16I", len(payload), *[0] * 15) + palette + payload
+
+
+def ftex_file(size: tuple[int, int], mipmap: bytes, fmt: int) -> bytes:
+    """An FTEX file of one format (0 DXT1, 1 raw RGB) and one mipmap,
+    which follows the 32-byte header."""
+    return b"FTEX" + struct.pack("<7i", 1, *size, 1, 1, fmt, 32) \
+        + struct.pack("<i", len(mipmap)) + mipmap
+
+
+def rgb_jpeg(rgb: np.ndarray, quality: int = JPEG_CODING_QUALITY) -> bytes:
+    """A baseline YCbCr JPEG of (H, W, 3) pixels, no subsampling
+    (huffman_jpeg)."""
+    from cybervision_tpu_torch.imageio.jpeg_encode import quant_tables
+
+    quant = quant_tables(quality)
+    h, w = rgb.shape[:2]
+    planes = ycbcr_planes(rgb, [(1, 1)] * 3)
+    return huffman_jpeg(dct_coefficients(planes, quant, [(1, 1)] * 3, w, h), quant, w, h)[0]
+
+
+
+BLOCK_TEXTURE_LARGE = "tex_large_bc7.dds"  # phase 8 (p)'s 4032x3024 BC7 plane
+
+
+def block_texture_files(td: str, img1, img2, large: bool = True) -> dict[str, list[str]]:
+    """Phase 8 (p)'s inputs: phase 3's pair as DXT1 DDS files (bc1_file)
+    and as BC7 DDS files (DX10, mode 6: bc7_mode6_blocks); BASELINE #3's
+    views (tint) as BLP2 DXT5 (dxt5_blocks); and, decoded only, with
+    `large` a 4032x3024 BC7 plane (the first image's blocks tiled), seeded
+    random BC6H blocks (unsigned and signed) and BC5S blocks, the first
+    view as BC4 (its gray plane), as a 5:6:5 DDS, an LA DDS and a palette
+    DDS (quantised), as BLP1 JPEG and palette files and as FTEX DXT1 and
+    raw files. tests/gen_torch_formats_fixture.py writes the same files
+    and commits the SHA-256 of Pillow's planes of them ("block textures")."""
+    views, _, _, _ = render_perspective(PERSP_W, PERSP_H, PERSP_CAMS[:1], exact_focal=True)
+    files: dict[str, list[str]] = {"bc1 dds": [], "bc7 dds": [], "blp dxt5": [],
+                                   "decode only": []}
+    blobs = {}
+    opaque = np.full(img1.shape + (1,), 255, np.uint8)
+    bc7 = []
+    for k, (img, view) in enumerate(zip((img1, img2), views)):
+        rgb = np.repeat(img[:, :, None], 3, axis=2)
+        blobs[("bc1 dds", f"tex_{k}.dds")] = bc1_file(rgb)
+        bc7.append(bc7_mode6_blocks(np.concatenate([rgb, opaque], axis=2)))
+        blobs[("bc7 dds", f"tex_bc7_{k}.dds")] = dds_file(img.shape[::-1], bc7[-1], dxgi=98)
+        t = tint(view)
+        blobs[("blp dxt5", f"tex_view_{k}.blp")] = blp2_file(
+            t.shape[1::-1], dxt5_blocks(np.concatenate([t, np.full(t.shape[:2] + (1,), 255,
+                                                                   np.uint8)], axis=2)), 2)
+    if large:
+        # The first image's blocks tiled: its side is a multiple of 4, so
+        # these are the blocks of the tiled image.
+        grid = np.frombuffer(bc7[0], np.uint8).reshape(img1.shape[0] // 4, img1.shape[1] // 4, 16)
+        reps = (-(-LARGE_H // img1.shape[0]), -(-LARGE_W // img1.shape[1]), 1)
+        tiled = np.tile(grid, reps)[: LARGE_H // 4, : LARGE_W // 4]
+        blobs[("decode only", BLOCK_TEXTURE_LARGE)] = dds_file((LARGE_W, LARGE_H),
+                                                               tiled.tobytes(), dxgi=98)
+    rgb = tint(views[0])
+    size = rgb.shape[1::-1]
+    gray = (rgb.astype(np.uint32) @ np.array([19595, 38470, 7471]) + 0x8000 >> 16).astype(np.uint8)
+    rng = np.random.RandomState(20)
+    idx, colours = quantised(rgb, 6)
+    rgba_pal = np.zeros((256, 4), np.uint8)
+    rgba_pal[: len(colours), :3], rgba_pal[:, 3] = colours, 255
+    jpeg = rgb_jpeg(rgb)
+    sos = jpeg.index(b"\xff\xda")
+    for name, data in (
+            ("tex_bc6h_unsigned.dds", dds_file((256, 256), rng.bytes(64 * 64 * 16), dxgi=95)),
+            ("tex_bc6h_signed.dds", dds_file((256, 256), rng.bytes(64 * 64 * 16), dxgi=96)),
+            ("tex_bc4.dds", dds_file(size, bc3_alpha_blocks(gray).tobytes(), fourcc=b"ATI1")),
+            ("tex_bc5s.dds", dds_file((256, 256), rng.bytes(64 * 64 * 16), fourcc=b"BC5S")),
+            ("tex_565.dds", dds_masked(rgb, 16, (0xF800, 0x07E0, 0x001F))),
+            ("tex_la.dds", dds_file(size, np.stack([gray, rgb[:, :, 0]], axis=2).tobytes(),
+                                    DDPF_LUMINANCE | DDPF_ALPHAPIXELS, bitcount=16)),
+            ("tex_palette.dds", dds_file(size, rgba_pal.tobytes() + idx.astype(np.uint8).tobytes(),
+                                         DDPF_PALETTE)),
+            ("tex_jpeg.blp", blp1_file(size, jpeg[sos:], jpeg_header=jpeg[:sos])),
+            ("tex_palette.blp", blp1_file(size, rgba_pal[:, [2, 1, 0, 3]].tobytes()
+                                          + idx.astype(np.uint8).tobytes())),
+            ("tex_dxt1.ftc", ftex_file(size, bc1_colour_blocks(rgb).tobytes(), 0)),
+            ("tex_rgb.ftu", ftex_file(size, rgb.tobytes(), 1))):
+        blobs[("decode only", name)] = data
+    for (kind, name), data in blobs.items():
+        files[kind].append(os.path.join(td, name))
+        with open(files[kind][-1], "wb") as fh:
+            fh.write(data)
+    return files
+
+
+def cli_block_textures(cap, smi: str, td: str, img1, img2) -> dict:
+    """Phase 8 (p), with every import of Pillow blocked (_NoPillow):
+    block_texture_files' pairs through cli.main. The DXT1 DDS pair -> PLY
+    and the BC7 DDS pair -> PNG depth map (--interpolation=none), each
+    equal to reconstruct's on the decoded planes; the BLP2 DXT5 views ->
+    OBJ with --focal-length=43 (BLP carries no EXIF), with
+    cli_exif_jpeg_pair's gates. Then the decode-only files, each timed.
+    Every plane has the committed SHA-256 of Pillow's ("block textures")."""
+    from cybervision_tpu_torch.config import (
+        InterpolationMode, MeshMode, ProjectionMode, ReconstructionConfig,
+    )
+    from cybervision_tpu_torch.images import SourceImage
+    from cybervision_tpu_torch.reconstruction import reconstruct
+
+    with open(FORMATS_SHA256) as fh:
+        committed = json.load(fh)["block textures"]
+    t_phase = t0 = time.perf_counter()
+    files = block_texture_files(td, img1, img2)
+    written = time.perf_counter() - t0
+    aff = ProjectionMode.AFFINE
+    records = {}
+
+    def same_as_pillow(src, path, rgb_plane=None):
+        want = committed[os.path.basename(path)]
+        rgb_plane = src.load_rgb_plane() if rgb_plane is None else rgb_plane
+        return _plane_sha(src.img) == want["l"] and _plane_sha(rgb_plane) == want["rgb"]
+
+    with _NoPillow():
+        srcs = {kind: [SourceImage.load(p) for p in files[kind]]
+                for kind in ("bc1 dds", "bc7 dds", "blp dxt5")}
+        hashes = {kind: all(same_as_pillow(s, p) for s, p in zip(srcs[kind], files[kind]))
+                  for kind in srcs}
+        print(f"(p) files written in {written:.2f} s"
+              f" ({[os.path.getsize(p) for ps in files.values() for p in ps]} bytes); planes equal"
+              f" to Pillow's (SHA-256) {hashes}")
+        if not all(hashes.values()):
+            raise AssertionError("(p): the decoded planes are not Pillow's")
+
+        for kind, run_name, ext, cfg, args in (
+                ("bc1 dds", "bc1 dds ply", "ply",
+                 ReconstructionConfig(projection=aff, mesh=MeshMode.VERTEX_COLORS),
+                 ["--mesh=vertex-colors"]),
+                ("bc7 dds", "bc7 dds png", "png", ReconstructionConfig(
+                    projection=aff, interpolation=InterpolationMode.NONE),
+                 ["--interpolation=none"])):
+            label = f"(p) {kind} pair {SIZE}x{SIZE} -> {ext.upper()}"
+            mem = []
+            for s in srcs[kind]:
+                src = SourceImage(s.img)
+                src.load_rgb_plane = functools.partial(np.array, s.load_rgb_plane())
+                mem.append(src)
+            ref, out = os.path.join(td, f"mem_p_{ext}.{ext}"), os.path.join(td, f"p_{ext}.{ext}")
+            reconstruct(["a", "b"], ref, cfg, quiet=True, images=mem)
+            run = cap.main(["--projection=parallel", *args, *files[kind], out])
+            records[run_name] = cli_record(f"(p) {kind}", run["seconds"], run["rec"].phases,
+                                           run["decode"], run["launches"], smi,
+                                           *([run["encode"]] if ext == "png" else []))
+            same = _sha(out) == _sha(ref)
+            print(f"{label}: {ext.upper()} equal to the in-memory run's (the decoded planes)"
+                  f" {same}")
+            if not same:
+                raise AssertionError(f"{label}: the {ext.upper()} differs from the in-memory"
+                                     " run's")
+
+        records["blp dxt5 obj"] = cli_exif_jpeg_pair(
+            cap, smi, td, "(p) BLP2 DXT5 pair", f"(p) BLP2 DXT5 pair {PERSP_W}x{PERSP_H} -> OBJ",
+            files["blp dxt5"], srcs["blp dxt5"], {}, (PERSP_W, PERSP_H),
+            focal_arg=PERSP_FOCAL_35MM)
+
+        decode, ok = {}, {}
+        for p in files["decode only"]:
+            t0 = time.perf_counter()
+            s = SourceImage.load(p)
+            rgb_plane = s.load_rgb_plane()
+            decode[os.path.basename(p)] = time.perf_counter() - t0
+            ok[os.path.basename(p)] = same_as_pillow(s, p, rgb_plane)
+        print(f"(p) decoded only: planes equal to Pillow's (SHA-256) {ok}; decode seconds"
+              f" {json.dumps({k: round(v, 4) for k, v in decode.items()})}")
+        if not all(ok.values()):
+            raise AssertionError("(p): the decode-only planes are not Pillow's")
+        pil = any(m == "PIL" or m.startswith("PIL.") for m in sys.modules)
+    print(f"(p) Pillow imported during the runs {pil}; (p) took"
+          f" {time.perf_counter() - t_phase:.1f} s")
+    if pil:
+        raise AssertionError("(p): Pillow was imported")
+    return records
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5521,7 +5885,10 @@ def main() -> int:
           f" Sun raster and IM pairs"
           f" {[round(cli_files[k]['seconds'], 4) for k in ('sun ply', 'im obj')]} s;"
           f" arithmetic, arithmetic progressive and lossless JPEG pairs"
-          f" {[round(cli_files[k]['seconds'], 4) for k in ('arith ply', 'arith progressive obj', 'lossless ply')]} s")
+          f" {[round(cli_files[k]['seconds'], 4) for k in ('arith ply', 'arith progressive obj', 'lossless ply')]} s;"
+          f" DXT1 DDS, BC7 DDS and BLP2 DXT5 pairs"
+          f" {[round(cli_files[k]['seconds'], 4) for k in ('bc1 dds ply', 'bc7 dds png', 'blp dxt5 obj')]} s")
+    print(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s")
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

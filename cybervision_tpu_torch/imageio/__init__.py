@@ -11,7 +11,9 @@ animation's first frame), Netpbm (PBM, PGM, PPM, PFM, plain or binary),
 ICO and CUR (PNG or BMP entries), ICNS (PNG entries, 24-bit RLE icons
 and their masks), SPIDER, TGA, SGI, PCX and DCX, QOI, Sun raster, IM,
 MSP, XBM, XPM, PSD (the composite), FITS (raw or GZIP_1 tiles), GBR, IM
-Tools, IPTC/NAA, McIdas, PIXAR and XV thumbnails, giving what the JAX
+Tools, IPTC/NAA, McIdas, PIXAR, XV thumbnails, DDS (channel masks,
+luminance, palette, BC1-BC7 blocks), BLP (JPEG, palette, DXT) and FTEX
+(DXT1 or raw), giving what the JAX
 package reads through Pillow — the SEM metadata tag, the EXIF focal
 length, and the planes of convert("L") and convert("RGB"), bit for bit.
 A file goes to the reader of the plugin Pillow's Image.open would pick
@@ -19,14 +21,16 @@ A file goes to the reader of the plugin Pillow's Image.open would pick
 rgba_encode (TIFF, BMP).
 
 The containers are parsed here in Python; the pixel loops run in the
-native library (native/imagedecode.cpp, native/webpdecode.cpp), built at
-first use. PNG, uncompressed BMP, TGA and SGI, Netpbm, SPIDER, raw Sun
-rasters, IM, MSP version 1, XBM, XPM, raw PSD, FITS, GBR, IM Tools,
-McIdas, PIXAR, XV thumbnails and uncompressed, PackBits, Deflate or LZMA
-TIFF have a numpy path for when it cannot be built; JPEG, LZW, zstd,
-CCITT, JPEG-in-TIFF (both kinds), RLE BMP, TGA, SGI, ICNS, Sun and MSP
-version 2, IM's bit-packed floats, PCX and DCX, PackBits PSD, QOI, GIF
-and WebP then raise NativeDecoderError.
+native library (native/imagedecode.cpp, native/webpdecode.cpp,
+native/bcndecode.cpp), built at first use. PNG, uncompressed BMP, TGA and
+SGI, Netpbm, SPIDER, raw Sun rasters, IM, MSP version 1, XBM, XPM, raw
+PSD, FITS, GBR, IM Tools, McIdas, PIXAR, XV thumbnails, DDS of channel
+masks, luminance or a palette, raw FTEX, BLP palettes and uncompressed,
+PackBits, Deflate or LZMA TIFF have a numpy path for when it cannot be
+built; JPEG, LZW, zstd, CCITT, JPEG-in-TIFF (both kinds), RLE BMP, TGA,
+SGI, ICNS, Sun and MSP version 2, IM's bit-packed floats, PCX and DCX,
+PackBits PSD, QOI, GIF, WebP, block-compressed DDS, FTEX DXT1 and BLP's
+JPEG and DXT textures then raise NativeDecoderError.
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ import struct
 import numpy as np
 
 from cybervision_tpu_torch.imageio import (
-    bmp, exif, fits, gbr, gif, icns, ico, im, imt, iptc, jpeg, mcidas, msp, netpbm, pcx, pixar,
-    png, psd, qoi, sgi, spider, sun, tga, tiff, webp, xbm, xpm, xvthumb,
+    blp, bmp, dds, exif, fits, ftex, gbr, gif, icns, ico, im, imt, iptc, jpeg, mcidas, msp,
+    netpbm, pcx, pixar, png, psd, qoi, sgi, spider, sun, tga, tiff, webp, xbm, xpm, xvthumb,
 )
 from cybervision_tpu_torch.imageio.convert import to_l, to_rgb
 from cybervision_tpu_torch.imageio.errors import (
@@ -152,19 +156,19 @@ _PLUGINS = (
     ("PPM", netpbm.accept, "PPM"),
     ("PNG", lambda d: d.startswith(png.SIGNATURE), "PNG"),
     ("AVIF", _avif, "AVIF/HEIF"),
-    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")), "BLP (Blizzard texture)"),
+    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")), "BLP"),
     ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC")),
      ("BUFR", "Pillow names it but reads no pixels")),
     ("CUR", lambda d: d.startswith(b"\0\0\2\0") and _entries(d), "CUR"),
     ("PCX", pcx.accept, "PCX"),
     ("DCX", lambda d: _u32(d, 0) == pcx.DCX_MAGIC, "DCX"),
-    ("DDS", lambda d: d.startswith(b"DDS "), "DDS"),
+    ("DDS", lambda d: d.startswith(dds.MAGIC), "DDS"),
     ("EPS", lambda d: d.startswith(b"%!PS") or _u32(d, 0) == 0xC6D3D0C5,
      "EPS (PostScript, which Pillow renders through Ghostscript)"),
     ("FITS", lambda d: d.startswith(b"SIMPLE"), "FITS"),
     ("FLI", lambda d: len(d) >= 16 and _u16(d, 4) in (0xAF11, 0xAF12) and _u16(d, 14) in (0, 3),
      "FLI/FLC animation"),
-    ("FTEX", lambda d: d.startswith(b"FTEX"), "FTEX texture"),
+    ("FTEX", lambda d: d.startswith(ftex.MAGIC), "FTEX"),
     ("GBR", gbr.accept, "GBR"),
     ("GRIB", lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1,
      ("GRIB", "Pillow names it but reads no pixels")),
@@ -205,13 +209,13 @@ _PARSERS = {"PNG": png.parse, "TIFF": tiff.parse, "BMP": bmp.parse, "DIB": bmp.p
             "MSP": msp.parse, "SUN": sun.parse, "XBM": xbm.parse, "XPM": xpm.parse,
             "DCX": pcx.parse_dcx, "FITS": fits.parse, "GBR": gbr.parse, "IMT": imt.parse,
             "IPTC": iptc.parse, "MCIDAS": mcidas.parse, "PIXAR": pixar.parse, "PSD": psd.parse,
-            "XVThumb": xvthumb.parse}
+            "XVThumb": xvthumb.parse, "BLP": blp.parse, "DDS": dds.parse, "FTEX": ftex.parse}
 _DECODERS = {"PNG": png, "TIFF": tiff, "JPEG": jpeg, "BMP": bmp, "DIB": bmp, "GIF": gif,
              "WebP": webp, "PPM": netpbm, "CUR": bmp, "PCX": pcx, "ICNS": icns, "ICO": ico,
              "QOI": qoi, "SGI": sgi, "SPIDER": spider, "TGA": tga, "IM": im, "MSP": msp,
              "SUN": sun, "XBM": xbm, "XPM": xpm, "DCX": pcx, "FITS": fits, "GBR": gbr,
              "IMT": imt, "IPTC": iptc, "MCIDAS": mcidas, "PIXAR": pixar, "PSD": psd,
-             "XVThumb": xvthumb}
+             "XVThumb": xvthumb, "BLP": blp, "DDS": dds, "FTEX": ftex}
 
 
 def identify(data: bytes, metadata_only: bool = False) -> tuple[str, object]:
@@ -236,7 +240,8 @@ def identify(data: bytes, metadata_only: bool = False) -> tuple[str, object]:
                                 " TIFF, JPEG, BMP and DIB, GIF, WebP, Netpbm, PCX and DCX, ICO"
                                 " and CUR, ICNS, IM, IM Tools, IPTC/NAA, MSP, McIdas, PIXAR, PSD,"
                                 " FITS, GBR, QOI, SGI, SPIDER, Sun raster, TGA, XBM, XPM, XV"
-                                " thumbnail) nor any other Pillow plugin take it")
+                                " thumbnail, DDS, BLP, FTEX) nor any other Pillow plugin take"
+                                " it")
 
 
 def open_image(path: str, metadata_only: bool = False) -> ImageFile:

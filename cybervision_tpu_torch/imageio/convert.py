@@ -6,7 +6,8 @@ bit, from the modes the readers return:
     255;
   * "RGB" from gray repeats it, or, for an "L" image that carries a
     palette (a GIF frame, a gray TGA with a colour map), maps it; LA and
-    RGBA drop their alpha; "PA" maps its index through the palette;
+    RGBA drop their alpha; "PA" maps its index through the palette; a
+    palette of RGBA entries (a DDS's) gives its RGB, for "L" too;
   * "1" (a 1-bit PNG, BMP or TIFF) is stored as 0 and 255, as Pillow's
     bit2l gives it;
   * "I" (32-bit signed) clips to 0-255 (i2l, i2rgb); "F" (float32)
@@ -101,7 +102,7 @@ def to_rgb(mode: str, px: np.ndarray, palette: np.ndarray | None) -> np.ndarray:
     if mode == "RGBA":
         return np.ascontiguousarray(px[:, :, :3])
     if mode in ("P", "PA"):
-        return palette[px if mode == "P" else px[:, :, 0]]
+        return np.ascontiguousarray(palette[px if mode == "P" else px[:, :, 0]][..., :3])
     if mode == "CMYK":
         return _cmyk_rgb(px)
     if mode == "YCbCr":

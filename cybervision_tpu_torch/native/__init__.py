@@ -1,6 +1,7 @@
 """ctypes bindings for the native host library: the writers and meshers
 (native.cpp), the image readers' pixel loops (imagedecode.cpp and, for
-WebP, webpdecode.cpp) and the JPEG writer's (imageencode.cpp).
+WebP, webpdecode.cpp, for block-compressed textures, bcndecode.cpp) and
+the JPEG writer's (imageencode.cpp).
 
 native.cpp is a copy of cybervision_tpu/native/native.cpp; every entry
 point is bound here: the affine lanes' writers and meshers and the SFM
@@ -8,14 +9,15 @@ track merge. imagedecode.cpp is the port's own: PNG unfiltering, TIFF
 PackBits, LZW, zstd and CCITT, BMP RLE, GIF LZW, TGA, SGI, PCX and ICNS
 RLE, QOI, sequential, progressive and lossless JPEG, Huffman or arithmetic
 coded (cybervision_tpu_torch.imageio);
-webpdecode.cpp WebP's VP8L, VP8 and ALPH bitstreams; imageencode.cpp the JPEG writer's scan
-(imageio.jpeg_encode).
+webpdecode.cpp WebP's VP8L, VP8 and ALPH bitstreams; bcndecode.cpp the
+BC1-BC7 blocks of DDS and FTEX and BLP's DXT blocks; imageencode.cpp the
+JPEG writer's scan (imageio.jpeg_encode).
 The shared library builds with make into this directory at its first
 use, not at import. `load` raises ImportError when it cannot be built or
 loaded (no toolchain): callers ask `available()` and then take their
 numpy paths, as the JAX package's callers do when its native module
-fails to import (JPEG, LZW, zstd, CCITT, the RLE formats, QOI, GIF and
-WebP have none: the readers raise).
+fails to import (JPEG, LZW, zstd, CCITT, the RLE formats, QOI, GIF,
+WebP and BCn blocks have none: the readers raise).
 """
 
 from __future__ import annotations
@@ -81,8 +83,11 @@ _SIGNATURES = {
     "webp_vp8l_decode": ([_U8P, _L, _L, _L, ctypes.POINTER(ctypes.c_uint32)], _L),
     "webp_vp8_decode": ([_U8P, _L, _L, _L, _U8P], _L),
     "webp_alph_decode": ([_U8P, _L, _L, _L, _U8P], _L),
+    "bcn_decode": ([_U8P, _L, _L, _L, _L, _L, _U8P], _L),
+    "blp_dxt": ([_U8P, _L, _L, _L, _L, _L, _U8P], _L),
 }
-_SOURCES = ("native.cpp", "imagedecode.cpp", "imageencode.cpp", "webpdecode.cpp", "Makefile")
+_SOURCES = ("native.cpp", "imagedecode.cpp", "imageencode.cpp", "webpdecode.cpp", "bcndecode.cpp",
+            "Makefile")
 
 
 def load() -> ctypes.CDLL:
@@ -634,3 +639,34 @@ def webp_alph_decode(data: bytes, width: int, height: int) -> np.ndarray:
     if code < 0:
         _decode_error(code, "webp_alph_decode")
     return out
+
+
+def bcn_decode(data: bytes, width: int, height: int, kind: int, sign: bool = False) -> np.ndarray:
+    """Pillow's "bcn" decoder on `data` (bcndecode.cpp's bcn_decode): blocks
+    of BC`kind` (1-7; `sign`: BC4/BC5 signed bytes, BC6H signed halves) into
+    (height, width, 4) RGBA for BC1-3 and BC7, (height, width) for BC4,
+    (height, width, 3) RGB for BC5 and BC6H; raises where the data holds
+    fewer blocks than the image."""
+    dptr, _keep = _bytes_ptr(data)
+    channels = {4: 1, 5: 3, 6: 3}.get(kind, 4)
+    out = np.zeros((height, width, channels) if channels > 1 else (height, width), np.uint8)
+    code = load().bcn_decode(dptr, len(data), width, height, kind, int(sign),
+                             _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "bcn_decode")
+    return out
+
+
+def blp_dxt(data: bytes, blocks: int, block_rows: int, kind: int, alpha: bool) -> bytes:
+    """BLP2's DXT`kind` (1, 3 or 5) blocks as BlpImagePlugin.py's
+    decode_dxt* lay them out (bcndecode.cpp's blp_dxt): `block_rows` rows of
+    `blocks` blocks, each four rows of 4 * blocks pixels of 3 bytes (DXT1
+    without `alpha`) or 4, as one flat stream."""
+    dptr, _keep = _bytes_ptr(data)
+    bpp = 3 if kind == 1 and not alpha else 4
+    out = np.empty(max(block_rows * 16 * blocks * bpp, 1), np.uint8)
+    code = load().blp_dxt(dptr, len(data), blocks, block_rows, kind, int(alpha),
+                          _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        _decode_error(code, "blp_dxt")
+    return out[:code].tobytes()

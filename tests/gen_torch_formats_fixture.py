@@ -25,7 +25,9 @@
   phase 8 (n) that Pillow reads (chip_smoke.jpeg_coding_files, "jpeg
   codings", read with Pillow's read block raised to the whole file) and
   of the old-style JPEG-in-TIFF, PSD, FITS and small raw-format files of
-  phase 8 (o) (chip_smoke.pillow_rest_files, "pillow rest");
+  phase 8 (o) (chip_smoke.pillow_rest_files, "pillow rest") and of the
+  DDS, BLP and FTEX files of phase 8 (p) (chip_smoke.block_texture_files,
+  "block textures");
 * tests/fixtures/torch_lzma_damaged.tif: a 64x256 gradient as one
   xz-compressed strip (no check) with bits flipped where liblzma fills the
   strip before it finds the damage, so that Pillow's libtiff reads it
@@ -49,8 +51,9 @@ The port must decode the files to those planes and encode the arrays to
 those bytes (tests/test_torch_images.py, tests/test_torch_jpeg_encode.py,
 tests/test_torch_gif_webp.py, tests/test_torch_raster_formats.py and
 tests/test_torch_icons_codecs.py, tests/test_torch_legacy_rasters.py and
-tests/test_torch_pillow_rest.py here; chip_smoke.py phase 8 (e), (f) and
-(h)-(o) on the card, with Pillow blocked).
+tests/test_torch_pillow_rest.py and tests/test_torch_block_textures.py
+here; chip_smoke.py phase 8 (e), (f) and (h)-(p) on the card, with Pillow
+blocked).
 """
 
 import hashlib
@@ -208,6 +211,18 @@ def pillow_rest_planes() -> dict:
     return out
 
 
+def block_texture_planes() -> dict:
+    """{file name: Pillow's plane hashes} of phase 8 (p)'s files, which
+    chip_smoke.block_texture_files writes."""
+    img1, img2, _ = chip_smoke.synth_sem_pair(chip_smoke.SIZE, chip_smoke.SIZE)
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        for paths in chip_smoke.block_texture_files(td, img1, img2).values():
+            for path in paths:
+                out[os.path.basename(path)] = planes(path)
+    return out
+
+
 def lzma_damaged_strip() -> tuple[np.ndarray, bytes]:
     """(pixels, strip) of the damaged LZMA fixture: the 64x256 gradient of
     tests/test_torch_icons_codecs.py::test_seeded_lzma_damage_reads_where_pillow_reads
@@ -255,7 +270,8 @@ def main():
         json.dump({"decoder": decoder, "encoder": encoder, "phase8": phase8_planes(),
                    "gif_webp": gif_webp_planes(), "raster": raster_planes(), "codecs": codecs,
                    "icons": icons, "legacy": legacy_planes(), "lzma damaged": lzma_fixture(),
-                   "jpeg codings": jpeg_coding_planes(), "pillow rest": pillow_rest_planes()},
+                   "jpeg codings": jpeg_coding_planes(), "pillow rest": pillow_rest_planes(),
+                   "block textures": block_texture_planes()},
                   fh, indent=1,
                   sort_keys=True)
         fh.write("\n")

@@ -1113,8 +1113,8 @@ UNSUPPORTED = {
     "jpeg 2000 (jp2 boxes)": ("jp2", True),
     "jpeg 2000 (j2k codestream)": ("j2k", True),
     "avif": ("avif", True),
-    "dds": ("dds", True),
-    "blp": ("blp", True),
+    "fli": ("fli", True),
+    "photo cd": ("pcd", True),
     "uncompressed YCbCr tiff": ("tif", False),
     "LAB tiff": ("tif", False),
 }
@@ -1131,10 +1131,28 @@ PILLOW_REFUSES_TOO = {
 }
 
 
+def _write_fli(path, px):
+    """An FLI of one frame: the 128-byte header, then a frame chunk holding
+    one FLI_COPY chunk of the (h, w) indices (the gray palette Pillow
+    assumes without a colour chunk)."""
+    h, w = px.shape
+    head = struct.pack("<IHHHHHHI", 0, 0xAF11, 1, w, h, 8, 0, 5)
+    sub = struct.pack("<IH", 6 + w * h, 16) + px.tobytes()
+    with open(path, "wb") as fh:
+        fh.write(head + bytes(128 - len(head)) + struct.pack("<IHH", 16 + len(sub), 0xF1FA, 1)
+                 + bytes(8) + sub)
+
+
 def _unsupported(kind, path):
     rng = np.random.RandomState(5)
     im = Image.fromarray(_texture(rng, 24, 24, 3))
-    if kind in ("gif", "webp", "ico", "icns", "dib", "im", "msp", "xbm") \
+    if kind == "fli":  # Pillow writes neither FLI nor Photo CD
+        _write_fli(path, np.asarray(im.convert("L")))
+    elif kind == "photo cd":
+        with open(path, "wb") as fh:
+            fh.write(bytes(2048) + b"PCD_" + bytes(96 * 2048 - 2052)
+                     + rng.bytes(768 * 512 * 3 // 2))
+    elif kind in ("gif", "webp", "ico", "icns", "dib", "im", "msp", "xbm", "dds", "blp") \
             or UNSUPPORTED.get(kind, ("", False))[1]:
         im.convert({"msp": "1", "xbm": "1", "blp": "P"}.get(kind, "RGB")).save(path)
     elif kind == "sun":  # Pillow writes neither Sun rasters nor XPM
@@ -1179,15 +1197,16 @@ def test_unsupported_formats_raise_their_named_error(tmp_path, kind):
 
 
 @pytest.mark.parametrize("kind", ["gif", "webp", "ico", "icns", "dib", "im", "msp", "xbm", "xpm",
-                                  "sun"])
+                                  "sun", "dds", "blp"])
 def test_formats_once_refused_decode_to_pillows_planes(tmp_path, kind):
-    """GIF, WebP, ICO, ICNS, DIB, IM, MSP, XBM, XPM and Sun raster, which
-    the readers refused by name until they took them
-    (tests/test_torch_gif_webp.py, tests/test_torch_icons_codecs.py and
-    tests/test_torch_legacy_rasters.py hold them in depth): the same 24x24
-    image, as Pillow writes it (or, for XPM and Sun raster, which Pillow
-    does not write, chip_smoke.py's writers), now reads as the JAX package
-    reads it."""
+    """GIF, WebP, ICO, ICNS, DIB, IM, MSP, XBM, XPM, Sun raster, DDS and
+    BLP, which the readers refused by name until they took them
+    (tests/test_torch_gif_webp.py, tests/test_torch_icons_codecs.py,
+    tests/test_torch_legacy_rasters.py and tests/test_torch_block_textures.py
+    hold them in depth): the same 24x24 image, as Pillow writes it (an
+    uncompressed RGB DDS, a BLP2 palette file; for XPM and Sun raster,
+    which Pillow does not write, chip_smoke.py's writers), now reads as the
+    JAX package reads it."""
     path = str(tmp_path / f"u.{kind}")
     _unsupported(kind, path)
     (src_j, rgb_j) = _jax_load(path)
