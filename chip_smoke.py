@@ -295,7 +295,15 @@ Phases, each of which raises on failure:
        depth_writer_rgba()'s seeded map, an opaque and a fully
        transparent copy through writers._save_image, each file with the
        committed SHA-256 of Pillow's bytes ("webp writer"); the encode of
-       an 898x1014 and a 1024x1024 depth map timed, best of 3.
+       an 898x1014 and a 1024x1024 depth map timed, best of 3;
+   (v) with Pillow blocked as well (cli_avif): the committed AVIF files
+       (tests/fixtures/avif/). (a)'s SEM pair as 4:0:0 AVIF -> PLY,
+       byte-equal to reconstruct's on the decoded planes; BASELINE #3's
+       views as RGB 4:2:0 AVIF carrying EXIF focal length 43 and
+       orientation 6 -> OBJ with no --focal-length and (f)'s gates;
+       RGBA, 4:4:4, limited-range, lossless, tiled and sequence files
+       decoded, each timed. Every plane has the committed SHA-256 of
+       Pillow's ("avif"), the decode seconds of each plane printed.
    One JSON record per run: seconds, phases, decode seconds per file and
    plane, encode (and write) seconds per depth map, launches, the card's
    name and power limit.
@@ -2298,6 +2306,11 @@ J2K_PERSP = [os.path.join(J2K_DIR, f"persp_53_v{i}.j2k") for i in range(2)]
 J2K_DECODE_ONLY = ("la.jp2", "rgba.j2k", "cmyk.jp2", "cmyk.j2k", "ycbcr.jp2", "i16.j2k",
                    "signed.jp2", "pcrl.j2k", "cprl.jp2", "rlcp.j2k", "plt.j2k", "p.jp2", "pa.jp2",
                    "entry.icns")
+AVIF_DIR = os.path.join(ROOT, "tests", "fixtures", "avif")
+AVIF_SEM = [os.path.join(AVIF_DIR, f"sem_400_{i}.avif") for i in range(2)]
+AVIF_PERSP = [os.path.join(AVIF_DIR, f"persp_420_v{i}.avif") for i in range(2)]
+AVIF_DECODE_ONLY = ("rgba.avif", "yuv444.avif", "limited.avif", "lossless.avif", "tiled.avif",
+                    "sequence.avif")
 TIFF_TILE = 256  # phase 8 (g)'s tiled layout
 JPEG_TIFF_ROWS = 64  # phase 8 (i)'s JPEG-in-TIFF rows per strip
 # Phase 8 (e): the decoded .jpg depth map against the RGB it encodes:
@@ -2930,6 +2943,7 @@ def phase_cli_files(counters, smi: str, texture_obj_sha: str) -> dict:
         records.update(cli_depth_writers(cap, smi, td, tifs, mem, texture))
         records.update(cli_jpeg2000_writers(cap, smi, td, tifs, mem))
         records.update(cli_webp_writer(cap, smi, td, tifs, mem))
+        records.update(cli_avif(cap, smi, td))
     torch.cuda.empty_cache()
     return records
 
@@ -6237,6 +6251,90 @@ def cli_jpeg2000(cap, smi: str, td: str) -> dict:
           f" {time.perf_counter() - t_phase:.1f} s")
     if pil:
         raise AssertionError("(r): Pillow was imported")
+    return records
+
+
+def cli_avif(cap, smi: str, td: str) -> dict:
+    """Phase 8 (v), with every import of Pillow blocked (_NoPillow): the
+    committed AVIF files (AVIF_*, tests/gen_torch_formats_fixture.py)
+    through cli.main. (v1) phase 3's SEM pair as 4:0:0 AVIF -> PLY,
+    byte-equal to reconstruct's on the decoded planes; (v2) BASELINE #3's
+    views as RGB 4:2:0 AVIF carrying EXIF focal length 43 and orientation
+    6 (irot) -> OBJ with no --focal-length and cli_exif_jpeg_pair's gates;
+    the decode-only files (RGBA, 4:4:4, limited range, lossless, tiled, a
+    sequence), each timed. Every plane has the committed SHA-256 of
+    Pillow's ("avif"); the decode seconds of each plane are printed."""
+    from cybervision_tpu_torch.config import MeshMode, ProjectionMode, ReconstructionConfig
+    from cybervision_tpu_torch.images import SourceImage
+    from cybervision_tpu_torch.reconstruction import reconstruct
+
+    with open(FORMATS_SHA256) as fh:
+        committed = json.load(fh)["avif"]
+    t_phase = time.perf_counter()
+    records = {}
+
+    def load(path):
+        """(SourceImage, decode seconds of its gray and colour planes,
+        whether both have Pillow's SHA-256)."""
+        t0 = time.perf_counter()
+        src = SourceImage.load(path)
+        rgb_plane = src.load_rgb_plane()
+        seconds = time.perf_counter() - t0
+        want = committed[os.path.basename(path)]
+        return src, seconds, (_plane_sha(src.img) == want["l"]
+                              and _plane_sha(rgb_plane) == want["rgb"])
+
+    pairs = {"sem": AVIF_SEM, "persp": AVIF_PERSP}
+    with _NoPillow():
+        loaded = {kind: [load(p) for p in paths] for kind, paths in pairs.items()}
+        seconds = {os.path.basename(p): round(r[1], 4) for kind, paths in pairs.items()
+                   for p, r in zip(paths, loaded[kind])}
+        hashes = {kind: all(r[2] for r in rs) for kind, rs in loaded.items()}
+        print(f"(v) files {[os.path.getsize(p) for p in AVIF_SEM + AVIF_PERSP]} bytes; planes"
+              f" equal to Pillow's (SHA-256) {hashes}; decode seconds (gray and colour planes)"
+              f" {json.dumps(seconds)}")
+        if not all(hashes.values()):
+            raise AssertionError("(v): the decoded planes are not Pillow's")
+        srcs = {kind: [r[0] for r in rs] for kind, rs in loaded.items()}
+
+        label = f"(v1) 4:0:0 AVIF pair {SIZE}x{SIZE} -> PLY"
+        mem = []
+        for s in srcs["sem"]:
+            src = SourceImage(s.img)
+            src.load_rgb_plane = functools.partial(np.array, s.load_rgb_plane())
+            mem.append(src)
+        ref, out = os.path.join(td, "mem_v.ply"), os.path.join(td, "v.ply")
+        reconstruct(["a", "b"], ref, ReconstructionConfig(
+            projection=ProjectionMode.AFFINE, mesh=MeshMode.VERTEX_COLORS), quiet=True,
+            images=mem)
+        run = cap.main(["--projection=parallel", "--mesh=vertex-colors", *AVIF_SEM, out])
+        records["avif 400 ply"] = cli_record("(v1) 4:0:0 AVIF pair", run["seconds"],
+                                             run["rec"].phases, run["decode"], run["launches"],
+                                             smi)
+        same = _sha(out) == _sha(ref)
+        print(f"{label}: PLY equal to the in-memory run's (the decoded planes) {same}")
+        if not same:
+            raise AssertionError(f"{label}: the PLY differs from the in-memory run's")
+
+        records["avif 420 obj"] = cli_exif_jpeg_pair(
+            cap, smi, td, "(v2) RGB 4:2:0 AVIF pair, EXIF focal 43 and orientation 6",
+            f"(v2) RGB 4:2:0 AVIF pair {PERSP_W}x{PERSP_H} -> OBJ", AVIF_PERSP,
+            srcs["persp"], {"EXIF focal length 43": all(
+                s.focal_length_35mm == PERSP_FOCAL_35MM for s in srcs["persp"])},
+            (PERSP_W, PERSP_H))
+
+        decode, ok = {}, {}
+        for name in AVIF_DECODE_ONLY:
+            _, decode[name], ok[name] = load(os.path.join(AVIF_DIR, name))
+        print(f"(v) decoded only: planes equal to Pillow's (SHA-256) {ok}; decode seconds"
+              f" {json.dumps({k: round(v, 4) for k, v in decode.items()})}")
+        if not all(ok.values()):
+            raise AssertionError("(v): the decode-only planes are not Pillow's")
+        pil = any(m == "PIL" or m.startswith("PIL.") for m in sys.modules)
+    print(f"(v) Pillow imported during the runs {pil}; (v) took"
+          f" {time.perf_counter() - t_phase:.1f} s")
+    if pil:
+        raise AssertionError("(v): Pillow was imported")
     return records
 
 

@@ -14,7 +14,8 @@ MSP, XBM, XPM, PSD (the composite), FITS (raw or GZIP_1 tiles), GBR, IM
 Tools, IPTC/NAA, McIdas, PIXAR, XV thumbnails, DDS (channel masks,
 luminance, palette, BC1-BC7 blocks), BLP (JPEG, palette, DXT), FTEX
 (DXT1 or raw), FLI/FLC (the first frame), Kodak Photo CD (the base
-image) and JPEG 2000 (JP2 files and codestreams), giving what the JAX
+image), JPEG 2000 (JP2 files and codestreams) and AVIF (an item or a
+sequence's first frame, 8-bit AV1 key frames), giving what the JAX
 package reads through Pillow — the SEM metadata tag, the EXIF focal
 length, and the planes of convert("L") and convert("RGB"), bit for bit.
 A file goes to the reader of the plugin Pillow's Image.open would pick
@@ -23,7 +24,8 @@ rgba_encode (TIFF, BMP, Netpbm, TGA, SGI, IM, QOI, DIB, DDS).
 
 The containers are parsed here in Python; the pixel loops run in the
 native library (native/imagedecode.cpp, native/webpdecode.cpp,
-native/bcndecode.cpp, native/j2kdecode.cpp), built at first use. PNG, uncompressed BMP, TGA and
+native/bcndecode.cpp, native/j2kdecode.cpp, native/av1*.cpp and
+native/avifrgb.cpp), built at first use. PNG, uncompressed BMP, TGA and
 SGI, Netpbm, SPIDER, raw Sun rasters, IM, MSP version 1, XBM, XPM, raw
 PSD, FITS, GBR, IM Tools, McIdas, PIXAR, XV thumbnails, DDS of channel
 masks, luminance or a palette, raw FTEX, BLP palettes, Photo CD and uncompressed,
@@ -31,7 +33,7 @@ PackBits, Deflate or LZMA TIFF have a numpy path for when it cannot be
 built; JPEG, LZW, zstd, CCITT, JPEG-in-TIFF (both kinds), RLE BMP, TGA,
 SGI, ICNS, Sun and MSP version 2, IM's bit-packed floats, PCX and DCX,
 PackBits PSD, QOI, GIF, WebP, block-compressed DDS, FTEX DXT1, BLP's
-JPEG and DXT textures, FLI/FLC and JPEG 2000 then raise
+JPEG and DXT textures, FLI/FLC, JPEG 2000 and AVIF then raise
 NativeDecoderError.
 """
 
@@ -43,7 +45,7 @@ import struct
 import numpy as np
 
 from cybervision_tpu_torch.imageio import (
-    blp, bmp, dds, exif, fits, fli, ftex, gbr, gif, icns, ico, im, imt, iptc, jpeg, jpeg2000,
+    avif, blp, bmp, dds, exif, fits, fli, ftex, gbr, gif, icns, ico, im, imt, iptc, jpeg, jpeg2000,
     mcidas, msp,
     netpbm, pcd, pcx, pixar, png, psd, qoi, sgi, spider, sun, tga, tiff, webp, xbm, xpm, xvthumb,
 )
@@ -95,7 +97,7 @@ class ImageFile:
         JAX package's getexif() or int() would."""
         if self.format == "TIFF":
             return self.parsed.focal_length_35mm()
-        if self.format not in ("PNG", "JPEG", "WebP"):
+        if self.format not in ("PNG", "JPEG", "WebP", "AVIF"):
             return None
         if self.format == "PNG":
             # Pillow reads the chunks after the image data only by decoding
@@ -159,7 +161,7 @@ _PLUGINS = (
     ("JPEG", lambda d: d.startswith(b"\xff\xd8\xff"), "JPEG"),
     ("PPM", netpbm.accept, "PPM"),
     ("PNG", lambda d: d.startswith(png.SIGNATURE), "PNG"),
-    ("AVIF", _avif, "AVIF/HEIF"),
+    ("AVIF", _avif, "AVIF"),
     ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")), "BLP"),
     ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC")),
      ("BUFR", "Pillow names it but reads no pixels")),
@@ -212,14 +214,15 @@ _PARSERS = {"PNG": png.parse, "TIFF": tiff.parse, "BMP": bmp.parse, "DIB": bmp.p
             "DCX": pcx.parse_dcx, "FITS": fits.parse, "GBR": gbr.parse, "IMT": imt.parse,
             "IPTC": iptc.parse, "MCIDAS": mcidas.parse, "PIXAR": pixar.parse, "PSD": psd.parse,
             "XVThumb": xvthumb.parse, "BLP": blp.parse, "DDS": dds.parse, "FTEX": ftex.parse,
-            "FLI": fli.parse, "PCD": pcd.parse, "JPEG2000": jpeg2000.parse}
+            "FLI": fli.parse, "PCD": pcd.parse, "JPEG2000": jpeg2000.parse,
+            "AVIF": avif.parse}
 _DECODERS = {"PNG": png, "TIFF": tiff, "JPEG": jpeg, "BMP": bmp, "DIB": bmp, "GIF": gif,
              "WebP": webp, "PPM": netpbm, "CUR": bmp, "PCX": pcx, "ICNS": icns, "ICO": ico,
              "QOI": qoi, "SGI": sgi, "SPIDER": spider, "TGA": tga, "IM": im, "MSP": msp,
              "SUN": sun, "XBM": xbm, "XPM": xpm, "DCX": pcx, "FITS": fits, "GBR": gbr,
              "IMT": imt, "IPTC": iptc, "MCIDAS": mcidas, "PIXAR": pixar, "PSD": psd,
              "XVThumb": xvthumb, "BLP": blp, "DDS": dds, "FTEX": ftex, "FLI": fli, "PCD": pcd,
-             "JPEG2000": jpeg2000}
+             "JPEG2000": jpeg2000, "AVIF": avif}
 
 
 def identify(data: bytes, metadata_only: bool = False) -> tuple[str, object]:
@@ -244,8 +247,8 @@ def identify(data: bytes, metadata_only: bool = False) -> tuple[str, object]:
                                 " TIFF, JPEG, BMP and DIB, GIF, WebP, Netpbm, PCX and DCX, ICO"
                                 " and CUR, ICNS, IM, IM Tools, IPTC/NAA, MSP, McIdas, PIXAR, PSD,"
                                 " FITS, GBR, QOI, SGI, SPIDER, Sun raster, TGA, XBM, XPM, XV"
-                                " thumbnail, DDS, BLP, FTEX, FLI/FLC, Photo CD, JPEG 2000) nor any"
-                                " other Pillow plugin take it")
+                                " thumbnail, DDS, BLP, FTEX, FLI/FLC, Photo CD, JPEG 2000, AVIF) nor"
+                                " any other Pillow plugin take it")
 
 
 def open_image(path: str, metadata_only: bool = False) -> ImageFile:

@@ -1,7 +1,8 @@
 """ctypes bindings for the native host library: the writers and meshers
 (native.cpp), the image readers' pixel loops (imagedecode.cpp and, for
 WebP, webpdecode.cpp, for block-compressed textures, bcndecode.cpp, for
-JPEG 2000, j2kdecode.cpp) and the image writers' (imageencode.cpp and,
+JPEG 2000, j2kdecode.cpp, for AVIF, av1*.cpp and avifrgb.cpp) and the
+image writers' (imageencode.cpp and,
 for JPEG 2000, j2kencode.cpp, for WebP, webpencode.cpp).
 
 native.cpp is a copy of cybervision_tpu/native/native.cpp; every entry
@@ -12,7 +13,11 @@ RLE, QOI, FLI frames, sequential, progressive and lossless JPEG, Huffman or arit
 coded (cybervision_tpu_torch.imageio);
 webpdecode.cpp WebP's VP8L, VP8 and ALPH bitstreams; bcndecode.cpp the
 BC1-BC7 blocks of DDS and FTEX and BLP's DXT blocks; j2kdecode.cpp a
-JPEG 2000 tile, as OpenJPEG decodes it; imageencode.cpp the
+JPEG 2000 tile, as OpenJPEG decodes it; av1obu.cpp, av1entropy.cpp,
+av1recon.cpp and av1filter.cpp (sharing av1.h and the generated
+av1tables.h) an AVIF image's AV1 key frame, as dav1d decodes it, and
+avifrgb.cpp its YUV to RGB(A), as libavif converts it through libyuv
+(imageio.avif); imageencode.cpp the
 JPEG writer's scan (imageio.jpeg_encode), the QOI writer's ops
 (imageio.rgba_encode), the PNG writer's row filters (imageio.png_encode),
 Pillow's RGBA resampling (imageio.resample), its octree quantiser
@@ -26,7 +31,7 @@ linked, by one process at a time. `load` raises ImportError when it cannot be bu
 loaded (no toolchain): callers ask `available()` and then take their
 numpy paths, as the JAX package's callers do when its native module
 fails to import (JPEG, LZW, zstd, CCITT, the RLE formats, QOI, GIF,
-WebP, BCn blocks and JPEG 2000 have none: the readers raise; the QOI,
+WebP, BCn blocks, JPEG 2000 and AVIF have none: the readers raise; the QOI,
 GIF, ICO, ICNS, JPEG 2000 and WebP writers hand the file to Pillow).
 """
 
@@ -106,10 +111,14 @@ _SIGNATURES = {
     "j2k_encode_tile": ([_U8P, _L, _L, _L, _L, _U8P, _L], _L),
     "webp_vp8_encode": ([_U8P, _L, _L, _U8P, _L], _L),
     "webp_alph_encode": ([_U8P, _L, _L, _U8P, _L], _L),
+    "av1_decode": ([_U8P, _L, _L, _L, _I32P, _U8P, _U8P, _U8P], _L),
+    "av1_error": ([], ctypes.c_char_p),
+    "avif_yuv_to_rgb": ([_U8P, _U8P, _U8P, _L, _L, _L, _L, _L, _L, _L, _U8P], _L),
 }
 _SOURCES = ("native.cpp", "imagedecode.cpp", "imageencode.cpp", "webpdecode.cpp", "webpencode.cpp",
             "webpcommon.h", "bcndecode.cpp", "j2kdecode.cpp", "j2kencode.cpp", "j2kcommon.h",
-            "Makefile")
+            "av1.h", "av1tables.h", "av1obu.cpp", "av1entropy.cpp", "av1recon.cpp",
+            "av1filter.cpp", "avifrgb.cpp", "Makefile")
 
 
 def _stale() -> bool:
@@ -747,6 +756,50 @@ def webp_alph_decode(data: bytes, width: int, height: int) -> np.ndarray:
     code = load().webp_alph_decode(dptr, len(data), width, height, _ptr(out, ctypes.c_uint8))
     if code < 0:
         _decode_error(code, "webp_alph_decode")
+    return out
+
+
+def av1_decode(data: bytes, width: int, height: int) -> tuple[list[np.ndarray], dict]:
+    """The first frame of an AV1 stream (av1obu.cpp's av1_decode), an 8-bit
+    key frame that must be width x height: ([Y] or [Y, U, V] uint8 planes,
+    the sequence header's colour fields)."""
+    from cybervision_tpu_torch.imageio.errors import CorruptImageError, UnsupportedImageError
+
+    lib = load()
+    dptr, _keep = _bytes_ptr(data)
+    info = np.zeros(16, np.int32)
+    cw, ch = width, height  # room for 4:4:4
+    y = np.empty((height, width), np.uint8)
+    u = np.empty(cw * ch, np.uint8)
+    v = np.empty(cw * ch, np.uint8)
+    code = lib.av1_decode(dptr, len(data), width, height, _ptr(info, ctypes.c_int32),
+                          _ptr(y, ctypes.c_uint8), _ptr(u, ctypes.c_uint8), _ptr(v, ctypes.c_uint8))
+    if code < 0:
+        why = lib.av1_error().decode("utf-8", "replace")
+        raise (UnsupportedImageError if code == -3 else CorruptImageError)(f"AV1: {why}")
+    fields = dict(mono=int(info[2]), subsampling=(int(info[3]), int(info[4])),
+                  matrix=int(info[5]), full_range=int(info[6]))
+    planes = [y]
+    if not fields["mono"]:
+        sx, sy = fields["subsampling"]
+        cw, ch = (width + sx) >> sx, (height + sy) >> sy
+        planes += [u[: cw * ch].reshape(ch, cw), v[: cw * ch].reshape(ch, cw)]
+    return planes, fields
+
+
+def avif_yuv_to_rgb(planes: list[np.ndarray], subsampling: tuple[int, int], full_range: bool,
+                    channels: int) -> np.ndarray:
+    """YUV planes to (H, W, channels) uint8 as libavif converts them for
+    Pillow (avifrgb.cpp); the alpha byte of RGBA is 255."""
+    y = np.ascontiguousarray(planes[0], np.uint8)
+    h, w = y.shape
+    mono = len(planes) == 1
+    u = y if mono else np.ascontiguousarray(planes[1], np.uint8)
+    v = y if mono else np.ascontiguousarray(planes[2], np.uint8)
+    out = np.full((h, w, channels), 255, np.uint8)
+    load().avif_yuv_to_rgb(_ptr(y, ctypes.c_uint8), _ptr(u, ctypes.c_uint8),
+                           _ptr(v, ctypes.c_uint8), w, h, subsampling[0], subsampling[1],
+                           int(mono), int(bool(full_range)), channels, _ptr(out, ctypes.c_uint8))
     return out
 
 

@@ -1,0 +1,211 @@
+// What the AV1 key-frame decoder's sources share (av1obu.cpp: OBUs and
+// headers; av1entropy.cpp: the symbol decoder and a tile's syntax;
+// av1recon.cpp: prediction and inverse transforms; av1filter.cpp:
+// deblocking, CDEF and loop restoration). It decodes the first frame of
+// an AV1 stream, an 8-bit key frame, as the AV1 specification (2019,
+// with errata) sets out, which is what dav1d decodes bit for bit. Names
+// follow the specification's.
+
+#pragma once
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <memory>
+#include <stdexcept>
+#include <string>
+#include <vector>
+
+namespace av1 {
+
+// A stream the decoder refuses: damaged, or using a tool it lacks ("not
+// supported yet").
+struct Error : std::runtime_error {
+    int code;
+    Error(int c, const std::string& m) : std::runtime_error(m), code(c) {}
+};
+enum { kErrCorrupt = -1, kErrUnsupported = -2 };
+[[noreturn]] inline void corrupt(const char* what) { throw Error(kErrCorrupt, what); }
+[[noreturn]] inline void unsupported(const char* what) {
+    throw Error(kErrUnsupported, std::string(what) + " is not supported yet");
+}
+
+enum BlockSize {
+    BLOCK_4X4, BLOCK_4X8, BLOCK_8X4, BLOCK_8X8, BLOCK_8X16, BLOCK_16X8, BLOCK_16X16,
+    BLOCK_16X32, BLOCK_32X16, BLOCK_32X32, BLOCK_32X64, BLOCK_64X32, BLOCK_64X64,
+    BLOCK_64X128, BLOCK_128X64, BLOCK_128X128, BLOCK_4X16, BLOCK_16X4, BLOCK_8X32,
+    BLOCK_32X8, BLOCK_16X64, BLOCK_64X16, BLOCK_SIZES, BLOCK_INVALID = BLOCK_SIZES
+};
+enum TxSize {
+    TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4, TX_8X16, TX_16X8,
+    TX_16X32, TX_32X16, TX_32X64, TX_64X32, TX_4X16, TX_16X4, TX_8X32, TX_32X8, TX_16X64,
+    TX_64X16, TX_SIZES_ALL
+};
+enum PredMode {
+    DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED, D203_PRED,
+    D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED, PAETH_PRED, UV_CFL_PRED
+};
+enum TxType {
+    DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST, FLIPADST_FLIPADST,
+    ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST
+};
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+
+extern const uint8_t kNum4x4W[BLOCK_SIZES], kNum4x4H[BLOCK_SIZES];
+extern const uint8_t kMiWidthLog2[BLOCK_SIZES], kMiHeightLog2[BLOCK_SIZES];
+extern const uint8_t kTxW[TX_SIZES_ALL], kTxH[TX_SIZES_ALL];
+extern const uint8_t kTxWLog2[TX_SIZES_ALL], kTxHLog2[TX_SIZES_ALL];
+extern const uint8_t kMaxTxSizeRect[BLOCK_SIZES], kSplitTxSize[TX_SIZES_ALL];
+extern const uint8_t kTxSizeSqr[TX_SIZES_ALL], kTxSizeSqrUp[TX_SIZES_ALL];
+int block_size(int w, int h);  // BLOCK_INVALID where none
+int tx_size(int w, int h);
+
+struct SequenceHeader {
+    int profile = 0, still_picture = 0, reduced_still_picture_header = 0;
+    int timing_info_present = 0, decoder_model_info_present = 0, equal_picture_interval = 0;
+    int buffer_delay_length = 0;
+    int buffer_removal_time_length = 0, frame_presentation_time_length = 0;
+    int operating_points = 1, operating_point_idc[32] = {0};
+    int decoder_model_present_for_op[32] = {0};
+    int frame_width_bits = 0, frame_height_bits = 0, max_frame_width = 0, max_frame_height = 0;
+    int frame_id_numbers_present = 0, delta_frame_id_length = 0, additional_frame_id_length = 0;
+    int use_128x128 = 0, enable_filter_intra = 0, enable_intra_edge_filter = 0;
+    int enable_order_hint = 0, order_hint_bits = 0;
+    int seq_force_screen_content_tools = 2, seq_force_integer_mv = 2;
+    int enable_superres = 0, enable_cdef = 0, enable_restoration = 0;
+    int bit_depth = 8, mono_chrome = 0, color_description_present = 0;
+    int color_primaries = 2, transfer_characteristics = 2, matrix_coefficients = 2;
+    int color_range = 0, subsampling_x = 1, subsampling_y = 1, chroma_sample_position = 0;
+    int separate_uv_delta_q = 0, film_grain_params_present = 0;
+    int num_planes = 3;
+};
+
+struct FrameHeader {
+    int frame_type = 0, show_frame = 1, showable_frame = 0, error_resilient_mode = 1;
+    int disable_cdf_update = 0, allow_screen_content_tools = 0, allow_intrabc = 0;
+    int frame_width = 0, frame_height = 0, upscaled_width = 0, render_width = 0;
+    int render_height = 0, mi_cols = 0, mi_rows = 0;
+    int disable_frame_end_update_cdf = 1;
+    // Tiles.
+    int tile_cols = 1, tile_rows = 1, tile_cols_log2 = 0, tile_rows_log2 = 0;
+    int mi_col_starts[65] = {0}, mi_row_starts[65] = {0};
+    int context_update_tile_id = 0, tile_size_bytes = 4;
+    // Quantisation.
+    int base_q_idx = 0, delta_q_y_dc = 0, delta_q_u_dc = 0, delta_q_u_ac = 0;
+    int delta_q_v_dc = 0, delta_q_v_ac = 0, using_qmatrix = 0;
+    // Segmentation.
+    int segmentation_enabled = 0, feature_enabled[8][8] = {{0}}, feature_data[8][8] = {{0}};
+    int seg_id_pre_skip = 0, last_active_seg_id = 0;
+    int delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0, delta_lf_res = 0;
+    int delta_lf_multi = 0;
+    int coded_lossless = 0, all_lossless = 0, lossless_array[8] = {0};
+    // Loop filter.
+    int loop_filter_level[4] = {0}, loop_filter_sharpness = 0, loop_filter_delta_enabled = 0;
+    int loop_filter_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+    int loop_filter_mode_deltas[2] = {0, 0};
+    // CDEF.
+    int cdef_damping = 3, cdef_bits = 0, cdef_y_pri[8] = {0}, cdef_y_sec[8] = {0};
+    int cdef_uv_pri[8] = {0}, cdef_uv_sec[8] = {0};
+    // Loop restoration.
+    int frame_restoration_type[3] = {0}, loop_restoration_size[3] = {256, 256, 256};
+    int uses_lr = 0;
+    int tx_mode_select = 0, only_4x4 = 0, reduced_tx_set = 0;
+};
+
+// The default CDFs, adapted as a tile decodes; a copy per tile.
+struct Cdfs {
+    uint16_t kf_y_mode[5][5][14], uv_mode_no_cfl[13][14], uv_mode_cfl[13][15];
+    uint16_t partition_w8[4][5], partition_w16[4][11], partition_w32[4][11];
+    uint16_t partition_w64[4][11], partition_w128[4][9];
+    uint16_t cfl_alpha[6][17], cfl_sign[9], angle_delta[8][8], filter_intra_mode[6];
+    uint16_t use_filter_intra[22][3], segment_id[3][9], skip[3][3];
+    uint16_t intra_tx_set1[2][13][8], intra_tx_set2[3][13][6];
+    uint16_t tx8[3][3], tx16[3][4], tx32[3][4], tx64[3][4];
+    uint16_t delta_q[5], delta_lf[5], delta_lf_multi[4][5];
+    uint16_t palette_y_mode[7][3][3], palette_uv_mode[2][3];
+    uint16_t palette_y_size[7][8], palette_uv_size[7][8];
+    uint16_t palette_y_color[7][5][9], palette_uv_color[7][5][9];
+    uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
+    // Intra block copy.
+    uint16_t intrabc[3], inter_tx_set1[2][17], inter_tx_set2[13], inter_tx_set3[4][3];
+    uint16_t txfm_split[21][3], mv_joint[5];
+    uint16_t mv_class[2][12], mv_sign[2][3], mv_class0_bit[2][3], mv_bit[2][10][3];
+    // Coefficients, at the frame's quantiser context.
+    uint16_t txb_skip[5][13][3], eob_pt16[2][2][6], eob_pt32[2][2][7], eob_pt64[2][2][8];
+    uint16_t eob_pt128[2][2][9], eob_pt256[2][2][10], eob_pt512[2][11], eob_pt1024[2][12];
+    uint16_t eob_extra[5][2][9][3], coeff_base_eob[5][2][4][4], coeff_base[5][2][42][5];
+    uint16_t coeff_br[5][2][21][5], dc_sign[2][3][3];
+};
+void init_cdfs(Cdfs& c, int base_q_idx);
+
+struct Plane {
+    std::vector<uint8_t> buf;
+    int stride = 0, width = 0, height = 0;  // allocated; width/height are the plane's
+    uint8_t* row(int y) { return buf.data() + (size_t)y * stride; }
+    const uint8_t* row(int y) const { return buf.data() + (size_t)y * stride; }
+};
+
+// Mode info of one block, shared by every 4x4 unit it covers.
+struct BlockInfo {
+    uint8_t mi_size, y_mode, uv_mode, skip, segment_id, tx_size, palette_size[2];
+    uint8_t use_filter_intra, filter_intra_mode;
+    uint8_t is_inter;  // an intra block copy
+    int8_t angle_delta_y, angle_delta_uv, cfl_alpha_u, cfl_alpha_v;
+    int16_t mv[2];     // row, col in 1/8 sample
+    int8_t delta_lf[4];
+    uint16_t palette_colors[3][8];
+};
+
+struct Decoder {
+    SequenceHeader seq;
+    FrameHeader fh;
+    Cdfs frame_cdfs;
+    int mi_rows = 0, mi_cols = 0;
+    Plane cur[3], cdef[3], lr[3];
+    std::vector<BlockInfo> blocks;
+    std::vector<int32_t> mi_block;          // mi_rows x mi_cols, index into blocks
+    std::vector<uint8_t> inter_tx_size;     // mi_rows x mi_cols (InterTxSizes)
+    std::vector<uint8_t> tx_types;          // mi_rows x mi_cols, luma (TxTypes)
+    std::vector<uint8_t> lf_tx_size[3];     // mi_rows x mi_cols in plane 4x4 units
+    std::vector<int8_t> cdef_idx;           // per 64x64
+    int cdef_stride = 0;
+    // Loop restoration units per plane.
+    int lr_unit_rows[3] = {0}, lr_unit_cols[3] = {0};
+    std::vector<uint8_t> lr_type[3], lr_sgr_set[3];
+    std::vector<int8_t> lr_wiener[3];       // [unit][pass][3]
+    std::vector<int16_t> lr_sgr_xqd[3];     // [unit][2]
+
+    const BlockInfo& bi(int r, int c) const { return blocks[mi_block[(size_t)r * mi_cols + c]]; }
+};
+
+// av1obu.cpp: decode the first frame of a stream of OBUs (a sample of an
+// AVIF item or track). Throws Error.
+void decode_frame_obus(Decoder& d, const uint8_t* data, size_t size);
+// av1entropy.cpp: one tile.
+void decode_tile(Decoder& d, const uint8_t* data, size_t size, int tile_row, int tile_col);
+// av1filter.cpp: after every tile.
+void loop_filter_frame(Decoder& d);
+void cdef_frame(Decoder& d);
+void lr_frame(Decoder& d);
+
+// av1recon.cpp.
+void predict_intra(Decoder& d, int plane, int x, int y, int have_left, int have_above,
+                   int have_above_right, int have_below_left, int mode, int log2w, int log2h,
+                   const BlockInfo& b, int avail_u, int avail_l, int mi_row, int mi_col);
+void predict_filter_intra(Decoder& d, int plane, int x, int y, int have_left, int have_above,
+                          int have_above_right, int have_below_left, int log2w, int log2h,
+                          int mode);
+void predict_cfl(Decoder& d, int plane, int x, int y, int tx, int alpha, int max_luma_w,
+                 int max_luma_h);
+void predict_intrabc(Decoder& d, int plane, int x, int y, int w, int h, const int16_t* mv);
+void reconstruct(Decoder& d, int plane, int x, int y, int tx, int tx_type, int lossless,
+                 int32_t* quant, int dc_q, int ac_q);
+
+inline int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
+inline int round2(int x, int n) { return n == 0 ? x : (x + (1 << (n - 1))) >> n; }
+inline int64_t round2l(int64_t x, int n) { return n == 0 ? x : (x + ((int64_t)1 << (n - 1))) >> n; }
+inline int floor_log2(uint32_t x) { return 31 - __builtin_clz(x); }
+inline int ceil_log2(uint32_t x) { return x < 2 ? 0 : floor_log2(x - 1) + 1; }
+
+}  // namespace av1

@@ -38,6 +38,9 @@
   copy (chip_smoke.webp_writer_maps, webp_writer_hashes, "webp writer");
 * tests/fixtures/jpeg2000/: phase 8 (r)'s JPEG 2000 files
   (jpeg2000_fixtures, chip_smoke.J2K_*), written by Pillow's OpenJPEG;
+* tests/fixtures/avif/: phase 8 (v)'s AVIF files (avif_fixtures,
+  chip_smoke.AVIF_*), written by Pillow's libavif with aom, and the
+  SHA-256 of Pillow's planes of them ("avif");
 * tests/fixtures/torch_lzma_damaged.tif: a 64x256 gradient as one
   xz-compressed strip (no check) with bits flipped where liblzma fills the
   strip before it finds the damage, so that Pillow's libtiff reads it
@@ -56,6 +59,7 @@
 Run from the repo root:
 
     python -m tests.gen_torch_formats_fixture
+    python -m tests.gen_torch_formats_fixture avif   # the AVIF files alone
 
 The port must decode the files to those planes and encode the arrays to
 those bytes (tests/test_torch_images.py, tests/test_torch_jpeg_encode.py,
@@ -63,15 +67,17 @@ tests/test_torch_gif_webp.py, tests/test_torch_raster_formats.py and
 tests/test_torch_icons_codecs.py, tests/test_torch_legacy_rasters.py and
 tests/test_torch_pillow_rest.py, tests/test_torch_block_textures.py,
 tests/test_torch_fli_pcd_writers.py, tests/test_torch_jpeg2000.py,
-tests/test_torch_depth_writers.py, tests/test_torch_jpeg2000_encode.py
-and tests/test_torch_webp_encode.py here; chip_smoke.py phase 8 (e), (f)
-and (h)-(u) on the card, with Pillow blocked).
+tests/test_torch_depth_writers.py, tests/test_torch_jpeg2000_encode.py,
+tests/test_torch_webp_encode.py and tests/test_torch_avif.py here;
+chip_smoke.py phase 8 (e), (f) and (h)-(v) on the card, with Pillow
+blocked).
 """
 
 import hashlib
 import io
 import json
 import os
+import sys
 import tempfile
 import zlib
 
@@ -309,6 +315,45 @@ def jpeg2000_fixtures() -> dict:
     return {os.path.basename(p): planes(p) for p in paths}
 
 
+def avif_fixtures() -> dict:
+    """Write phase 8 (v)'s AVIF files (chip_smoke.AVIF_*) with Pillow's
+    libavif (aom 3.12.1); {file name: Pillow's plane hashes}. Phase 3's
+    SEM pair as 4:0:0 at quality 50 (about 200 KB each); BASELINE #3's
+    views as RGB 4:2:0 at the default quality 75 with EXIF focal length
+    43 and orientation 6 (which Pillow's save moves into irot); small
+    decode-only files: RGBA with a varying alpha, 4:4:4, limited range,
+    lossless, explicit 2x2 tiles, and a three-frame sequence (avis)."""
+    os.makedirs(chip_smoke.AVIF_DIR, exist_ok=True)
+    img1, img2, _ = chip_smoke.synth_sem_pair(chip_smoke.SIZE, chip_smoke.SIZE)
+    for img, path in zip((img1, img2), chip_smoke.AVIF_SEM):
+        Image.fromarray(img).save(path, quality=50, subsampling="4:0:0")
+    views, _, _, _ = chip_smoke.render_perspective(
+        chip_smoke.PERSP_W, chip_smoke.PERSP_H, chip_smoke.PERSP_CAMS[:1], exact_focal=True)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    exif.get_ifd(0x8769)[41989] = chip_smoke.PERSP_FOCAL_35MM
+    for view, path in zip(views, chip_smoke.AVIF_PERSP):
+        Image.fromarray(tinted(view)).save(path, exif=exif.tobytes())
+    rgb = tinted(views[0])[64:160, 96:224]
+    alpha = np.round(np.linspace(0, 255, rgb.shape[1]))[None, :].repeat(rgb.shape[0], 0)
+    small = {
+        "rgba.avif": (Image.fromarray(np.dstack([rgb, alpha.astype(np.uint8)]), "RGBA"), {}),
+        "yuv444.avif": (Image.fromarray(rgb), {"subsampling": "4:4:4", "quality": 60}),
+        "limited.avif": (Image.fromarray(rgb), {"range": "limited", "subsampling": "4:2:2"}),
+        "lossless.avif": (Image.fromarray(rgb), {"quality": 100, "subsampling": "4:4:4"}),
+        "tiled.avif": (Image.fromarray(tinted(views[1])), {"tile_rows": 1, "tile_cols": 1}),
+    }
+    for name, (im, opts) in small.items():
+        im.save(os.path.join(chip_smoke.AVIF_DIR, name), **opts)
+    frames = [Image.fromarray(tinted(v)[64:160, 96:224]) for v in (*views, views[0][::-1])]
+    frames[0].save(os.path.join(chip_smoke.AVIF_DIR, "sequence.avif"), save_all=True,
+                   append_images=frames[1:])
+    paths = (chip_smoke.AVIF_SEM + chip_smoke.AVIF_PERSP
+             + [os.path.join(chip_smoke.AVIF_DIR, n) for n in chip_smoke.AVIF_DECODE_ONLY])
+    print(chip_smoke.AVIF_DIR, sum(os.path.getsize(p) for p in paths), "bytes")
+    return {os.path.basename(p): planes(p) for p in paths}
+
+
 def depth_writer_hashes() -> dict:
     """The SHA-256 of Pillow's bytes of chip_smoke.depth_writer_rgba() for
     each of chip_smoke.DEPTH_WRITER_EXTS, and of their deflate-free forms
@@ -382,6 +427,15 @@ def lzma_fixture() -> dict:
 
 
 def main():
+    if sys.argv[1:] == ["avif"]:
+        # Only the AVIF files and their hashes; the other entries stay.
+        with open(chip_smoke.FORMATS_SHA256) as fh:
+            hashes = json.load(fh)
+        hashes["avif"] = avif_fixtures()
+        with open(chip_smoke.FORMATS_SHA256, "w") as fh:
+            json.dump(hashes, fh, indent=1, sort_keys=True)
+            fh.write("\n")
+        return
     w, h = round(chip_smoke.PERSP_W * chip_smoke.FULL_SCALE), round(chip_smoke.PERSP_H * chip_smoke.FULL_SCALE)
     views, _, _, _ = chip_smoke.render_perspective(w, h, chip_smoke.PERSP_CAMS[:1], exact_focal=True)
     decoder = {}
@@ -403,7 +457,7 @@ def main():
                    "block textures": block_texture_planes(), "fli pcd": fli_pcd_planes(),
                    "jpeg2000": jpeg2000_fixtures(), "depth writers": depth_writer_hashes(),
                    "jpeg2000 writer": jpeg2000_writer_hashes(),
-                   "webp writer": webp_writer_hashes()},
+                   "webp writer": webp_writer_hashes(), "avif": avif_fixtures()},
                   fh, indent=1,
                   sort_keys=True)
         fh.write("\n")

@@ -1386,8 +1386,9 @@ UNSUPPORTED = {
     "LAB tiff": ("tif", False),
 }
 # Kinds refused by name until the readers took them (JPEG 2000 since the
-# port's jpeg2000 reader): they now decode to the JAX package's planes.
-NOW_READ = {"jpeg 2000 (jp2 boxes)", "jpeg 2000 (j2k codestream)"}
+# port's jpeg2000 reader, AVIF since its avif reader): they now decode to
+# the JAX package's planes.
+NOW_READ = {"jpeg 2000 (jp2 boxes)", "jpeg 2000 (j2k codestream)", "avif"}
 # Kinds Pillow does not read either, refused without "yet", and what the
 # port's refusal says: the TIFFs and hierarchical JPEG by name; 12-bit
 # and 2-component JPEG fail Pillow's open, so Image.open tries its other
@@ -1433,8 +1434,9 @@ def test_unsupported_formats_raise_their_named_error(tmp_path, kind):
     the file, the refusal is a gap of the port, named. The kinds Pillow
     does not read either (uncompressed YCbCr and CIELAB TIFF, 12-bit,
     hierarchical and 2-component JPEG: the JAX package fails on them) are
-    refused without "yet". JPEG 2000 (.jp2 and .j2k), refused here until
-    the port read it, now decodes to the JAX package's planes instead."""
+    refused without "yet". JPEG 2000 (.jp2 and .j2k) and AVIF, refused
+    here until the port read them, now decode to the JAX package's planes
+    instead."""
     ext, pillow_reads = UNSUPPORTED[kind]
     path = str(tmp_path / f"u.{ext}")
     _unsupported(kind, path)

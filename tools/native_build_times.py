@@ -4,10 +4,12 @@ from nothing in a fresh copy of cybervision_tpu_torch/native/:
 * "one g++": every source in one serial g++ call (the rule of the
   Makefile before it built one object a source);
 * "make -jN": the Makefile's rule, one object a source compiled in
-  parallel (N = the CPU count, as native.load runs it), then linked.
+  parallel (N = the CPU count, as native.load runs it), then linked;
 
-Both give a libcvtorch_native.so of the same sources and flags. Prints
-one JSON line: the seconds of each and the CPU count.
+then each source's object alone, one after another ("object_seconds":
+what bounds make -jN is its slowest object). Both builds give a
+libcvtorch_native.so of the same sources and flags. Prints one JSON
+line: the seconds of each build and object, and the CPU count.
 
     python tools/native_build_times.py
 """
@@ -52,7 +54,17 @@ def main() -> int:
             if not os.path.exists(os.path.join(work, "libcvtorch_native.so")):
                 print(f"{name}: no library built", file=sys.stderr)
                 return 1
-    print(json.dumps({"build_seconds": runs, "sources": len(sources), "cpus": cpus}))
+    objects = {}
+    with tempfile.TemporaryDirectory() as td:
+        work = os.path.join(td, "native")
+        shutil.copytree(NATIVE, work, ignore=shutil.ignore_patterns("*.so", "*.o", "*.tmp"))
+        for src in sources:
+            t0 = time.perf_counter()
+            subprocess.run(["g++", *flags, "-pthread", "-c", "-o", "x.o", src], cwd=work,
+                           check=True, capture_output=True)
+            objects[src] = round(time.perf_counter() - t0, 3)
+    print(json.dumps({"build_seconds": runs, "object_seconds": objects, "sources": len(sources),
+                      "cpus": cpus}))
     return 0
 
 
