@@ -304,6 +304,14 @@ Phases, each of which raises on failure:
        RGBA, 4:4:4, limited-range, lossless, tiled and sequence files
        decoded, each timed. Every plane has the committed SHA-256 of
        Pillow's ("avif"), the decode seconds of each plane printed.
+       (v3) (cli_avif_kinds): the kinds the wheel's libavif encoder
+       writes: (a)'s SEM pair as 2x2 grids of 512x512 tiles (4:2:0,
+       matrix coefficients 1, quantizer matrices, film grain) -> PLY,
+       byte-equal to reconstruct's on the decoded planes; one file per
+       readable matrix code, 2x3 colour and alpha grids, quantizer matrix
+       and film grain files decoded, every plane to the committed SHA-256
+       of Pillow's ("avif kinds"); the files Pillow fails on refused; the
+       decode seconds of each kind printed with the card.
    One JSON record per run: seconds, phases, decode seconds per file and
    plane, encode (and write) seconds per depth map, launches, the card's
    name and power limit.
@@ -2311,6 +2319,29 @@ AVIF_SEM = [os.path.join(AVIF_DIR, f"sem_400_{i}.avif") for i in range(2)]
 AVIF_PERSP = [os.path.join(AVIF_DIR, f"persp_420_v{i}.avif") for i in range(2)]
 AVIF_DECODE_ONLY = ("rgba.avif", "yuv444.avif", "limited.avif", "lossless.avif", "tiled.avif",
                     "sequence.avif")
+# Phase 8 (v3): the AVIF kinds libavif's encoder writes and Pillow's save
+# does not, written through the wheel's libavif by
+# tests/gen_torch_formats_fixture.py ("avif kinds"): phase 3's SEM pair as
+# 2x2 grids of 512x512 tiles (4:2:0, matrix coefficients 1, full range,
+# quantizer matrices, film grain test vector 1); one small file per
+# matrix code Pillow reads (4:4:4 and 4:2:0, full and limited range),
+# 2x3 colour and alpha grids (whole, and cropped by their ImageGrid),
+# quantizer matrix and film grain files (AVIF_KINDS_DECODE_ONLY); and the
+# files Pillow fails on, with the step that fails (AVIF_KINDS_FAIL).
+AVIF_GRID_SEM = [os.path.join(AVIF_DIR, f"sem_grid_{i}.avif") for i in range(2)]
+AVIF_MATRIX_READ = (0, 1, 2, 4, 5, 6, 7, 8, 9, 12, 15)
+AVIF_KINDS_DECODE_ONLY = tuple(
+    f"mc{mc}_{fmt}_{rng}.avif" for mc in AVIF_MATRIX_READ for fmt in ("444", "420")
+    for rng in ("full", "limited") if not (mc == 0 and fmt == "420") and not (
+        mc == 8 and rng == "limited")) + (
+    "mc12p1_420_full.avif", "grid_2x3_alpha.avif", "grid_2x3_alpha_cropped.avif",
+    "qm_420.avif", "qm_iq_444_low.avif", "qm_iq_444_high.avif", "grain_v1.avif",
+    "grain_v2.avif", "grain_v10.avif", "grain_v16.avif", "grain_400.avif")
+AVIF_KINDS_FAIL = {"mc3_420_full.avif": "load", "mc10_420_full.avif": "load",
+                   "mc11_420_full.avif": "load", "mc13_420_full.avif": "load",
+                   "mc14_420_full.avif": "load", "mc16_420_full.avif": "load",
+                   "mc8_420_limited.avif": "load", "grid_missing_tile.avif": "open",
+                   "grid_tile_size.avif": "load", "grid_not_covering.avif": "load"}
 TIFF_TILE = 256  # phase 8 (g)'s tiled layout
 JPEG_TIFF_ROWS = 64  # phase 8 (i)'s JPEG-in-TIFF rows per strip
 # Phase 8 (e): the decoded .jpg depth map against the RGB it encodes:
@@ -2996,6 +3027,15 @@ def cli_jpeg_depth_map(cap, smi: str, td: str, tifs: list[str], timed_rgb: dict)
     return {"jpeg depth map": rec}
 
 
+@functools.lru_cache(maxsize=2)
+def _pair_scene(w: int, h: int):
+    """render_perspective of phase 6's pair at w x h with the exact focal
+    length, rendered once a size: every phase 8 pair run of that size
+    (cli_exif_jpeg_pair) gates against the same scene. Callers do not
+    write to it."""
+    return render_perspective(w, h, PERSP_CAMS[:1], exact_focal=True)
+
+
 def cli_exif_jpeg_pair(cap, smi: str, td: str, run: str, label: str, paths: list[str], srcs,
                        checks: dict, size: tuple[int, int], focal_arg: int | None = None) -> dict:
     """Phase 8 (c), (f), (j) and (k): a JPEG, WebP or TGA pair of phase 6's
@@ -3008,7 +3048,7 @@ def cli_exif_jpeg_pair(cap, smi: str, td: str, run: str, label: str, paths: list
     from cybervision_tpu_torch.images import SourceImage
     from cybervision_tpu_torch.reconstruction import Reconstruction
 
-    _, depth1, k_true, cams = render_perspective(*size, PERSP_CAMS[:1], exact_focal=True)
+    _, depth1, k_true, cams = _pair_scene(*size)
     checks["K equal to the 43 mm K"] = all(np.array_equal(s.calibration_matrix(focal_arg), k_true)
                                            for s in srcs)
     print(f"{label}: " + "; ".join(f"{k} {v}" for k, v in checks.items()))
@@ -6269,7 +6309,8 @@ def cli_avif(cap, smi: str, td: str) -> dict:
     from cybervision_tpu_torch.reconstruction import reconstruct
 
     with open(FORMATS_SHA256) as fh:
-        committed = json.load(fh)["avif"]
+        hashes = json.load(fh)
+    committed = {**hashes["avif"], **hashes["avif kinds"]}
     t_phase = time.perf_counter()
     records = {}
 
@@ -6330,11 +6371,81 @@ def cli_avif(cap, smi: str, td: str) -> dict:
               f" {json.dumps({k: round(v, 4) for k, v in decode.items()})}")
         if not all(ok.values()):
             raise AssertionError("(v): the decode-only planes are not Pillow's")
+        records.update(cli_avif_kinds(cap, smi, td, load))
         pil = any(m == "PIL" or m.startswith("PIL.") for m in sys.modules)
     print(f"(v) Pillow imported during the runs {pil}; (v) took"
           f" {time.perf_counter() - t_phase:.1f} s")
     if pil:
         raise AssertionError("(v): Pillow was imported")
+    return records
+
+
+def cli_avif_kinds(cap, smi: str, td: str, load) -> dict:
+    """Phase 8 (v3), inside (v)'s block of Pillow: the kinds the wheel's
+    libavif encoder writes (AVIF_GRID_SEM, AVIF_KINDS_*). Phase 3's SEM
+    pair as 2x2 grids of 512x512 tiles (4:2:0, matrix coefficients 1,
+    quantizer matrices, film grain) decoded to the committed SHA-256 of
+    Pillow's planes, then -> PLY through cli.main, byte-equal to
+    reconstruct's on the decoded planes; every decode-only file to its
+    hashes; every file Pillow fails on refused (ImageError); the decode
+    seconds of each kind (grid, quantizer matrices, film grain, matrix
+    coefficients) printed with the card. `load` is cli_avif's."""
+    from cybervision_tpu_torch.config import MeshMode, ProjectionMode, ReconstructionConfig
+    from cybervision_tpu_torch.errors import ImageError
+    from cybervision_tpu_torch.images import SourceImage
+    from cybervision_tpu_torch.reconstruction import reconstruct
+
+    records = {}
+    grid = [load(p) for p in AVIF_GRID_SEM]
+    print(f"(v3) grid files {[os.path.getsize(p) for p in AVIF_GRID_SEM]} bytes; planes equal"
+          f" to Pillow's (SHA-256) {[r[2] for r in grid]}")
+    if not all(r[2] for r in grid):
+        raise AssertionError("(v3): the grid pair's planes are not Pillow's")
+    label = f"(v3) 2x2 grid AVIF pair {SIZE}x{SIZE} (4:2:0, QM, film grain) -> PLY"
+    mem = []
+    for s, _, _ in grid:
+        src = SourceImage(s.img)
+        src.load_rgb_plane = functools.partial(np.array, s.load_rgb_plane())
+        mem.append(src)
+    ref, out = os.path.join(td, "mem_v3.ply"), os.path.join(td, "v3.ply")
+    reconstruct(["a", "b"], ref, ReconstructionConfig(
+        projection=ProjectionMode.AFFINE, mesh=MeshMode.VERTEX_COLORS), quiet=True, images=mem)
+    run = cap.main(["--projection=parallel", "--mesh=vertex-colors", *AVIF_GRID_SEM, out])
+    records["avif grid ply"] = cli_record("(v3) grid AVIF pair", run["seconds"], run["rec"].phases,
+                                          run["decode"], run["launches"], smi)
+    same = _sha(out) == _sha(ref)
+    print(f"{label}: PLY equal to the in-memory run's (the decoded planes) {same}")
+    if not same:
+        raise AssertionError(f"{label}: the PLY differs from the in-memory run's")
+
+    decode, ok = {}, {}
+    for name in AVIF_KINDS_DECODE_ONLY:
+        _, decode[name], ok[name] = load(os.path.join(AVIF_DIR, name))
+    bad = [n for n, good in ok.items() if not good]
+    print(f"(v3) decoded only: {len(ok)} files, planes equal to Pillow's (SHA-256) for"
+          f" {len(ok) - len(bad)}; not for {bad}")
+    refused = {}
+    for name in AVIF_KINDS_FAIL:
+        try:
+            SourceImage.load(os.path.join(AVIF_DIR, name)).load_rgb_plane()
+            refused[name] = False
+        except ImageError:
+            refused[name] = True
+    print(f"(v3) files Pillow fails on, refused {refused}")
+    kinds = {"grid stitch (2x2 of 512x512)": [os.path.basename(p) for p in AVIF_GRID_SEM],
+             "grid stitch (2x3 of 64x64, alpha)": ["grid_2x3_alpha.avif",
+                                                    "grid_2x3_alpha_cropped.avif"],
+             "quantizer matrices": [n for n in AVIF_KINDS_DECODE_ONLY if n.startswith("qm")],
+             "film grain": [n for n in AVIF_KINDS_DECODE_ONLY if n.startswith("grain")],
+             "matrix coefficients": [n for n in AVIF_KINDS_DECODE_ONLY if n.startswith("mc")]}
+    seconds = {**{os.path.basename(p): r[1] for p, r in zip(AVIF_GRID_SEM, grid)}, **decode}
+    for kind, names in kinds.items():
+        secs = [round(seconds[n], 4) for n in names]
+        shown = secs if len(secs) <= 5 else f"{len(secs)} files, {min(secs)}-{max(secs)}"
+        print(f"(v3) decode seconds, {kind}: {shown} (gray and colour planes); {smi}")
+    if bad or not all(refused.values()):
+        raise AssertionError("(v3): a decode-only file is not Pillow's, or a file Pillow"
+                             " fails on was read")
     return records
 
 

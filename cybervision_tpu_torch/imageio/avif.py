@@ -11,8 +11,10 @@ mdat is not read then. The meta box: hdlr (pict) first, pitm, iloc
 versions 2 and 3, iref (auxl, cdsc) and iprp (ipco, ipma). A sequence
 whose major brand is avis is read from its tracks (moov/trak/.../stbl:
 stsd av01, stsz, stco or co64, stsc), as libavif's AUTO source does;
-otherwise from the primary item. The alpha is the item (or track) that
-names the colour one through auxl and carries the alpha auxC URN.
+otherwise from the primary item, an av01 item or a grid derived item
+(Grid: its ImageGrid payload and rows x cols av01 tiles named by dimg).
+The alpha is the item (or track) that names the colour one through auxl
+and carries the alpha auxC URN, an av01 or a grid item as well.
 libavif's parse failures that Pillow's plugin raises as SyntaxError
 (INVALID_FTYP, BMFF_PARSE_FAILED, TRUNCATED_DATA, NO_CONTENT) raise
 NotThisFormat, so identify passes the file on as Image.open does; the
@@ -26,8 +28,11 @@ length with them, so the focal length is read from the payload. Pillow
 applies neither irot nor imir to the pixels, nor clap.
 
 Loading decodes the first frame's AV1 OBUs in the native library
-(av1obu.cpp and its siblings: an 8-bit key frame) and converts them to
-RGB, or RGBA where there is alpha, as libavif does through libyuv
+(av1obu.cpp and its siblings: an 8-bit key frame, with its quantizer
+matrices and film grain), stitches a grid's tiles in YUV, and converts
+the image once to RGB, or RGBA where there is alpha, as libavif does
+through libyuv or its own float path, by the colr (else the AV1
+sequence header's) matrix coefficients and colour primaries
 (avifrgb.cpp). Without the native library an AVIF raises
 NativeDecoderError.
 """
@@ -56,16 +61,30 @@ class _Syntax(Exception):
 
 
 @dataclasses.dataclass
+class Grid:
+    """A grid derived item (ImageGrid, HEIF 6.6.2.3): rows x cols tiles,
+    each the (offset, length) extents of an av01 item and its ispe size,
+    in its dimg order, cropped to the output size."""
+
+    rows: int
+    cols: int
+    width: int
+    height: int
+    tiles: list  # [(extents, (width, height))]
+
+
+@dataclasses.dataclass
 class AvifFile:
-    """What opening found: the size, Pillow's mode, the first frame's
-    colour and alpha payloads (lists of (offset, length) extents in
-    `data`), and the metadata the CLI reads."""
+    """What opening found: the size (the primary item's ispe), Pillow's
+    mode, the first frame's colour and alpha payloads (lists of (offset,
+    length) extents in `data`, or a Grid of them), and the metadata the
+    CLI reads."""
 
     data: bytes
     size: tuple[int, int]
     mode: str
-    color: list
-    alpha: list | None
+    color: list | Grid
+    alpha: list | Grid | None
     exif: bytes | None = None
     nclx: tuple[int, int, int, int] | None = None
     premultiplied: bool = False
@@ -211,7 +230,8 @@ def _parse_meta(b: bytes, s: int, e: int) -> tuple[dict, int | None, tuple | Non
             for t2, s2, e2 in _boxes(b, p, ce):
                 _need(s2, w + 2, e2)
                 frm, n = _uint(b, s2, w), _u16(b, s2 + w)
-                _need(s2 + w + 2, n * w, e2)
+                if s2 + w + 2 + n * w != e2:
+                    raise _Syntax(f"iref {t2!r} box does not hold its {n} references")
                 tos = [_uint(b, s2 + w + 2 + k * w, w) for k in range(n)]
                 items.setdefault(frm, _Item(frm)).refs.setdefault(t2, []).extend(tos)
         elif typ == b"iprp":
@@ -503,20 +523,17 @@ def _parse(b: bytes) -> AvifFile:
         raise _Syntax("no primary item")
     if not f.color:
         item = items[primary]
-        if item.type == b"grid":
-            raise UnsupportedImageError("AVIF grid images are not supported yet")
-        if item.type != b"av01":
+        if item.type not in (b"av01", b"grid"):
             raise CorruptImageError(f"AVIF primary item of type {item.type!r}")
-        f.color = _extents(b, item, idat)
-        if not sum(n for _, n in f.color):  # libavif's MISSING_IMAGE_ITEM
-            raise CorruptImageError("AVIF: missing or empty image item")
+        f.color = _image(b, items, item, idat)
         f.size = _ispe(b, item)
         f.nclx = _nclx(b, item)
-        for other in items.values():
-            if primary in other.refs.get(b"auxl", []) and other.type == b"av01":
+        for other in items.values():  # libavif skips an item with no data
+            if (primary in other.refs.get(b"auxl", []) and other.type in (b"av01", b"grid")
+                    and sum(n for _, n in other.extents)):
                 aux = _prop(other, b, b"auxC")
                 if aux and b[aux[0] + 4:aux[1]].split(b"\0")[0] in _ALPHA_URNS:
-                    f.alpha = _extents(b, other, idat)
+                    f.alpha = _image(b, items, other, idat)
                     if _ispe(b, other) != f.size:
                         raise CorruptImageError("AVIF alpha item of another size")
                     if primary in other.refs.get(b"prem", []) or other.id in items[
@@ -540,23 +557,79 @@ def _parse(b: bytes) -> AvifFile:
         if primary in items:
             _ispe(b, items[primary])
     else:
-        for item in items.values():  # the colour item and its alpha
+        for item in items.values():  # the colour item and its alpha, and their tiles
             if item.id == primary or (primary in item.refs.get(b"auxl", [])
-                                      and item.type == b"av01"):
+                                      and item.type in (b"av01", b"grid")):
                 _check_properties(b, item)
+                for tile in item.refs.get(b"dimg", []) if item.type == b"grid" else ():
+                    if tile in items:
+                        _check_properties(b, items[tile])
     if f.size[0] <= 0 or f.size[1] <= 0:
         raise CorruptImageError("AVIF image of no size")
     bomb_check(f.size, "AVIF image")
     return f
 
 
+def _image(b, items: dict, item: _Item, idat):
+    """The payload of an av01 item (its extents) or a grid item (Grid)."""
+    if item.type == b"grid":
+        return _grid(b, items, item, idat)
+    extents = _sized(b, item, idat)
+    if not sum(n for _, n in extents):  # libavif's MISSING_IMAGE_ITEM
+        raise CorruptImageError("AVIF: missing or empty image item")
+    return extents
+
+
+def _sized(b, item: _Item, idat) -> list:
+    """An av01 item's extents, which libavif's parse holds to the file's
+    size (its avifIO sizeHint) as a whole; an extent cut by the end of the
+    file fails only the load."""
+    extents = _extents(b, item, idat)
+    if sum(n for _, n in extents) > len(b):
+        raise _Syntax(f"item {item.id} is larger than the file")
+    return extents
+
+
+def _grid(b, items: dict, item: _Item, idat) -> Grid:
+    """libavif's parse of a grid item: its ImageGrid payload (version 0;
+    flags bit 0 for 32-bit output sizes; no byte left over; a non-zero
+    output size), then rows x cols av01 tiles named by its dimg
+    references, in their order. A fault is libavif's INVALID_IMAGE_GRID,
+    which Pillow's open raises."""
+    extents = _extents(b, item, idat)
+    if any(o + n > len(b) for o, n in extents):
+        raise _Syntax("truncated data: the grid item runs past the end of the file")
+    p = b"".join(b[o:o + n] for o, n in extents)
+    wide = len(p) >= 2 and p[1] & 1
+    if len(p) != (12 if wide else 8) or p[0] != 0:
+        raise CorruptImageError("AVIF: invalid image grid (its ImageGrid payload)")
+    rows, cols = p[2] + 1, p[3] + 1
+    width, height = struct.unpack_from(">II" if wide else ">HH", p, 4)
+    if not width or not height:
+        raise CorruptImageError("AVIF: invalid image grid of no size")
+    ids = item.refs.get(b"dimg", [])
+    if len(ids) != rows * cols:
+        raise CorruptImageError(f"AVIF: invalid image grid: {rows}x{cols} tiles need"
+                                f" {rows * cols} dimg references, not {len(ids)}")
+    tiles = []
+    for tid in ids:
+        tile = items.get(tid)
+        if tile is None or tile.type != b"av01":
+            raise CorruptImageError(f"AVIF: invalid image grid: tile {tid} is not an av01 item")
+        extents = _sized(b, tile, idat)
+        if not sum(n for _, n in extents):  # every tile's sample has data
+            raise _Syntax(f"grid tile {tid} is empty")
+        tiles.append((extents, _ispe(b, tile)))
+    return Grid(rows, cols, width, height, tiles)
+
+
 def _check_properties(b, item: _Item) -> None:
-    """libavif's checks of an av01 item's properties: av1C (its marker
-    and version byte), ispe (version 0), irot and imir (reserved bits
-    clear), colr nclx (reserved bits clear) and pixi (version 0; 8-bit
-    channels, else not implemented)."""
+    """libavif's checks of an av01 or grid item's properties: av1C of an
+    av01 item (its marker and version byte), ispe (version 0), irot and
+    imir (reserved bits clear), colr nclx (reserved bits clear) and pixi
+    (version 0; 8-bit channels, else not implemented)."""
     p = _prop(item, b, b"av1C")
-    if p is None or p[1] - p[0] < 4 or b[p[0]] != 0x81:
+    if item.type == b"av01" and (p is None or p[1] - p[0] < 4 or b[p[0]] != 0x81):
         raise _Syntax(f"item {item.id} has no valid av1C property")
     p = _prop(item, b, b"ispe")
     if p is not None and b[p[0]] != 0:
@@ -582,12 +655,16 @@ def _check_properties(b, item: _Item) -> None:
 
 
 def _ispe(b, item: _Item) -> tuple[int, int]:
+    """An item's ispe size, within libavif's dimension limit (32768)."""
     p = _prop(item, b, b"ispe")
     if p is None:
         raise _Syntax(f"item {item.id} has no ispe property")
     _, _, q = _full(b, *p)
     _need(q, 8, p[1])
-    return _u32(b, q), _u32(b, q + 4)
+    w, h = _u32(b, q), _u32(b, q + 4)
+    if w > 32768 or h > 32768:
+        raise _Syntax(f"item {item.id} is {w}x{h}, past libavif's dimension limit")
+    return w, h
 
 
 def _nclx(b, item: _Item):
@@ -621,25 +698,78 @@ def _payload(f: AvifFile, extents: list) -> bytes:
     return b"".join(out)
 
 
+def _grid_planes(f: AvifFile, grid: Grid, native) -> tuple[list, dict]:
+    """The grid's tiles decoded and stitched in YUV, cropped to its output
+    size, with the first tile's header fields, as libavif 1.3 fills a
+    grid image (avifDecoderDataFillImageGrid): tiles of one size that
+    cover the output without a wholly spare row or column, at least 64
+    samples a side, even where chroma is subsampled (MIAF 7.3.11.4.2),
+    decoded to one format, range and CICP. A fault is INVALID_IMAGE_GRID,
+    which Pillow's load raises."""
+    (tw, th), w, h = grid.tiles[0][1], grid.width, grid.height
+    if any(size != (tw, th) for _, size in grid.tiles):
+        raise CorruptImageError("AVIF: invalid image grid: tiles of more than one size")
+    if (tw * grid.cols < w or th * grid.rows < h or tw * (grid.cols - 1) >= w
+            or th * (grid.rows - 1) >= h):
+        raise CorruptImageError("AVIF: invalid image grid: the tiles do not cover the output"
+                                " or leave a row or column out of it")
+    if tw < 64 or th < 64:
+        raise CorruptImageError("AVIF: invalid image grid: tiles under 64 samples a side")
+    decoded = [native.av1_decode(_payload(f, extents), tw, th) for extents, _ in grid.tiles]
+    fields = decoded[0][1]
+    kind = ("mono", "subsampling", "full_range", "matrix", "primaries")
+    if any(any(fl[k] != fields[k] for k in kind) for _, fl in decoded):
+        raise CorruptImageError("AVIF: invalid image grid: tiles of mismatched formats")
+    sx, sy = (0, 0) if fields["mono"] else fields["subsampling"]
+    if (sx and (w % 2 or tw % 2)) or (sy and (h % 2 or th % 2)):
+        raise CorruptImageError("AVIF: invalid image grid: odd sizes where chroma is subsampled")
+    planes = []
+    for k, first in enumerate(decoded[0][0]):
+        ph, pw = first.shape
+        full = np.empty((ph * grid.rows, pw * grid.cols), np.uint8)
+        for i, (tile, _) in enumerate(decoded):
+            r, c = divmod(i, grid.cols)
+            full[r * ph:(r + 1) * ph, c * pw:(c + 1) * pw] = tile[k]
+        csx, csy = (sx, sy) if k else (0, 0)
+        planes.append(full[:(h + csy) >> csy, :(w + csx) >> csx])
+    return planes, fields
+
+
+def _planes(f: AvifFile, source, native) -> tuple[list, dict]:
+    if isinstance(source, Grid):
+        return _grid_planes(f, source, native)
+    return native.av1_decode(_payload(f, source), *f.size)
+
+
 def decode(f: AvifFile, native) -> tuple[str, np.ndarray, None]:
     """(mode, pixels, palette) as imageio.ImageFile.decode gives them: the
-    first frame as Pillow's RGB or RGBA."""
+    first frame as Pillow's RGB or RGBA. A grid is converted once, whole,
+    so chroma is upsampled across its tiles' seams. Pillow reads the
+    converted bytes as raw rows of its own size, the ispe's: a grid whose
+    output size is another is read row on row from those bytes, or fails
+    as truncated where they are too few."""
     if native is None:
         raise native_missing("AVIF")
     if f.timescale == 0:
         raise CorruptImageError("AVIF sequence of timescale 0 (Pillow's load divides by it)")
-    w, h = f.size
-    planes, fields = native.av1_decode(_payload(f, f.color), w, h)
-    matrix = fields["matrix"] if f.nclx is None else f.nclx[2]
-    full = fields["full_range"] if f.nclx is None else f.nclx[3]
-    if len(planes) == 3 and matrix not in (2, 5, 6):
-        raise UnsupportedImageError(f"AVIF matrix coefficients {matrix} are not supported yet")
+    planes, fields = _planes(f, f.color, native)
+    primaries, _, matrix, full = f.nclx or (fields["primaries"], None, fields["matrix"],
+                                            fields["full_range"])
     channels = 4 if f.alpha else 3
-    out = native.avif_yuv_to_rgb(planes, fields["subsampling"], bool(full), channels)
+    out = native.avif_yuv_to_rgb(planes, fields["subsampling"], bool(full), matrix, primaries,
+                                 channels)
     if f.alpha:
-        alpha, afields = native.av1_decode(_payload(f, f.alpha), w, h)
+        alpha, afields = _planes(f, f.alpha, native)
         a = alpha[0]
+        if a.shape != out.shape[:2]:
+            raise CorruptImageError("AVIF alpha of another size than its colour image")
         if not afields["full_range"]:  # libavif's avifLimitedToFullY
             a = np.clip(((a.astype(np.int32) - 16) * 255 + 109) // 219, 0, 255).astype(np.uint8)
         out[:, :, 3] = a
+    w, h = f.size
+    if out.shape[:2] != (h, w):
+        need = w * h * channels
+        if out.size < need:
+            raise TruncatedImageError("AVIF grid of fewer pixels than its ispe size")
+        out = out.reshape(-1)[:need].reshape(h, w, channels)
     return f.mode, out, None

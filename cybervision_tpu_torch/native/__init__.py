@@ -14,8 +14,9 @@ coded (cybervision_tpu_torch.imageio);
 webpdecode.cpp WebP's VP8L, VP8 and ALPH bitstreams; bcndecode.cpp the
 BC1-BC7 blocks of DDS and FTEX and BLP's DXT blocks; j2kdecode.cpp a
 JPEG 2000 tile, as OpenJPEG decodes it; av1obu.cpp, av1entropy.cpp,
-av1recon.cpp and av1filter.cpp (sharing av1.h and the generated
-av1tables.h) an AVIF image's AV1 key frame, as dav1d decodes it, and
+av1recon.cpp, av1filter.cpp and av1grain.cpp (sharing av1.h and the
+generated av1tables.h) an AVIF image's AV1 key frame, as dav1d decodes
+it with its film grain, and
 avifrgb.cpp its YUV to RGB(A), as libavif converts it through libyuv
 (imageio.avif); imageencode.cpp the
 JPEG writer's scan (imageio.jpeg_encode), the QOI writer's ops
@@ -113,12 +114,12 @@ _SIGNATURES = {
     "webp_alph_encode": ([_U8P, _L, _L, _U8P, _L], _L),
     "av1_decode": ([_U8P, _L, _L, _L, _I32P, _U8P, _U8P, _U8P], _L),
     "av1_error": ([], ctypes.c_char_p),
-    "avif_yuv_to_rgb": ([_U8P, _U8P, _U8P, _L, _L, _L, _L, _L, _L, _L, _U8P], _L),
+    "avif_yuv_to_rgb": ([_U8P, _U8P, _U8P, _L, _L, _L, _L, _L, _L, _L, _L, _L, _U8P], _L),
 }
 _SOURCES = ("native.cpp", "imagedecode.cpp", "imageencode.cpp", "webpdecode.cpp", "webpencode.cpp",
             "webpcommon.h", "bcndecode.cpp", "j2kdecode.cpp", "j2kencode.cpp", "j2kcommon.h",
             "av1.h", "av1tables.h", "av1obu.cpp", "av1entropy.cpp", "av1recon.cpp",
-            "av1filter.cpp", "avifrgb.cpp", "Makefile")
+            "av1filter.cpp", "av1grain.cpp", "avifrgb.cpp", "Makefile")
 
 
 def _stale() -> bool:
@@ -762,7 +763,8 @@ def webp_alph_decode(data: bytes, width: int, height: int) -> np.ndarray:
 def av1_decode(data: bytes, width: int, height: int) -> tuple[list[np.ndarray], dict]:
     """The first frame of an AV1 stream (av1obu.cpp's av1_decode), an 8-bit
     key frame that must be width x height: ([Y] or [Y, U, V] uint8 planes,
-    the sequence header's colour fields)."""
+    the sequence header's colour fields, the frame's quantizer matrix
+    levels and apply_grain)."""
     from cybervision_tpu_torch.imageio.errors import CorruptImageError, UnsupportedImageError
 
     lib = load()
@@ -776,9 +778,13 @@ def av1_decode(data: bytes, width: int, height: int) -> tuple[list[np.ndarray], 
                           _ptr(y, ctypes.c_uint8), _ptr(u, ctypes.c_uint8), _ptr(v, ctypes.c_uint8))
     if code < 0:
         why = lib.av1_error().decode("utf-8", "replace")
+        if code == -4:  # libavif scales such a frame to the item's size
+            raise UnsupportedImageError(f"AVIF: {why}; scaling a frame to its item's size"
+                                        " is not supported yet")
         raise (UnsupportedImageError if code == -3 else CorruptImageError)(f"AV1: {why}")
     fields = dict(mono=int(info[2]), subsampling=(int(info[3]), int(info[4])),
-                  matrix=int(info[5]), full_range=int(info[6]))
+                  matrix=int(info[5]), full_range=int(info[6]), primaries=int(info[7]),
+                  qm=tuple(int(q) for q in info[8:11]), grain=int(info[11]))
     planes = [y]
     if not fields["mono"]:
         sx, sy = fields["subsampling"]
@@ -788,18 +794,26 @@ def av1_decode(data: bytes, width: int, height: int) -> tuple[list[np.ndarray], 
 
 
 def avif_yuv_to_rgb(planes: list[np.ndarray], subsampling: tuple[int, int], full_range: bool,
-                    channels: int) -> np.ndarray:
+                    matrix: int, primaries: int, channels: int) -> np.ndarray:
     """YUV planes to (H, W, channels) uint8 as libavif converts them for
-    Pillow (avifrgb.cpp); the alpha byte of RGBA is 255."""
+    Pillow with the CICP matrix coefficients and colour primaries given
+    (avifrgb.cpp); the alpha byte of RGBA is 255. A matrix libavif cannot
+    convert raises CorruptImageError, as Pillow's load fails."""
+    from cybervision_tpu_torch.imageio.errors import CorruptImageError
+
     y = np.ascontiguousarray(planes[0], np.uint8)
     h, w = y.shape
     mono = len(planes) == 1
     u = y if mono else np.ascontiguousarray(planes[1], np.uint8)
     v = y if mono else np.ascontiguousarray(planes[2], np.uint8)
     out = np.full((h, w, channels), 255, np.uint8)
-    load().avif_yuv_to_rgb(_ptr(y, ctypes.c_uint8), _ptr(u, ctypes.c_uint8),
-                           _ptr(v, ctypes.c_uint8), w, h, subsampling[0], subsampling[1],
-                           int(mono), int(bool(full_range)), channels, _ptr(out, ctypes.c_uint8))
+    code = load().avif_yuv_to_rgb(_ptr(y, ctypes.c_uint8), _ptr(u, ctypes.c_uint8),
+                                  _ptr(v, ctypes.c_uint8), w, h, subsampling[0], subsampling[1],
+                                  int(mono), int(bool(full_range)), matrix, primaries, channels,
+                                  _ptr(out, ctypes.c_uint8))
+    if code < 0:
+        raise CorruptImageError(f"AVIF: libavif cannot convert matrix coefficients {matrix}"
+                                f" at {'full' if full_range else 'limited'} range")
     return out
 
 

@@ -1,7 +1,7 @@
 // What the AV1 key-frame decoder's sources share (av1obu.cpp: OBUs and
 // headers; av1entropy.cpp: the symbol decoder and a tile's syntax;
 // av1recon.cpp: prediction and inverse transforms; av1filter.cpp:
-// deblocking, CDEF and loop restoration). It decodes the first frame of
+// deblocking, CDEF and loop restoration; av1grain.cpp: film grain). It decodes the first frame of
 // an AV1 stream, an 8-bit key frame, as the AV1 specification (2019,
 // with errata) sets out, which is what dav1d decodes bit for bit. Names
 // follow the specification's.
@@ -81,6 +81,17 @@ struct SequenceHeader {
     int num_planes = 3;
 };
 
+// A frame's film grain parameters (specification 5.9.30); uv [0] is Cb,
+// [1] Cr.
+struct FilmGrain {
+    int apply = 0, seed = 0, num_y = 0, num_uv[2] = {0, 0}, chroma_from_luma = 0;
+    uint8_t y_points[14][2] = {}, uv_points[2][10][2] = {};
+    int scaling_shift = 8, ar_lag = 0, ar_shift = 6, grain_scale_shift = 0;
+    int8_t ar_y[24] = {}, ar_uv[2][25] = {};
+    int uv_mult[2] = {0, 0}, uv_luma_mult[2] = {0, 0}, uv_offset[2] = {0, 0};
+    int overlap = 0, clip_restricted = 0;
+};
+
 struct FrameHeader {
     int frame_type = 0, show_frame = 1, showable_frame = 0, error_resilient_mode = 1;
     int disable_cdf_update = 0, allow_screen_content_tools = 0, allow_intrabc = 0;
@@ -93,7 +104,7 @@ struct FrameHeader {
     int context_update_tile_id = 0, tile_size_bytes = 4;
     // Quantisation.
     int base_q_idx = 0, delta_q_y_dc = 0, delta_q_u_dc = 0, delta_q_u_ac = 0;
-    int delta_q_v_dc = 0, delta_q_v_ac = 0, using_qmatrix = 0;
+    int delta_q_v_dc = 0, delta_q_v_ac = 0, using_qmatrix = 0, qm_y = 15, qm_u = 15, qm_v = 15;
     // Segmentation.
     int segmentation_enabled = 0, feature_enabled[8][8] = {{0}}, feature_data[8][8] = {{0}};
     int seg_id_pre_skip = 0, last_active_seg_id = 0;
@@ -111,6 +122,7 @@ struct FrameHeader {
     int frame_restoration_type[3] = {0}, loop_restoration_size[3] = {256, 256, 256};
     int uses_lr = 0;
     int tx_mode_select = 0, only_4x4 = 0, reduced_tx_set = 0;
+    FilmGrain grain;
 };
 
 // The default CDFs, adapted as a tile decodes; a copy per tile.
@@ -188,6 +200,8 @@ void decode_tile(Decoder& d, const uint8_t* data, size_t size, int tile_row, int
 void loop_filter_frame(Decoder& d);
 void cdef_frame(Decoder& d);
 void lr_frame(Decoder& d);
+// av1grain.cpp: the film grain synthesis, on Decoder::lr.
+void film_grain_frame(Decoder& d);
 
 // av1recon.cpp.
 void predict_intra(Decoder& d, int plane, int x, int y, int have_left, int have_above,
@@ -199,8 +213,9 @@ void predict_filter_intra(Decoder& d, int plane, int x, int y, int have_left, in
 void predict_cfl(Decoder& d, int plane, int x, int y, int tx, int alpha, int max_luma_w,
                  int max_luma_h);
 void predict_intrabc(Decoder& d, int plane, int x, int y, int w, int h, const int16_t* mv);
+// qm_level: the plane's quantizer matrix level, 15 for none.
 void reconstruct(Decoder& d, int plane, int x, int y, int tx, int tx_type, int lossless,
-                 int32_t* quant, int dc_q, int ac_q);
+                 int32_t* quant, int dc_q, int ac_q, int qm_level);
 
 inline int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
 inline int round2(int x, int n) { return n == 0 ? x : (x + (1 << (n - 1))) >> n; }

@@ -1093,7 +1093,8 @@ struct Tile {
                     dc = kDcQLookup[clip3(0, 255, q + f.delta_q_v_dc)];
                     ac = kAcQLookup[clip3(0, 255, q + f.delta_q_v_ac)];
                 }
-                reconstruct(d, plane, start_x, start_y, tx, tx_type, lossless, quant, dc, ac);
+                int qm = !f.using_qmatrix ? 15 : plane == 0 ? f.qm_y : plane == 1 ? f.qm_u : f.qm_v;
+                reconstruct(d, plane, start_x, start_y, tx, tx_type, lossless, quant, dc, ac, qm);
             }
         }
         uint8_t* lf = d.lf_tx_size[plane].data();

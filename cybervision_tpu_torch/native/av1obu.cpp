@@ -353,6 +353,57 @@ int qindex(const FrameHeader& f, int seg) {
     return f.base_q_idx;
 }
 
+// film_grain_params (5.9.30) of a key frame (update_grain is 1), with
+// dav1d's checks: at most 14 luma and 10 chroma points, point values
+// rising, and in 4:2:0 both chroma planes or neither.
+void film_grain_params(BitReader& br, const SequenceHeader& s, FilmGrain& g) {
+    g = FilmGrain();
+    g.apply = br.f(1);
+    if (!g.apply) return;
+    g.seed = br.f(16);
+    g.num_y = br.f(4);
+    if (g.num_y > 14) corrupt("AV1 film grain of more than 14 luma points");
+    for (int i = 0; i < g.num_y; i++) {
+        g.y_points[i][0] = (uint8_t)br.f(8);
+        if (i && g.y_points[i - 1][0] >= g.y_points[i][0]) corrupt("AV1 film grain points out of order");
+        g.y_points[i][1] = (uint8_t)br.f(8);
+    }
+    g.chroma_from_luma = s.mono_chrome ? 0 : br.f(1);
+    if (!(s.mono_chrome || g.chroma_from_luma ||
+          (s.subsampling_x && s.subsampling_y && !g.num_y))) {
+        for (int pl = 0; pl < 2; pl++) {
+            g.num_uv[pl] = br.f(4);
+            if (g.num_uv[pl] > 10) corrupt("AV1 film grain of more than 10 chroma points");
+            for (int i = 0; i < g.num_uv[pl]; i++) {
+                g.uv_points[pl][i][0] = (uint8_t)br.f(8);
+                if (i && g.uv_points[pl][i - 1][0] >= g.uv_points[pl][i][0])
+                    corrupt("AV1 film grain points out of order");
+                g.uv_points[pl][i][1] = (uint8_t)br.f(8);
+            }
+        }
+    }
+    if (s.subsampling_x && s.subsampling_y && !g.num_uv[0] != !g.num_uv[1])
+        corrupt("AV1 film grain on one chroma plane of a 4:2:0 frame");
+    g.scaling_shift = br.f(2) + 8;
+    g.ar_lag = br.f(2);
+    int num_pos = 2 * g.ar_lag * (g.ar_lag + 1);
+    if (g.num_y)
+        for (int i = 0; i < num_pos; i++) g.ar_y[i] = (int8_t)(br.f(8) - 128);
+    for (int pl = 0; pl < 2; pl++)
+        if (g.num_uv[pl] || g.chroma_from_luma)
+            for (int i = 0; i < num_pos + !!g.num_y; i++) g.ar_uv[pl][i] = (int8_t)(br.f(8) - 128);
+    g.ar_shift = br.f(2) + 6;
+    g.grain_scale_shift = br.f(2);
+    for (int pl = 0; pl < 2; pl++)
+        if (g.num_uv[pl]) {
+            g.uv_mult[pl] = br.f(8) - 128;
+            g.uv_luma_mult[pl] = br.f(8) - 128;
+            g.uv_offset[pl] = br.f(9) - 256;
+        }
+    g.overlap = br.f(1);
+    g.clip_restricted = br.f(1);
+}
+
 void frame_header(BitReader& br, const SequenceHeader& s, FrameHeader& f, int temporal_id,
                   int spatial_id) {
     f = FrameHeader();
@@ -426,7 +477,11 @@ void frame_header(BitReader& br, const SequenceHeader& s, FrameHeader& f, int te
         }
     }
     f.using_qmatrix = br.f(1);
-    if (f.using_qmatrix) unsupported("AV1 quantizer matrices");
+    if (f.using_qmatrix) {
+        f.qm_y = br.f(4);
+        f.qm_u = br.f(4);  // read for a monochrome stream too
+        f.qm_v = s.separate_uv_delta_q ? br.f(4) : f.qm_u;
+    }
     // segmentation_params
     static const int bits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
     static const int sign[8] = {1, 1, 1, 1, 1, 0, 0, 0};
@@ -531,10 +586,7 @@ void frame_header(BitReader& br, const SequenceHeader& s, FrameHeader& f, int te
     else f.tx_mode_select = br.f(1);
     f.reduced_tx_set = br.f(1);
     // film_grain_params: a key frame is shown, so they are read.
-    if (s.film_grain_params_present && br.f(1)) unsupported("AV1 film grain");
-    if (s.film_grain_params_present) {
-        // apply_grain = 0: nothing follows.
-    }
+    if (s.film_grain_params_present) film_grain_params(br, s, f.grain);
 }
 
 void alloc_plane(Plane& p, int w, int h) {
@@ -666,6 +718,7 @@ void decode_frame_obus(Decoder& d, const uint8_t* data, size_t size) {
     loop_filter_frame(d);
     cdef_frame(d);
     lr_frame(d);
+    film_grain_frame(d);
 }
 
 }  // namespace av1
@@ -674,8 +727,10 @@ void decode_frame_obus(Decoder& d, const uint8_t* data, size_t size) {
 
 namespace {
 
-// Header fields the caller needs: info[0..6] = width, height, mono,
-// subsampling_x, subsampling_y, matrix_coefficients, color_range.
+// Header fields the caller needs: info[0..11] = width, height, mono,
+// subsampling_x, subsampling_y, matrix_coefficients, color_range,
+// color_primaries, the luma, Cb and Cr quantizer matrix levels (15 for
+// none), apply_grain.
 void fill_info(const av1::Decoder& d, int32_t* info) {
     info[0] = d.fh.upscaled_width;
     info[1] = d.fh.frame_height;
@@ -684,6 +739,11 @@ void fill_info(const av1::Decoder& d, int32_t* info) {
     info[4] = d.seq.subsampling_y;
     info[5] = d.seq.matrix_coefficients;
     info[6] = d.seq.color_range;
+    info[7] = d.seq.color_primaries;
+    info[8] = d.fh.using_qmatrix ? d.fh.qm_y : 15;
+    info[9] = d.fh.using_qmatrix ? d.fh.qm_u : 15;
+    info[10] = d.fh.using_qmatrix ? d.fh.qm_v : 15;
+    info[11] = d.fh.grain.apply;
 }
 
 thread_local char g_error[256];

@@ -265,10 +265,17 @@ struct Tx1d {
 const uint8_t kVertKind[16] = {0, 1, 0, 1, 1, 0, 1, 1, 1, 2, 0, 2, 1, 2, 1, 2};
 const uint8_t kHorzKind[16] = {0, 0, 1, 1, 0, 1, 1, 1, 1, 2, 2, 0, 2, 1, 2, 1};
 
+// Where each transform size's quantizer matrix starts in a level's
+// (Qm_Offset: the 64-sample sides take the 32-sample matrices), each
+// matrix column by column.
+const int16_t kQmOffset[TX_SIZES_ALL] = {0,    16,   80,   336,  336,  1360, 1392,
+                                         1424, 1552, 1680, 2192, 336,  336,  2704,
+                                         2768, 2832, 3088, 1680, 2192};
+
 }  // namespace
 
 void reconstruct(Decoder& d, int plane, int x0, int y0, int tx, int tx_type, int lossless,
-                 int32_t* quant, int dc_q, int ac_q) {
+                 int32_t* quant, int dc_q, int ac_q, int qm_level) {
     int log2w = kTxWLog2[tx], log2h = kTxHLog2[tx], w = 1 << log2w, h = 1 << log2h;
     int tw = std::min(32, w), th = std::min(32, h);
     int shift = (tx == TX_32X32 || tx == TX_16X32 || tx == TX_32X16 || tx == TX_16X64 ||
@@ -276,13 +283,20 @@ void reconstruct(Decoder& d, int plane, int x0, int y0, int tx, int tx_type, int
               : (tx == TX_64X64 || tx == TX_32X64 || tx == TX_64X32) ? 2 : 0;
     static thread_local int32_t res[64 * 64];
     const int bd = 8, maxc = (1 << (7 + bd)) - 1, minc = -(1 << (7 + bd));
-    // Dequantise into res[i * w + j].
+    // Dequantise into res[i * w + j], weighting by the quantizer matrix
+    // where the block is not lossless and its transform is 2-D (dav1d
+    // takes no matrix for the identity and 1-D types).
+    const uint8_t* qm = qm_level < 15 && !lossless && tx_type < IDTX
+                            ? kQuantizerMatrix[qm_level][plane > 0] + kQmOffset[tx]
+                            : nullptr;
     std::memset(res, 0, sizeof(int32_t) * w * h);
     for (int i = 0; i < th; i++)
         for (int j = 0; j < tw; j++) {
             int32_t qv = quant[i * tw + j];
             if (!qv) continue;
-            int64_t dq = ((int64_t)std::abs(qv) * ((i == 0 && j == 0) ? dc_q : ac_q)) & 0xFFFFFF;
+            int q = (i == 0 && j == 0) ? dc_q : ac_q;
+            if (qm) q = round2(q * qm[j * th + i], 5);  // column by column
+            int64_t dq = ((int64_t)std::abs(qv) * q) & 0xFFFFFF;
             dq >>= shift;
             if (qv < 0) dq = -dq;
             res[i * w + j] = (int32_t)std::min<int64_t>(std::max<int64_t>(dq, minc), maxc);

@@ -40,7 +40,11 @@
   (jpeg2000_fixtures, chip_smoke.J2K_*), written by Pillow's OpenJPEG;
 * tests/fixtures/avif/: phase 8 (v)'s AVIF files (avif_fixtures,
   chip_smoke.AVIF_*), written by Pillow's libavif with aom, and the
-  SHA-256 of Pillow's planes of them ("avif");
+  SHA-256 of Pillow's planes of them ("avif"); and phase 8 (v3)'s, the
+  kinds Pillow's save does not write (grids, matrix coefficients,
+  quantizer matrices, film grain, damaged grids), written through the
+  same library's encoder with ctypes (avif_kind_fixtures, Libavif), with
+  Pillow's plane hashes or the step at which Pillow fails ("avif kinds");
 * tests/fixtures/torch_lzma_damaged.tif: a 64x256 gradient as one
   xz-compressed strip (no check) with bits flipped where liblzma fills the
   strip before it finds the damage, so that Pillow's libtiff reads it
@@ -60,6 +64,7 @@ Run from the repo root:
 
     python -m tests.gen_torch_formats_fixture
     python -m tests.gen_torch_formats_fixture avif   # the AVIF files alone
+    python -m tests.gen_torch_formats_fixture avif-kinds   # only those of "avif kinds"
 
 The port must decode the files to those planes and encode the arrays to
 those bytes (tests/test_torch_images.py, tests/test_torch_jpeg_encode.py,
@@ -77,6 +82,7 @@ import hashlib
 import io
 import json
 import os
+import struct
 import sys
 import tempfile
 import zlib
@@ -354,6 +360,255 @@ def avif_fixtures() -> dict:
     return {os.path.basename(p): planes(p) for p in paths}
 
 
+class Libavif:
+    """The encoder of the libavif in Pillow's wheel (libavif 1.3.0, aom
+    3.12.1), called through ctypes: it writes grids, any CICP and aom's
+    codec options (quantizer matrices, film grain), which Pillow's save
+    does not. The avifImage and avifEncoder field offsets are libavif
+    1.3.0's on a 64-bit machine, all here; the version is asserted."""
+
+    VERSION = b"1.3.0"
+    FORMATS = {"444": 1, "422": 2, "420": 3, "400": 4}  # avifPixelFormat
+    # avifImage: yuvRange, yuvPlanes[3], yuvRowBytes[3], alphaPlane,
+    # alphaRowBytes, colorPrimaries / transferCharacteristics /
+    # matrixCoefficients (uint16 each).
+    IMAGE_RANGE, IMAGE_PLANES, IMAGE_ROW_BYTES = 16, 24, 48
+    IMAGE_ALPHA, IMAGE_ALPHA_ROW_BYTES, IMAGE_CICP = 64, 72, 104
+    # avifEncoder: speed, quality, qualityAlpha.
+    ENCODER_SPEED, ENCODER_QUALITY, ENCODER_QUALITY_ALPHA = 8, 32, 36
+    PLANES_YUV, PLANES_ALL = 1, 0xFF
+    ADD_IMAGE_FLAG_SINGLE = 2
+
+    def __init__(self):
+        import ctypes
+        import glob
+
+        import PIL
+
+        libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+        self.ct = ctypes
+        lib = self.lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libavif-*.so*"))[0])
+        lib.avifVersion.restype = ctypes.c_char_p
+        assert lib.avifVersion() == self.VERSION, lib.avifVersion()
+        vp = ctypes.c_void_p
+        lib.avifImageCreate.restype = vp
+        lib.avifImageCreate.argtypes = [ctypes.c_uint32] * 3 + [ctypes.c_int]
+        lib.avifImageAllocatePlanes.argtypes = [vp, ctypes.c_int]
+        lib.avifImageDestroy.argtypes = [vp]
+        lib.avifEncoderCreate.restype = vp
+        lib.avifEncoderDestroy.argtypes = [vp]
+        lib.avifEncoderSetCodecSpecificOption.argtypes = [vp, ctypes.c_char_p, ctypes.c_char_p]
+        lib.avifEncoderAddImage.argtypes = [vp, vp, ctypes.c_uint64, ctypes.c_uint32]
+        lib.avifEncoderAddImageGrid.argtypes = [vp, ctypes.c_uint32, ctypes.c_uint32,
+                                                ctypes.POINTER(vp), ctypes.c_uint32]
+
+        class RWData(ctypes.Structure):
+            _fields_ = [("data", vp), ("size", ctypes.c_size_t)]
+
+        self.RWData = RWData
+        lib.avifEncoderFinish.argtypes = [vp, ctypes.POINTER(RWData)]
+        lib.avifRWDataFree.argtypes = [ctypes.POINTER(RWData)]
+
+    def image(self, planes, fmt: str, full: bool, cicp: tuple, alpha=None) -> int:
+        """An avifImage of 8-bit planes ([Y] or [Y, U, V] uint8 arrays),
+        its range and (primaries, transfer, matrix) codes."""
+        ct, lib = self.ct, self.lib
+        h, w = planes[0].shape
+        im = lib.avifImageCreate(w, h, 8, self.FORMATS[fmt])
+        ct.c_int.from_address(im + self.IMAGE_RANGE).value = int(full)
+        for k, code in enumerate(cicp):
+            ct.c_uint16.from_address(im + self.IMAGE_CICP + 2 * k).value = code
+        assert lib.avifImageAllocatePlanes(
+            im, self.PLANES_YUV if alpha is None else self.PLANES_ALL) == 0
+        targets = [(self.IMAGE_PLANES + 8 * k, self.IMAGE_ROW_BYTES + 4 * k, p)
+                   for k, p in enumerate(planes)]
+        if alpha is not None:
+            targets.append((self.IMAGE_ALPHA, self.IMAGE_ALPHA_ROW_BYTES, alpha))
+        for at, rb_at, plane in targets:
+            ptr = ct.c_void_p.from_address(im + at).value
+            row_bytes = ct.c_uint32.from_address(im + rb_at).value
+            plane = np.ascontiguousarray(plane, np.uint8)
+            for r in range(plane.shape[0]):
+                ct.memmove(ptr + r * row_bytes, plane[r].ctypes.data, plane.shape[1])
+        return im
+
+    def encode(self, images: list, grid=None, options=(), quality=60, speed=6) -> bytes:
+        """One image, or a (rows, cols) grid of them, at the quality (also
+        the alpha's) and speed, with aom's codec options; the images are
+        freed."""
+        ct, lib = self.ct, self.lib
+        enc = lib.avifEncoderCreate()
+        try:
+            ct.c_int.from_address(enc + self.ENCODER_SPEED).value = speed
+            ct.c_int.from_address(enc + self.ENCODER_QUALITY).value = quality
+            ct.c_int.from_address(enc + self.ENCODER_QUALITY_ALPHA).value = quality
+            for key, value in options:
+                assert lib.avifEncoderSetCodecSpecificOption(enc, key.encode(),
+                                                             value.encode()) == 0, key
+            if grid:
+                cells = (ct.c_void_p * len(images))(*images)
+                res = lib.avifEncoderAddImageGrid(enc, grid[1], grid[0], cells,
+                                                  self.ADD_IMAGE_FLAG_SINGLE)
+            else:
+                res = lib.avifEncoderAddImage(enc, images[0], 1, self.ADD_IMAGE_FLAG_SINGLE)
+            assert res == 0, res
+            out = self.RWData()
+            assert lib.avifEncoderFinish(enc, ct.byref(out)) == 0
+            data = ct.string_at(out.data, out.size)
+            lib.avifRWDataFree(ct.byref(out))
+            return data
+        finally:
+            lib.avifEncoderDestroy(enc)
+            for im in images:
+                lib.avifImageDestroy(im)
+
+
+def yuv_field(h: int, w: int, seed: int, fmt: str) -> list:
+    """Seeded smooth 8-bit Y, U and V planes (Y alone for 4:0:0) of an
+    h x w image, the chroma at the format's subsampling."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    luma = 128 + 70 * np.sin(x / (6.0 + seed % 5)) * np.cos(y / 9.0) + rng.normal(0, 4, (h, w))
+    out = [luma]
+    if fmt != "400":
+        sx, sy = int(fmt != "444"), int(fmt == "420")
+        cy, cx = np.mgrid[0:(h + sy) >> sy, 0:(w + sx) >> sx]
+        out += [128 + 60 * np.sin(cx / 4.0 + seed), 128 + 60 * np.cos(cy / 5.0 + cx / 7.0)]
+    return [np.clip(p, 0, 255).astype(np.uint8) for p in out]
+
+
+def _edit(data: bytes, at: int, new: bytes) -> bytes:
+    return data[:at] + new + data[at + len(new):]
+
+
+def _grid_layout(data: bytes) -> dict:
+    """Where a libavif grid file keeps what the damaged copies edit: the
+    colour grid's ImageGrid payload, its ispe's width field, its dimg
+    references and each item's ipma property indices."""
+    from cybervision_tpu_torch.imageio import avif
+
+    meta = next((s, e) for t, s, e in avif._boxes(data, 0, len(data)) if t == b"meta")
+    items, primary, _ = avif._parse_meta(data, *meta)
+    grid = items[primary]
+    ispe = next(s for t, s, e in grid.props if t == b"ispe")
+    dimg = data.index(b"dimg") + 4 + 4  # past the from id and the count
+    ipma = data.index(b"ipma") + 4
+    assert data[ipma:ipma + 4] == b"\0\0\0\0"  # version 0: 16-bit ids, 8-bit indices
+    entries, p = {}, ipma + 8
+    for _ in range(struct.unpack_from(">I", data, ipma + 4)[0]):
+        iid, n = struct.unpack_from(">HB", data, p)
+        entries[iid] = p + 3  # its first property index
+        p += 3 + n
+    return {"payload": grid.extents[0][0], "ispe": ispe + 4, "dimg": dimg, "ipma": entries,
+            "primary": primary, "tiles": items[primary].refs[b"dimg"]}
+
+
+def avif_kind_fixtures() -> dict:
+    """Write phase 8 (v3)'s AVIF files (chip_smoke.AVIF_GRID_SEM,
+    AVIF_KINDS_DECODE_ONLY, AVIF_KINDS_FAIL) through the wheel's libavif
+    encoder; {file name: Pillow's plane hashes, or the step Pillow fails
+    at}. Decode-only files are 96x80 but the grids, whose tiles libavif
+    wants 64 samples a side at least."""
+    enc = Libavif()
+    os.makedirs(chip_smoke.AVIF_DIR, exist_ok=True)
+    files = {}
+    wanted = chip_smoke.AVIF_KINDS_DECODE_ONLY + tuple(chip_smoke.AVIF_KINDS_FAIL)
+    for mc in (*chip_smoke.AVIF_MATRIX_READ, 3, 10, 11, 13, 14, 16):
+        for fmt in ("444", "420"):
+            for rng in ("full", "limited"):
+                name = f"mc{mc}_{fmt}_{rng}.avif"
+                if name not in wanted:
+                    continue
+                primaries = 4 if mc == 12 else 1  # BT.470 M: libavif's own Kr/Kb
+                files[name] = enc.encode([enc.image(yuv_field(80, 96, mc, fmt), fmt, rng == "full",
+                                                    (primaries, 13, mc))], quality=50)
+    files["mc12p1_420_full.avif"] = enc.encode(
+        [enc.image(yuv_field(80, 96, 12, "420"), "420", True, (1, 13, 12))], quality=50)
+
+    # A 2x3 grid of 64x64 tiles cut from one field, with an alpha grid.
+    field, alpha = yuv_field(128, 192, 40, "420"), np.add.outer(
+        np.arange(128), np.arange(192)).astype(np.uint8)
+
+    def grid_file():
+        tiles = []
+        for r in range(2):
+            for c in range(3):
+                planes = [p[r * 64 // s:(r + 1) * 64 // s, c * 64 // s:(c + 1) * 64 // s]
+                          for p, s in zip(field, (1, 2, 2))]
+                tiles.append(enc.image(planes, "420", True, (1, 13, 1),
+                                       alpha=alpha[r * 64:(r + 1) * 64, c * 64:(c + 1) * 64]))
+        return enc.encode(tiles, grid=(2, 3), quality=50)
+
+    grid = files["grid_2x3_alpha.avif"] = grid_file()
+    at = _grid_layout(grid)
+    # The colour and alpha grids share their ImageGrid payload and ispe.
+    files["grid_2x3_alpha_cropped.avif"] = _edit(_edit(
+        grid, at["payload"] + 4, struct.pack(">HH", 160, 100)), at["ispe"],
+        struct.pack(">II", 160, 100))
+    files["grid_not_covering.avif"] = _edit(_edit(
+        grid, at["payload"] + 4, struct.pack(">HH", 200, 128)), at["ispe"],
+        struct.pack(">II", 200, 128))
+    files["grid_missing_tile.avif"] = _edit(grid, at["dimg"] + 2 * 2, struct.pack(">H", 0x7F))
+    # The third tile takes the grid's ispe (192x128) as its own.
+    files["grid_tile_size.avif"] = _edit(grid, at["ipma"][at["tiles"][2]], b"\x01")
+
+    y420 = yuv_field(80, 96, 7, "420")
+    y444 = yuv_field(80, 96, 8, "444")
+    files["qm_420.avif"] = enc.encode([enc.image(y420, "420", True, (1, 13, 6))], quality=60,
+                                      options=[("enable-qm", "1"), ("enable-chroma-deltaq", "1")])
+    for name, q in (("qm_iq_444_low.avif", 30), ("qm_iq_444_high.avif", 85)):
+        files[name] = enc.encode([enc.image(y444, "444", True, (1, 13, 6))], quality=q,
+                                 options=[("enable-qm", "1"), ("enable-chroma-deltaq", "1"),
+                                          ("tune", "iq")])
+    for vec in (1, 2, 10, 16):
+        files[f"grain_v{vec}.avif"] = enc.encode(
+            [enc.image(yuv_field(80, 96, vec, "420"), "420", True, (1, 13, 1))], quality=60,
+            options=[("film-grain-test", str(vec))])
+    files["grain_400.avif"] = enc.encode(
+        [enc.image(yuv_field(80, 96, 3, "400"), "400", False, (1, 13, 6))], quality=60,
+        options=[("film-grain-test", "1")])
+
+    img1, img2, _ = chip_smoke.synth_sem_pair(chip_smoke.SIZE, chip_smoke.SIZE)
+    half = chip_smoke.SIZE // 2
+    for img, path in zip((img1, img2), chip_smoke.AVIF_GRID_SEM):
+        tiles = []
+        for r in range(2):
+            for c in range(2):
+                y = img[r * half:(r + 1) * half, c * half:(c + 1) * half]
+                chroma = np.full((half // 2, half // 2), 128, np.uint8)
+                tiles.append(enc.image([y, chroma, chroma], "420", True, (1, 13, 1)))
+        files[os.path.basename(path)] = enc.encode(
+            tiles, grid=(2, 2), quality=50,
+            options=[("enable-qm", "1"), ("film-grain-test", "1")])
+    out = {}
+    for name, data in files.items():
+        path = os.path.join(chip_smoke.AVIF_DIR, name)
+        with open(path, "wb") as fh:
+            fh.write(data)
+        if name in chip_smoke.AVIF_KINDS_FAIL:
+            step = pillow_failure(path)
+            assert step == chip_smoke.AVIF_KINDS_FAIL[name], (name, step)
+            out[name] = {"fails": step}
+        else:
+            out[name] = planes(path)
+    print(chip_smoke.AVIF_DIR, sum(len(d) for d in files.values()), "bytes in", len(files),
+          "new files")
+    return out
+
+
+def pillow_failure(path: str) -> str | None:
+    """The step at which Pillow fails on the file: "open" or "load"."""
+    try:
+        im = Image.open(path)
+    except Exception:  # noqa: BLE001 - Pillow's refusal is the result
+        return "open"
+    try:
+        im.load()
+    except Exception:  # noqa: BLE001
+        return "load"
+    return None
+
+
 def depth_writer_hashes() -> dict:
     """The SHA-256 of Pillow's bytes of chip_smoke.depth_writer_rgba() for
     each of chip_smoke.DEPTH_WRITER_EXTS, and of their deflate-free forms
@@ -427,11 +682,14 @@ def lzma_fixture() -> dict:
 
 
 def main():
-    if sys.argv[1:] == ["avif"]:
-        # Only the AVIF files and their hashes; the other entries stay.
+    if sys.argv[1:] in (["avif"], ["avif-kinds"]):
+        # Only the AVIF files and their hashes (or only those the wheel's
+        # libavif encoder writes); the other entries stay.
         with open(chip_smoke.FORMATS_SHA256) as fh:
             hashes = json.load(fh)
-        hashes["avif"] = avif_fixtures()
+        if sys.argv[1] == "avif":
+            hashes["avif"] = avif_fixtures()
+        hashes["avif kinds"] = avif_kind_fixtures()
         with open(chip_smoke.FORMATS_SHA256, "w") as fh:
             json.dump(hashes, fh, indent=1, sort_keys=True)
             fh.write("\n")
@@ -457,7 +715,8 @@ def main():
                    "block textures": block_texture_planes(), "fli pcd": fli_pcd_planes(),
                    "jpeg2000": jpeg2000_fixtures(), "depth writers": depth_writer_hashes(),
                    "jpeg2000 writer": jpeg2000_writer_hashes(),
-                   "webp writer": webp_writer_hashes(), "avif": avif_fixtures()},
+                   "webp writer": webp_writer_hashes(), "avif": avif_fixtures(),
+                   "avif kinds": avif_kind_fixtures()},
                   fh, indent=1,
                   sort_keys=True)
         fh.write("\n")

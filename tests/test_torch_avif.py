@@ -244,6 +244,10 @@ DAMAGE = {
     "no ftyp first": lambda d: _edit(d, 4, b"free"),
     "meta box cut short": lambda d: d[:_box(d, b"meta") + 40],
     "image data past the end": lambda d: d[:-20],
+    "item longer than the file": lambda d: _edit(d, _box(d, b"iloc") + 26,
+                                                 struct.pack(">I", len(d) + 1)),
+    "ispe past libavif's dimension limit": lambda d: _edit(d, _box(d, b"ispe") + 12,
+                                                           struct.pack(">I", 32769)),
 }
 
 
@@ -310,44 +314,54 @@ REFUSED = {
         *_seq_header_bits(d))),
     "AV1 superres": lambda d: _set_bit(_set_bit(d, (lambda b, w, h: b + 21 + w + h)(
         *_seq_header_bits(d))), _frame_bits(d) + 2),
-    "AV1 quantizer matrices": lambda d: _set_bit(d, _frame_bits(d) + 13),
-    "AVIF grid images": lambda d: _edit(d, d.index(b"av01Color"), b"grid"),
-    "AVIF matrix coefficients 1": lambda d: _edit(d, _box(d, b"colr") + 16, b"\x00\x01"),
+    "AVIF item construction method 2": lambda d: _iloc_rewritten(d, 1, 2),
     "AVIF premultiplied alpha": None,
 }
 
+# Kinds this test once refused by name, read since: a file of each is
+# read as Pillow reads it (a primary item retyped "grid" has no ImageGrid
+# payload, so both fail to open it).
+READ_SINCE = {
+    "AV1 quantizer matrices": lambda img: _avif(img[:, :, 0], "L", subsampling="4:0:0",
+                                                advanced={"enable-qm": "1", "qm-min": "2",
+                                                          "qm-max": "9"}),
+    "AVIF grid images": lambda img: (lambda d: _edit(d, d.index(b"av01Color"), b"grid"))(
+        _avif(img, "RGB")),
+    "AVIF matrix coefficients 1": lambda img: (lambda d: _edit(
+        d, _box(d, b"colr") + 16, b"\x00\x01"))(_avif(img, "RGB")),
+}
 
-@pytest.mark.parametrize("tool", sorted(REFUSED))
+
+@pytest.mark.parametrize("tool", sorted(REFUSED) + sorted(READ_SINCE))
 def test_tools_refused_by_name(tool):
     """The tools and container kinds no file written here uses (ROADMAP.md
     lists each) raise UnsupportedImageError naming them, "not supported
-    yet": a gap, where Pillow reads the file, never other pixels."""
+    yet": a gap, where Pillow reads the file, never other pixels. The
+    kinds read since (READ_SINCE) are read, or refused, as Pillow takes
+    them."""
     img = _natural(16, 16, 5)
+    if tool in READ_SINCE:
+        _assert_as_pillow(READ_SINCE[tool](img))
+        return
     if tool == "AVIF premultiplied alpha":
         data = _avif(np.dstack([img, img[:, :, 0]]), "RGBA", alpha_premultiplied=True)
     else:
-        gray = tool.startswith("AV1 quantizer")
-        data = _avif(img[:, :, 0] if gray else img, "L" if gray else "RGB",
-                     **({"subsampling": "4:0:0"} if gray else {}))
-        data = REFUSED[tool](data)
+        data = REFUSED[tool](_avif(img, "RGB"))
     with pytest.raises(UnsupportedImageError, match=f"{tool}.* not supported yet"):
         fmt, parsed = imageio.identify(data)
         imageio.ImageFile(fmt, parsed).decode()
 
 
-def test_avif_reader_parses_iloc_versions_and_idat():
-    """iloc versions 1 and 2 (32-bit item ids and counts) and construction
-    method 1 (the data in idat) locate the same bytes as Pillow's version
-    0 file does: the port reads the rewritten file to the same planes."""
-    data = _avif(_natural(20, 20, 2), "RGB")
-    ref = _pillow(data)
+def _iloc_rewritten(data, version, method=0):
+    """Pillow's file with its version 0 iloc (4-byte offsets and lengths,
+    no base offset) rewritten as `version` (1 or 2: 32-bit item ids and
+    counts in 2) with every item's construction method `method`, each
+    extent moved by the growth of the meta box."""
     meta = _box(data, b"meta")
     iloc = _box(data, b"iloc")
     size, = struct.unpack_from(">I", data, iloc)
     v, = data[iloc + 8:iloc + 9]
     assert v == 0
-    # Version 0 with 4-byte offsets and lengths, no base offset: rewrite
-    # it as version 2 with the same fields widened to 32-bit ids.
     sizes = data[iloc + 12:iloc + 14]
     count, = struct.unpack_from(">H", data, iloc + 14)
     p, entries = iloc + 16, []
@@ -356,21 +370,33 @@ def test_avif_reader_parses_iloc_versions_and_idat():
         offsets = [struct.unpack_from(">II", data, p + 6 + 8 * k) for k in range(n)]
         entries.append((iid, offsets))
         p += 6 + 8 * n
-    body = bytes([2, 0, 0, 0]) + sizes + struct.pack(">I", count)
+    wide = ">I" if version == 2 else ">H"
+    body = bytes([version, 0, 0, 0]) + sizes + struct.pack(wide, count)
     for iid, offsets in entries:
-        body += struct.pack(">IHHH", iid, 0, 0, len(offsets))
+        body += struct.pack(wide, iid) + struct.pack(">HHH", method, 0, len(offsets))
         body += b"".join(struct.pack(">II", o, n) for o, n in offsets)
     new_iloc = struct.pack(">I", 8 + len(body)) + b"iloc" + body
     grow = len(new_iloc) - size
     out = bytearray(data[:iloc] + new_iloc + data[iloc + size:])
     struct.pack_into(">I", out, meta, struct.unpack_from(">I", data, meta)[0] + grow)
     # Every extent moves by the growth of the meta box.
-    p = iloc + 8 + 4 + 2 + 4
+    p = iloc + 8 + 4 + 2 + (4 if version == 2 else 2)
     for iid, offsets in entries:
-        p += 10
+        p += 10 if version == 2 else 8
         for o, n in offsets:
             struct.pack_into(">I", out, p, o + grow)
             p += 8
+    return bytes(out)
+
+
+def test_avif_reader_parses_iloc_versions_and_idat():
+    """iloc versions 1 and 2 (32-bit item ids and counts) and construction
+    method 1 (the data in idat) locate the same bytes as Pillow's version
+    0 file does: the port reads the rewritten file to the same planes."""
+    data = _avif(_natural(20, 20, 2), "RGB")
+    ref = _pillow(data)
+    out = _iloc_rewritten(data, 2)
+    assert _port(_iloc_rewritten(data, 1))[0] == ref[0]
     got = _port(bytes(out))
     assert got[0] == ref[0]
     np.testing.assert_array_equal(got[1], ref[1])

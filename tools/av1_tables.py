@@ -12,7 +12,9 @@ adaptation counter. The mode CDFs come from dav1d's default context
 coefficient CDFs from libaom's tables (already in the specification's
 shapes), the quantiser lookups, smooth weights, directional derivatives,
 filter-intra taps, cosines, sines and self-guided constants from
-libaom's, the coefficient context offsets from dav1d's. The scan
+libaom's, the coefficient context offsets from dav1d's, the quantizer
+matrices from libaom's held to dav1d's, the film grain Gaussian
+sequence from dav1d's. The scan
 orders are not tabled: the decoder generates them, and this script
 checks that dav1d holds each of them (transposed, as dav1d stores its
 coefficients).
@@ -251,7 +253,62 @@ def extract() -> dict[str, tuple[str, np.ndarray]]:
     lo = b.find([0, 1, 6, 6, 21, 1, 6, 6, 21, 21, 6, 6, 21, 21, 21], "u1")
     t["kCoeffBaseCtxOffset"] = ("uint8_t", b.read(lo, 75, "u1").reshape(3, 5, 5))
     _check_scans(b)
+    # The quantizer matrices, levels 0-14 (15 is flat: no matrix), luma
+    # and chroma, each level's sizes in the specification's order
+    # (Qm_Offset), each matrix column by column as libaom and dav1d hold
+    # their coefficients: libaom's iwt_matrix_ref, anchored on its 4x4
+    # luma matrix of level 0, held to dav1d's copy (_check_qm).
+    qm = b.find([32, 43, 73, 97, 43, 67, 94, 110, 73, 94, 137, 150, 97, 110, 150, 200], "u1")
+    iwt = b.read(qm, 15 * 2 * QM_TOTAL, "u1").reshape(15, 2, QM_TOTAL)
+    _check_qm(b, iwt)
+    t["kQuantizerMatrix"] = ("uint8_t", iwt)
+    # dav1d's film grain Gaussian sequence (2048 values, 12-bit).
+    gs = b.find([56, 568, -180, 172, 124, -84, 172, -64, -900, 24, 820, 224], "<i2")
+    gauss = b.read(gs, 2048, "<i2")
+    if gauss.min() < -2048 or gauss.max() >= 2048 or gauss[-4:].tolist() != [288, 944, 428, -484]:
+        raise SystemExit("the Gaussian sequence moved")
+    t["kGaussianSequence"] = ("int16_t", gauss)
     return t
+
+
+# The quantizer matrix sizes (w, h) in the specification's order: the
+# transform sizes that are their own adjusted size (64-sample sides take
+# the 32-sample matrices).
+QM_SIZES = [(4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16), (16, 8), (16, 32),
+            (32, 16), (4, 16), (16, 4), (8, 32), (32, 8)]
+QM_TOTAL = sum(w * h for w, h in QM_SIZES)  # 3344
+
+
+def _qm_block(iwt, level, plane, w, h):
+    """The w x h matrix as (h, w) rows, from its columns."""
+    at = sum(a * b for a, b in QM_SIZES[:QM_SIZES.index((w, h))])
+    return iwt[level, plane, at:at + w * h].reshape(w, h).T
+
+
+def _check_qm(b: _Bytes, iwt) -> None:
+    """The extracted matrices against dav1d's: its 32x32 matrices are
+    stored as lower triangles, level by level, luma then chroma, and its
+    4x4, 8x8 and 16x16 ones are taken from them, every 8th, 4th and 2nd
+    sample from (3, 3), (1, 1) and (0, 0); the square ones are symmetric,
+    and no weight is 0."""
+    m32 = [_qm_block(iwt, 0, 0, 32, 32)]
+    tri = np.concatenate([m32[0][i, :i + 1] for i in range(32)])
+    at = b.find(tri[:64].tolist(), "u1")
+    tris = b.read(at, 15 * 2 * 528, "u1").reshape(15, 2, 528)
+    rows, cols = np.tril_indices(32)
+    for level in range(15):
+        for plane in range(2):
+            full = np.zeros((32, 32), np.int64)
+            full[rows, cols] = tris[level, plane]
+            full[cols, rows] = tris[level, plane]
+            for n, step, start in ((32, 1, 0), (16, 2, 0), (8, 4, 1), (4, 8, 3)):
+                if not np.array_equal(_qm_block(iwt, level, plane, n, n),
+                                      full[start::step, start::step]):
+                    raise SystemExit(f"quantizer matrix {n}x{n} of level {level} is not dav1d's")
+            for w, h in QM_SIZES:
+                m = _qm_block(iwt, level, plane, w, h)
+                if m.min() == 0 or (w == h and not np.array_equal(m, m.T)):
+                    raise SystemExit(f"quantizer matrix {w}x{h} of level {level} malformed")
 
 
 def spec_scan(w: int, h: int) -> list[int]:
@@ -279,6 +336,8 @@ def render(tables) -> str:
         dims = "".join(f"[{d}]" for d in arr.shape)
         flat = arr.reshape(-1).tolist()
         width = arr.shape[-1] if arr.ndim else 1
+        if width > 256:  # the quantizer matrices and the Gaussian sequence: 32 to a line
+            width = 32
         lines = [", ".join(str(v) for v in flat[i:i + max(width, 1)])
                  for i in range(0, len(flat), max(width, 1))]
         body = ",\n    ".join(lines)
