@@ -253,7 +253,8 @@ Phases, each of which raises on failure:
    (r) with Pillow blocked as well (cli_jpeg2000): the committed JPEG 2000
        files (tests/fixtures/jpeg2000/). The full-width pair as RGB 9/7
        JP2 files (three layers, RPCL, 512x512 tiles from an odd tile
-       offset) -> OBJ with --focal-length=43 and (f)'s gates; (a)'s SEM
+       offset) -> OBJ with --focal-length=43 and (f)'s gates but the
+       in-memory run; (a)'s SEM
        pair as gray 9/7 codestreams -> PLY, byte-equal to reconstruct's
        on the decoded planes; BASELINE #3's views as lossless 5/3 RGB
        codestreams (LRCP, precincts) -> OBJ with --focal-length=43 and
@@ -312,6 +313,13 @@ Phases, each of which raises on failure:
        and film grain files decoded, every plane to the committed SHA-256
        of Pillow's ("avif kinds"); the files Pillow fails on refused; the
        decode seconds of each kind printed with the card.
+   (x) with Pillow blocked as well (cli_avif_depth): (a)'s SEM pair as
+       10-bit 4:0:0 AVIF -> PLY, byte-equal to reconstruct's on the
+       decoded planes (K1 8 / K2 1 / K3 1); BASELINE #3's views as 12-bit
+       RGBA 4:2:0 AVIF with a premultiplied alpha and EXIF focal 43 -> OBJ
+       with no --focal-length and (f)'s gates (K1 6 / K2 20 / K3 20); every
+       plane to the committed SHA-256 of Pillow's ("avif depth"), the
+       decode seconds of each file printed.
    One JSON record per run: seconds, phases, decode seconds per file and
    plane, encode (and write) seconds per depth map, launches, the card's
    name and power limit.
@@ -2342,6 +2350,14 @@ AVIF_KINDS_FAIL = {"mc3_420_full.avif": "load", "mc10_420_full.avif": "load",
                    "mc14_420_full.avif": "load", "mc16_420_full.avif": "load",
                    "mc8_420_limited.avif": "load", "grid_missing_tile.avif": "open",
                    "grid_tile_size.avif": "load", "grid_not_covering.avif": "load"}
+# Phase 8 (x): 10- and 12-bit AVIF and premultiplied alpha, written by
+# tests/gen_torch_formats_fixture.py ("avif depth"): phase 3's SEM pair,
+# AVIF_SEM's 4:0:0 files with every AV1 sequence header, av1C and pixi
+# rewritten to 10 bits; BASELINE #3's views as RGBA 4:2:0 with a
+# premultiplied alpha (a prem reference, alpha 200-255) and EXIF focal 43,
+# rewritten to 12 bits (colour and alpha).
+AVIF_DEPTH_SEM = [os.path.join(AVIF_DIR, f"sem_400_10bit_{i}.avif") for i in range(2)]
+AVIF_DEPTH_PERSP = [os.path.join(AVIF_DIR, f"persp_420_12bit_prem_v{i}.avif") for i in range(2)]
 TIFF_TILE = 256  # phase 8 (g)'s tiled layout
 JPEG_TIFF_ROWS = 64  # phase 8 (i)'s JPEG-in-TIFF rows per strip
 # Phase 8 (e): the decoded .jpg depth map against the RGB it encodes:
@@ -2976,6 +2992,7 @@ def phase_cli_files(counters, smi: str, texture_obj_sha: str) -> dict:
         records.update(cli_webp_writer(cap, smi, td, tifs, mem))
         records.update(cli_avif(cap, smi, td))
         records.update(cli_avif_writer(cap, smi, td, tifs, mem))
+        records.update(cli_avif_depth(cap, smi, td))
     torch.cuda.empty_cache()
     return records
 
@@ -3038,13 +3055,15 @@ def _pair_scene(w: int, h: int):
 
 
 def cli_exif_jpeg_pair(cap, smi: str, td: str, run: str, label: str, paths: list[str], srcs,
-                       checks: dict, size: tuple[int, int], focal_arg: int | None = None) -> dict:
+                       checks: dict, size: tuple[int, int], focal_arg: int | None = None,
+                       reference: bool = True) -> dict:
     """Phase 8 (c), (f), (j) and (k): a JPEG, WebP or TGA pair of phase 6's
     scene at `size` -> OBJ, with EXIF 41989 = 43 and no --focal-length, or
     with --focal-length=`focal_arg` (a file without EXIF). `checks` holds
     the caller's gates on the decoded planes (`srcs`); K must be the 43 mm
-    K, the OBJ the in-memory run's on the decoded planes, and phase 6's
-    camera and depth gates must hold."""
+    K, the OBJ the in-memory run's on the decoded planes (unless
+    `reference` is False: no in-memory run), and phase 6's camera and
+    depth gates must hold."""
     from cybervision_tpu_torch.config import ReconstructionConfig
     from cybervision_tpu_torch.images import SourceImage
     from cybervision_tpu_torch.reconstruction import Reconstruction
@@ -3055,19 +3074,23 @@ def cli_exif_jpeg_pair(cap, smi: str, td: str, run: str, label: str, paths: list
     print(f"{label}: " + "; ".join(f"{k} {v}" for k, v in checks.items()))
     if not all(checks.values()):
         raise AssertionError(f"{label}: the files do not decode to Pillow's planes and K")
-    mem = []
-    for s in srcs:
-        src = SourceImage(s.img, focal_length_35mm=PERSP_FOCAL_35MM)
-        src.load_rgb_plane = functools.partial(np.array, s.load_rgb_plane())
-        mem.append(src)
     ref_obj, out = os.path.join(td, "mem_pair.obj"), os.path.join(td, "pair.obj")
-    Reconstruction(["v0", "v1"], ref_obj, ReconstructionConfig(), quiet=True, images=mem).run()
+    if reference:
+        mem = []
+        for s in srcs:
+            src = SourceImage(s.img, focal_length_35mm=PERSP_FOCAL_35MM)
+            src.load_rgb_plane = functools.partial(np.array, s.load_rgb_plane())
+            mem.append(src)
+        Reconstruction(["v0", "v1"], ref_obj, ReconstructionConfig(), quiet=True, images=mem).run()
     cli = cap.main([*([f"--focal-length={focal_arg}"] if focal_arg else []), *paths, out])
     rec = cli_record(run, cli["seconds"], cli["rec"].phases, cli["decode"], cli["launches"], smi)
-    same = _sha(out) == _sha(ref_obj)
-    print(f"{label}: OBJ equal to the in-memory run's {same}")
-    if not same:
-        raise AssertionError(f"{label}: the OBJ differs from the in-memory run's")
+    if reference:
+        same = _sha(out) == _sha(ref_obj)
+        print(f"{label}: OBJ equal to the in-memory run's {same}")
+        if not same:
+            raise AssertionError(f"{label}: the OBJ differs from the in-memory run's")
+    else:
+        print(f"{label}: no in-memory run (the camera and depth gates below)")
     check_pair_failures(label, cli["rec"], 2)
     perspective_gates(label, cli["rec"], cams, depth1, out, 2000, None, [POSE_TOL_DEG])
     return rec
@@ -6196,7 +6219,9 @@ def cli_jpeg2000(cap, smi: str, td: str) -> dict:
     """Phase 8 (r), with every import of Pillow blocked (_NoPillow): the
     committed JPEG 2000 files (J2K_*, tests/gen_torch_formats_fixture.py)
     through cli.main. (r1) the full-width pair as RGB 9/7 JP2 files -> OBJ
-    with --focal-length=43 and cli_exif_jpeg_pair's gates; (r2) phase 3's
+    with --focal-length=43 and cli_exif_jpeg_pair's gates but its in-memory
+    run (the full-width save twice was most of (r)'s time; (r3) holds a
+    JPEG 2000 pair's OBJ to its in-memory run's); (r2) phase 3's
     SEM pair as gray 9/7 codestreams -> PLY, byte-equal to reconstruct's
     on the decoded planes; (r3) BASELINE #3's views as lossless 5/3 RGB
     codestreams -> OBJ with --focal-length=43 and the same gates; the
@@ -6255,7 +6280,7 @@ def cli_jpeg2000(cap, smi: str, td: str) -> dict:
         w, h = round(PERSP_W * FULL_SCALE), round(PERSP_H * FULL_SCALE)
         records["jp2 97 obj"] = cli_exif_jpeg_pair(
             cap, smi, td, "(r1) RGB 9/7 JP2 pair", f"(r1) RGB 9/7 JP2 pair {w}x{h} -> OBJ",
-            J2K_FULL, srcs["full"], {}, (w, h), focal_arg=PERSP_FOCAL_35MM)
+            J2K_FULL, srcs["full"], {}, (w, h), focal_arg=PERSP_FOCAL_35MM, reference=False)
 
         label = f"(r2) gray 9/7 codestream pair {SIZE}x{SIZE} -> PLY"
         mem = []
@@ -6447,6 +6472,84 @@ def cli_avif_kinds(cap, smi: str, td: str, load) -> dict:
     if bad or not all(refused.values()):
         raise AssertionError("(v3): a decode-only file is not Pillow's, or a file Pillow"
                              " fails on was read")
+    return records
+
+
+def cli_avif_depth(cap, smi: str, td: str) -> dict:
+    """Phase 8 (x), with every import of Pillow blocked (_NoPillow): the
+    committed 10- and 12-bit AVIF files (AVIF_DEPTH_*,
+    tests/gen_torch_formats_fixture.py "avif depth") through cli.main.
+    (x1) phase 3's SEM pair as 10-bit 4:0:0 AVIF -> PLY, byte-equal to
+    reconstruct's on the decoded planes, K1 8 / K2 1 / K3 1; (x2) BASELINE
+    #3's views as 12-bit RGBA 4:2:0 with a premultiplied alpha and EXIF
+    focal 43 -> OBJ with no --focal-length and cli_exif_jpeg_pair's gates,
+    K1 6 / K2 20 / K3 20. Every plane has the committed SHA-256 of
+    Pillow's; the decode seconds of each file are printed."""
+    from cybervision_tpu_torch.config import MeshMode, ProjectionMode, ReconstructionConfig
+    from cybervision_tpu_torch.images import SourceImage
+    from cybervision_tpu_torch.reconstruction import reconstruct
+
+    with open(FORMATS_SHA256) as fh:
+        committed = json.load(fh)["avif depth"]
+    t_phase = time.perf_counter()
+    records = {}
+
+    def check_launches(label, launches, want):
+        got = tuple(launches.get(n, 0) for n in ("ncc_sweep", "score_candidates",
+                                                  "gather_packed"))
+        print(f"{label}: launches K1 / K2 / K3 {got}, expected {want}")
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, not {want}")
+
+    with _NoPillow():
+        loaded = {}
+        for path in AVIF_DEPTH_SEM + AVIF_DEPTH_PERSP:
+            t0 = time.perf_counter()
+            src = SourceImage.load(path)
+            rgb_plane = src.load_rgb_plane()
+            want = committed[os.path.basename(path)]
+            loaded[path] = (src, time.perf_counter() - t0, _plane_sha(src.img) == want["l"]
+                            and _plane_sha(rgb_plane) == want["rgb"])
+        for path, (_, secs, ok) in loaded.items():
+            print(f"(x) {os.path.basename(path)}: {os.path.getsize(path)} bytes, decode"
+                  f" {secs:.4f} s (gray and colour planes), planes equal to Pillow's (SHA-256)"
+                  f" {ok}")
+        if not all(r[2] for r in loaded.values()):
+            raise AssertionError("(x): the decoded planes are not Pillow's")
+
+        label = f"(x1) 10-bit 4:0:0 AVIF pair {SIZE}x{SIZE} -> PLY"
+        mem = []
+        for path in AVIF_DEPTH_SEM:
+            s = loaded[path][0]
+            src = SourceImage(s.img)
+            src.load_rgb_plane = functools.partial(np.array, s.load_rgb_plane())
+            mem.append(src)
+        ref, out = os.path.join(td, "mem_x.ply"), os.path.join(td, "x.ply")
+        reconstruct(["a", "b"], ref, ReconstructionConfig(
+            projection=ProjectionMode.AFFINE, mesh=MeshMode.VERTEX_COLORS), quiet=True,
+            images=mem)
+        run = cap.main(["--projection=parallel", "--mesh=vertex-colors", *AVIF_DEPTH_SEM, out])
+        records["avif 10-bit ply"] = cli_record("(x1) 10-bit 4:0:0 AVIF pair", run["seconds"],
+                                                run["rec"].phases, run["decode"],
+                                                run["launches"], smi)
+        check_launches(label, run["launches"], (8, 1, 1))
+        same = _sha(out) == _sha(ref)
+        print(f"{label}: PLY equal to the in-memory run's (the decoded planes) {same}")
+        if not same:
+            raise AssertionError(f"{label}: the PLY differs from the in-memory run's")
+
+        srcs = [loaded[p][0] for p in AVIF_DEPTH_PERSP]
+        label = f"(x2) 12-bit premultiplied RGBA 4:2:0 AVIF pair {PERSP_W}x{PERSP_H} -> OBJ"
+        records["avif 12-bit prem obj"] = cli_exif_jpeg_pair(
+            cap, smi, td, "(x2) 12-bit premultiplied RGBA 4:2:0 AVIF pair, EXIF focal 43", label,
+            AVIF_DEPTH_PERSP, srcs, {"EXIF focal length 43": all(
+                s.focal_length_35mm == PERSP_FOCAL_35MM for s in srcs)}, (PERSP_W, PERSP_H))
+        check_launches(label, records["avif 12-bit prem obj"]["launches"], (6, 20, 20))
+        pil = any(m == "PIL" or m.startswith("PIL.") for m in sys.modules)
+    print(f"(x) Pillow imported during the runs {pil}; (x) took"
+          f" {time.perf_counter() - t_phase:.1f} s")
+    if pil:
+        raise AssertionError("(x): Pillow was imported")
     return records
 
 

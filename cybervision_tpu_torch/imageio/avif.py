@@ -28,12 +28,15 @@ length with them, so the focal length is read from the payload. Pillow
 applies neither irot nor imir to the pixels, nor clap.
 
 Loading decodes the first frame's AV1 OBUs in the native library
-(av1obu.cpp and its siblings: an 8-bit key frame, with its quantizer
-matrices and film grain), stitches a grid's tiles in YUV, and converts
-the image once to RGB, or RGBA where there is alpha, as libavif does
-through libyuv or its own float path, by the colr (else the AV1
-sequence header's) matrix coefficients and colour primaries
-(avifrgb.cpp). Without the native library an AVIF raises
+(av1obu.cpp and its siblings: a key frame of 8, 10 or 12 bits, with its
+quantizer matrices and film grain), stitches a grid's tiles in YUV, and
+converts the image once to 8-bit RGB, or RGBA where there is alpha, as
+libavif does through libyuv or its own float path, by the colr (else the
+AV1 sequence header's) matrix coefficients and colour primaries
+(avifrgb.cpp); the depth is the AV1 stream's, whatever av1C and pixi say,
+and the alpha's must be the colour's. A premultiplied alpha (a prem
+reference) is divided out after the conversion, as libavif does for
+Pillow's RGBA. Without the native library an AVIF raises
 NativeDecoderError.
 """
 
@@ -539,8 +542,6 @@ def _parse(b: bytes) -> AvifFile:
                     if primary in other.refs.get(b"prem", []) or other.id in items[
                             primary].refs.get(b"prem", []):
                         f.premultiplied = True
-    if f.premultiplied:
-        raise UnsupportedImageError("AVIF premultiplied alpha is not supported yet")
     f.mode = "RGBA" if f.alpha else "RGB"
     for item in items.values():
         if item.type == b"Exif" and primary in item.refs.get(b"cdsc", []):
@@ -560,10 +561,12 @@ def _parse(b: bytes) -> AvifFile:
         for item in items.values():  # the colour item and its alpha, and their tiles
             if item.id == primary or (primary in item.refs.get(b"auxl", [])
                                       and item.type in (b"av01", b"grid")):
-                _check_properties(b, item)
-                for tile in item.refs.get(b"dimg", []) if item.type == b"grid" else ():
-                    if tile in items:
-                        _check_properties(b, items[tile])
+                tiles = ([items[t] for t in item.refs.get(b"dimg", []) if t in items]
+                         if item.type == b"grid" else [])
+                _check_tile_configs(b, tiles)
+                _check_properties(b, item, tiles[0] if tiles else item)
+                for tile in tiles:
+                    _check_properties(b, tile, tile)
     if f.size[0] <= 0 or f.size[1] <= 0:
         raise CorruptImageError("AVIF image of no size")
     bomb_check(f.size, "AVIF image")
@@ -623,11 +626,20 @@ def _grid(b, items: dict, item: _Item, idat) -> Grid:
     return Grid(rows, cols, width, height, tiles)
 
 
-def _check_properties(b, item: _Item) -> None:
+def _check_tile_configs(b, tiles: list) -> None:
+    """libavif's check that a grid's tiles share one decoder configuration:
+    every av1C field but the marker and version, as the first tile's."""
+    props = (_prop(t, b, b"av1C") for t in tiles)
+    if len({b[p[0] + 1:p[0] + 3] for p in props if p is not None}) > 1:
+        raise _Syntax("grid tiles of different av1C configurations")
+
+
+def _check_properties(b, item: _Item, config: _Item) -> None:
     """libavif's checks of an av01 or grid item's properties: av1C of an
     av01 item (its marker and version byte), ispe (version 0), irot and
     imir (reserved bits clear), colr nclx (reserved bits clear) and pixi
-    (version 0; 8-bit channels, else not implemented)."""
+    (version 0; one to four channels of one depth, else not implemented;
+    that depth av1C's, the first tile's for a grid)."""
     p = _prop(item, b, b"av1C")
     if item.type == b"av01" and (p is None or p[1] - p[0] < 4 or b[p[0]] != 0x81):
         raise _Syntax(f"item {item.id} has no valid av1C property")
@@ -649,9 +661,22 @@ def _check_properties(b, item: _Item) -> None:
         n = b[q]
         if v != 0:
             raise _Syntax("pixi version")
+        if not 1 <= n <= 4:
+            raise CorruptImageError(f"AVIF pixi of {n} channels (libavif: not implemented)")
         _need(q + 1, n, p[1])
-        if n == 0 or any(b[q + 1 + k] != 8 for k in range(n)):
-            raise UnsupportedImageError("AVIF pixi other than 8-bit channels is not supported yet")
+        depths = set(b[q + 1:q + 1 + n])
+        if len(depths) > 1:
+            raise CorruptImageError("AVIF pixi of mixed channel depths (libavif: not implemented)")
+        if depths != {_av1c_depth(b, config)}:
+            raise _Syntax("pixi depth is not av1C's")
+
+
+def _av1c_depth(b, item: _Item) -> int:
+    """The bit depth av1C gives (high_bitdepth, twelve_bit)."""
+    p = _prop(item, b, b"av1C")
+    if p is None or p[1] - p[0] < 4:
+        return 8
+    return 12 if b[p[0] + 2] & 0x60 == 0x60 else 10 if b[p[0] + 2] & 0x40 else 8
 
 
 def _ispe(b, item: _Item) -> tuple[int, int]:
@@ -704,7 +729,7 @@ def _grid_planes(f: AvifFile, grid: Grid, native) -> tuple[list, dict]:
     grid image (avifDecoderDataFillImageGrid): tiles of one size that
     cover the output without a wholly spare row or column, at least 64
     samples a side, even where chroma is subsampled (MIAF 7.3.11.4.2),
-    decoded to one format, range and CICP. A fault is INVALID_IMAGE_GRID,
+    decoded to one format, depth, range and CICP. A fault is INVALID_IMAGE_GRID,
     which Pillow's load raises."""
     (tw, th), w, h = grid.tiles[0][1], grid.width, grid.height
     if any(size != (tw, th) for _, size in grid.tiles):
@@ -717,7 +742,7 @@ def _grid_planes(f: AvifFile, grid: Grid, native) -> tuple[list, dict]:
         raise CorruptImageError("AVIF: invalid image grid: tiles under 64 samples a side")
     decoded = [native.av1_decode(_payload(f, extents), tw, th) for extents, _ in grid.tiles]
     fields = decoded[0][1]
-    kind = ("mono", "subsampling", "full_range", "matrix", "primaries")
+    kind = ("mono", "subsampling", "full_range", "matrix", "primaries", "depth")
     if any(any(fl[k] != fields[k] for k in kind) for _, fl in decoded):
         raise CorruptImageError("AVIF: invalid image grid: tiles of mismatched formats")
     sx, sy = (0, 0) if fields["mono"] else fields["subsampling"]
@@ -726,7 +751,7 @@ def _grid_planes(f: AvifFile, grid: Grid, native) -> tuple[list, dict]:
     planes = []
     for k, first in enumerate(decoded[0][0]):
         ph, pw = first.shape
-        full = np.empty((ph * grid.rows, pw * grid.cols), np.uint8)
+        full = np.empty((ph * grid.rows, pw * grid.cols), first.dtype)
         for i, (tile, _) in enumerate(decoded):
             r, c = divmod(i, grid.cols)
             full[r * ph:(r + 1) * ph, c * pw:(c + 1) * pw] = tile[k]
@@ -741,6 +766,15 @@ def _planes(f: AvifFile, source, native) -> tuple[list, dict]:
     return native.av1_decode(_payload(f, source), *f.size)
 
 
+def _limited_to_full(a: np.ndarray, depth: int) -> np.ndarray:
+    """libavif's avifLimitedToFullY of an alpha plane at its depth (16-235,
+    64-940 or 256-3760 to the full range)."""
+    lo, hi = 16 << (depth - 8), 235 << (depth - 8)
+    top = (1 << depth) - 1
+    v = ((a.astype(np.int64) - lo) * top + (hi - lo) // 2) // (hi - lo)
+    return np.clip(v, 0, top).astype(a.dtype)
+
+
 def decode(f: AvifFile, native) -> tuple[str, np.ndarray, None]:
     """(mode, pixels, palette) as imageio.ImageFile.decode gives them: the
     first frame as Pillow's RGB or RGBA. A grid is converted once, whole,
@@ -753,20 +787,26 @@ def decode(f: AvifFile, native) -> tuple[str, np.ndarray, None]:
     if f.timescale == 0:
         raise CorruptImageError("AVIF sequence of timescale 0 (Pillow's load divides by it)")
     planes, fields = _planes(f, f.color, native)
+    depth = fields["depth"]
     primaries, _, matrix, full = f.nclx or (fields["primaries"], None, fields["matrix"],
                                             fields["full_range"])
-    channels = 4 if f.alpha else 3
-    out = native.avif_yuv_to_rgb(planes, fields["subsampling"], bool(full), matrix, primaries,
-                                 channels)
+    a = None
     if f.alpha:
         alpha, afields = _planes(f, f.alpha, native)
         a = alpha[0]
-        if a.shape != out.shape[:2]:
+        if a.shape != planes[0].shape:
             raise CorruptImageError("AVIF alpha of another size than its colour image")
-        if not afields["full_range"]:  # libavif's avifLimitedToFullY
-            a = np.clip(((a.astype(np.int32) - 16) * 255 + 109) // 219, 0, 255).astype(np.uint8)
-        out[:, :, 3] = a
+        if afields["depth"] != depth:  # libavif fails the alpha's decode
+            raise CorruptImageError(f"AVIF alpha of {afields['depth']} bits, its colour image"
+                                    f" of {depth}")
+        if not afields["full_range"]:
+            a = _limited_to_full(a, depth)
+    out = native.avif_yuv_to_rgb(planes, fields["subsampling"], bool(full), matrix, primaries,
+                                 4 if f.alpha else 3, depth, a)
+    if f.premultiplied and f.alpha:
+        native.avif_unpremultiply(out)
     w, h = f.size
+    channels = out.shape[2]
     if out.shape[:2] != (h, w):
         need = w * h * channels
         if out.size < need:

@@ -114,7 +114,9 @@ _SIGNATURES = {
     "webp_alph_encode": ([_U8P, _L, _L, _U8P, _L], _L),
     "av1_decode": ([_U8P, _L, _L, _L, _I32P, _U8P, _U8P, _U8P], _L),
     "av1_error": ([], ctypes.c_char_p),
-    "avif_yuv_to_rgb": ([_U8P, _U8P, _U8P, _L, _L, _L, _L, _L, _L, _L, _L, _L, _U8P], _L),
+    "avif_yuv_to_rgb": ([_U8P, _U8P, _U8P, _U8P, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _U8P],
+                        _L),
+    "avif_unpremultiply": ([_U8P, _L], None),
     "avif_rgb_to_yuv": ([_U8P, _L, _L, _U8P, _U8P, _U8P], None),
     "av1_encode": ([_U8P, _U8P, _U8P, _L, _L, _L, _U8P, _L], _L),
 }
@@ -763,9 +765,10 @@ def webp_alph_decode(data: bytes, width: int, height: int) -> np.ndarray:
 
 
 def av1_decode(data: bytes, width: int, height: int) -> tuple[list[np.ndarray], dict]:
-    """The first frame of an AV1 stream (av1obu.cpp's av1_decode), an 8-bit
-    key frame that must be width x height: ([Y] or [Y, U, V] uint8 planes,
-    the sequence header's colour fields, the frame's quantizer matrix
+    """The first frame of an AV1 stream (av1obu.cpp's av1_decode), a key
+    frame of 8, 10 or 12 bits that must be width x height: ([Y] or [Y, U,
+    V] planes, uint8 at 8 bits and uint16 above, the sequence header's
+    colour fields, bit depth and profile, the frame's quantizer matrix
     levels and apply_grain, and under "frame" the frame header's
     base_q_idx, delta q and delta lf flags, quantizer matrix flag, tile
     counts, screen content tools and tx mode select)."""
@@ -774,10 +777,8 @@ def av1_decode(data: bytes, width: int, height: int) -> tuple[list[np.ndarray], 
     lib = load()
     dptr, _keep = _bytes_ptr(data)
     info = np.zeros(24, np.int32)
-    cw, ch = width, height  # room for 4:4:4
-    y = np.empty((height, width), np.uint8)
-    u = np.empty(cw * ch, np.uint8)
-    v = np.empty(cw * ch, np.uint8)
+    n = width * height  # room for 4:4:4 at 16 bits a sample
+    y, u, v = (np.empty(n, np.uint16) for _ in range(3))
     code = lib.av1_decode(dptr, len(data), width, height, _ptr(info, ctypes.c_int32),
                           _ptr(y, ctypes.c_uint8), _ptr(u, ctypes.c_uint8), _ptr(v, ctypes.c_uint8))
     if code < 0:
@@ -792,37 +793,61 @@ def av1_decode(data: bytes, width: int, height: int) -> tuple[list[np.ndarray], 
                   frame=dict(zip(("base_q_idx", "delta_q_present", "delta_lf_present",
                                   "using_qmatrix", "tile_cols", "tile_rows",
                                   "allow_screen_content_tools", "tx_mode_select"),
-                                 (int(x) for x in info[12:20]))))
-    planes = [y]
+                                 (int(x) for x in info[12:20]))),
+                  depth=int(info[20]), profile=int(info[21]))
+    wide = fields["depth"] > 8
+
+    def plane(buf, w, h):
+        return (buf if wide else buf.view(np.uint8))[: w * h].reshape(h, w)
+
+    planes = [plane(y, width, height)]
     if not fields["mono"]:
         sx, sy = fields["subsampling"]
         cw, ch = (width + sx) >> sx, (height + sy) >> sy
-        planes += [u[: cw * ch].reshape(ch, cw), v[: cw * ch].reshape(ch, cw)]
+        planes += [plane(u, cw, ch), plane(v, cw, ch)]
     return planes, fields
 
 
 def avif_yuv_to_rgb(planes: list[np.ndarray], subsampling: tuple[int, int], full_range: bool,
-                    matrix: int, primaries: int, channels: int) -> np.ndarray:
-    """YUV planes to (H, W, channels) uint8 as libavif converts them for
-    Pillow with the CICP matrix coefficients and colour primaries given
-    (avifrgb.cpp); the alpha byte of RGBA is 255. A matrix libavif cannot
-    convert raises CorruptImageError, as Pillow's load fails."""
+                    matrix: int, primaries: int, channels: int, depth: int = 8,
+                    alpha: np.ndarray | None = None) -> np.ndarray:
+    """YUV planes and an optional full-range alpha plane (uint8 at depth 8,
+    uint16 at 10 or 12) to (H, W, channels) uint8 as libavif converts them
+    for Pillow with the CICP matrix coefficients and colour primaries given
+    (avifrgb.cpp); the alpha byte of RGBA is 255 without an alpha plane. A
+    matrix libavif cannot convert raises CorruptImageError, as Pillow's
+    load fails."""
     from cybervision_tpu_torch.imageio.errors import CorruptImageError
 
-    y = np.ascontiguousarray(planes[0], np.uint8)
+    dtype = np.uint16 if depth > 8 else np.uint8
+    y = np.ascontiguousarray(planes[0], dtype)
     h, w = y.shape
     mono = len(planes) == 1
-    u = y if mono else np.ascontiguousarray(planes[1], np.uint8)
-    v = y if mono else np.ascontiguousarray(planes[2], np.uint8)
-    out = np.full((h, w, channels), 255, np.uint8)
+    u = y if mono else np.ascontiguousarray(planes[1], dtype)
+    v = y if mono else np.ascontiguousarray(planes[2], dtype)
+    a = None if alpha is None else np.ascontiguousarray(alpha, dtype)
+    if a is not None and a.shape != y.shape:
+        raise ValueError(f"alpha plane {a.shape} != luma {y.shape}")
+    out = np.empty((h, w, channels), np.uint8)
     code = load().avif_yuv_to_rgb(_ptr(y, ctypes.c_uint8), _ptr(u, ctypes.c_uint8),
-                                  _ptr(v, ctypes.c_uint8), w, h, subsampling[0], subsampling[1],
-                                  int(mono), int(bool(full_range)), matrix, primaries, channels,
+                                  _ptr(v, ctypes.c_uint8),
+                                  _U8P() if a is None else _ptr(a, ctypes.c_uint8), w, h,
+                                  subsampling[0], subsampling[1], int(mono),
+                                  int(bool(full_range)), matrix, primaries, channels, depth,
                                   _ptr(out, ctypes.c_uint8))
     if code < 0:
         raise CorruptImageError(f"AVIF: libavif cannot convert matrix coefficients {matrix}"
                                 f" at {'full' if full_range else 'limited'} range")
     return out
+
+
+def avif_unpremultiply(rgba: np.ndarray) -> None:
+    """(H, W, 4) uint8 premultiplied RGBA divided by its alpha in place,
+    as libavif does for Pillow (avifrgb.cpp's avif_unpremultiply: libyuv's
+    ARGBUnattenuate as its x86 SIMD rows compute it)."""
+    if not (rgba.flags.c_contiguous and rgba.dtype == np.uint8 and rgba.shape[-1] == 4):
+        raise ValueError("avif_unpremultiply takes C-contiguous uint8 RGBA")
+    load().avif_unpremultiply(_ptr(rgba, ctypes.c_uint8), rgba.size // 4)
 
 
 def avif_rgb_to_yuv(rgba: np.ndarray) -> list[np.ndarray]:

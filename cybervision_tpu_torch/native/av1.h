@@ -2,9 +2,13 @@
 // headers; av1entropy.cpp: the symbol decoder and a tile's syntax;
 // av1recon.cpp: prediction and inverse transforms; av1filter.cpp:
 // deblocking, CDEF and loop restoration; av1grain.cpp: film grain). It decodes the first frame of
-// an AV1 stream, an 8-bit key frame, as the AV1 specification (2019,
-// with errata) sets out, which is what dav1d decodes bit for bit. Names
-// follow the specification's.
+// an AV1 stream, a key frame of 8, 10 or 12 bits, as the AV1 specification
+// (2019, with errata) sets out, which is what dav1d decodes bit for bit.
+// Names follow the specification's. As dav1d's 8bpc and 16bpc templates
+// do, every function that touches samples is a template of the sample
+// type (uint8_t at 8 bits, uint16_t above), so the 8-bit path keeps its
+// byte planes; the functions declared here pick the instance by the
+// sequence header's bit depth.
 
 #pragma once
 
@@ -151,11 +155,19 @@ struct Cdfs {
 };
 void init_cdfs(Cdfs& c, int base_q_idx);
 
+// A plane of 8-bit (row) or 16-bit (px<uint16_t>) samples; stride in
+// samples.
 struct Plane {
     std::vector<uint8_t> buf;
     int stride = 0, width = 0, height = 0;  // allocated; width/height are the plane's
     uint8_t* row(int y) { return buf.data() + (size_t)y * stride; }
     const uint8_t* row(int y) const { return buf.data() + (size_t)y * stride; }
+    template <typename pixel>
+    pixel* px(int y) { return reinterpret_cast<pixel*>(buf.data()) + (size_t)y * stride; }
+    template <typename pixel>
+    const pixel* px(int y) const {
+        return reinterpret_cast<const pixel*>(buf.data()) + (size_t)y * stride;
+    }
 };
 
 // Mode info of one block, shared by every 4x4 unit it covers.
@@ -194,8 +206,9 @@ struct Decoder {
 // av1obu.cpp: decode the first frame of a stream of OBUs (a sample of an
 // AVIF item or track). Throws Error.
 void decode_frame_obus(Decoder& d, const uint8_t* data, size_t size);
-// av1obu.cpp: a frame's planes and mode-info arrays for its headers.
-void alloc_plane(Plane& p, int w, int h);
+// av1obu.cpp: a frame's planes (of 1 or 2 bytes a sample) and mode-info
+// arrays for its headers.
+void alloc_plane(Plane& p, int w, int h, int bytes = 1);
 void setup_frame(Decoder& d);
 // av1entropy.cpp: one tile.
 void decode_tile(Decoder& d, const uint8_t* data, size_t size, int tile_row, int tile_col);
@@ -229,6 +242,15 @@ void reconstruct(Decoder& d, int plane, int x, int y, int tx, int tx_type, int l
                  int32_t* quant, int dc_q, int ac_q, int qm_level);
 
 inline int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
+// The largest sample value, a constant of the 8-bit instance.
+template <typename pixel>
+inline int pixel_max(const Decoder& d) {
+    return sizeof(pixel) == 1 ? 255 : (1 << d.seq.bit_depth) - 1;
+}
+template <typename pixel>
+inline int bit_depth(const Decoder& d) {
+    return sizeof(pixel) == 1 ? 8 : d.seq.bit_depth;
+}
 inline int round2(int x, int n) { return n == 0 ? x : (x + (1 << (n - 1))) >> n; }
 inline int64_t round2l(int64_t x, int n) { return n == 0 ? x : (x + ((int64_t)1 << (n - 1))) >> n; }
 inline int floor_log2(uint32_t x) { return 31 - __builtin_clz(x); }

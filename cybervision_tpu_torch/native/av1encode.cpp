@@ -914,7 +914,7 @@ int64_t EncTile::quantize_reconstruct(int plane, int tx_type, int32_t* q, int& e
     int shift = (tx == TX_32X32 || tx == TX_16X32 || tx == TX_32X16 || tx == TX_16X64 ||
                  tx == TX_64X16) ? 1
               : (tx == TX_64X64 || tx == TX_32X64 || tx == TX_64X32) ? 2 : 0;
-    int dcq = kDcQLookup[f.base_q_idx], acq = kAcQLookup[f.base_q_idx];
+    int dcq = kDcQLookup[0][f.base_q_idx], acq = kAcQLookup[0][f.base_q_idx];
     const int16_t* iscan = scan_of(tx, tx_type, true);
     const float* vnorm = bases().norm[kVertKind[tx_type]][kTxHLog2[tx]].data();
     const float* hnorm = bases().norm[kHorzKind[tx_type]][kTxWLog2[tx]].data();

@@ -14,6 +14,16 @@ namespace av1 {
 
 namespace {
 
+// A palette block's samples: the colours its map (stride bw) names.
+template <typename pixel>
+void paint_palette(Plane& p, int x0, int y0, int w, int h, const uint16_t* pal,
+                   const uint8_t* map, int bw) {
+    for (int i = 0; i < h; i++) {
+        pixel* out = p.px<pixel>(y0 + i) + x0;
+        for (int j = 0; j < w; j++) out[j] = (pixel)pal[map[i * bw + j]];
+    }
+}
+
 // -- the symbol decoder (libaom's windowed form of 8.2.2-8.2.6) ------------
 
 struct Symbols {
@@ -923,11 +933,10 @@ struct Tile {
             int bw = plane ? (bw4 * 4) >> sx : bw4 * 4;
             if (bw < 4) bw += 2;
             const uint16_t* pal = b.palette_colors[plane];
+            const uint8_t* m = map + (y * 4) * bw + x * 4;
             Plane& pl = d.cur[plane];
-            for (int i = 0; i < h; i++) {
-                uint8_t* out = pl.row(start_y + i) + start_x;
-                for (int j = 0; j < w; j++) out[j] = (uint8_t)pal[map[(y * 4 + i) * bw + x * 4 + j]];
-            }
+            if (s.bit_depth > 8) paint_palette<uint16_t>(pl, start_x, start_y, w, h, pal, m, bw);
+            else paint_palette<uint8_t>(pl, start_x, start_y, w, h, pal, m, bw);
         } else {
             int is_cfl = plane > 0 && b.uv_mode == UV_CFL_PRED;
             int mode = plane == 0 ? b.y_mode : (is_cfl ? DC_PRED : b.uv_mode);
@@ -956,16 +965,18 @@ struct Tile {
             int eob = coeffs(plane, start_x, start_y, tx, tx_type);
             if (eob > 0) {
                 int q = get_qindex(0, b.segment_id);
+                const int16_t* dcq = kDcQLookup[(s.bit_depth - 8) >> 1];
+                const int16_t* acq = kAcQLookup[(s.bit_depth - 8) >> 1];
                 int dc, ac;
                 if (plane == 0) {
-                    dc = kDcQLookup[clip3(0, 255, q + f.delta_q_y_dc)];
-                    ac = kAcQLookup[clip3(0, 255, q)];
+                    dc = dcq[clip3(0, 255, q + f.delta_q_y_dc)];
+                    ac = acq[clip3(0, 255, q)];
                 } else if (plane == 1) {
-                    dc = kDcQLookup[clip3(0, 255, q + f.delta_q_u_dc)];
-                    ac = kAcQLookup[clip3(0, 255, q + f.delta_q_u_ac)];
+                    dc = dcq[clip3(0, 255, q + f.delta_q_u_dc)];
+                    ac = acq[clip3(0, 255, q + f.delta_q_u_ac)];
                 } else {
-                    dc = kDcQLookup[clip3(0, 255, q + f.delta_q_v_dc)];
-                    ac = kAcQLookup[clip3(0, 255, q + f.delta_q_v_ac)];
+                    dc = dcq[clip3(0, 255, q + f.delta_q_v_dc)];
+                    ac = acq[clip3(0, 255, q + f.delta_q_v_ac)];
                 }
                 int qm = !f.using_qmatrix ? 15 : plane == 0 ? f.qm_y : plane == 1 ? f.qm_u : f.qm_v;
                 reconstruct(d, plane, start_x, start_y, tx, tx_type, lossless, quant, dc, ac, qm);

@@ -3,7 +3,9 @@
 // then every horizontal one), CDEF (7.15, on the deblocked frame) and
 // loop restoration (7.17: Wiener and self-guided, reading the deblocked
 // frame above and below each 64-row stripe and the CDEF output within
-// it). The result is Decoder::lr.
+// it). The result is Decoder::lr. Each filter is a template of the sample
+// type; above 8 bits the thresholds, strengths and roundings shift by
+// BitDepth - 8 as the specification sets out.
 
 #include "av1.h"
 
@@ -13,14 +15,14 @@ namespace av1 {
 
 namespace {
 
-inline int clip1(int v) { return v < 0 ? 0 : v > 255 ? 255 : v; }
-
 // -- deblocking (7.14) ---------------------------------------------------------
 
+template <typename pixel>
 struct Deblock {
     Decoder& d;
     const SequenceHeader& s;
     const FrameHeader& f;
+    const int shift = bit_depth<pixel>(d) - 8;
     explicit Deblock(Decoder& dec) : d(dec), s(dec.seq), f(dec.fh) {}
 
     int level(int row, int col, int plane, int pass) {
@@ -41,12 +43,14 @@ struct Deblock {
     }
 
     void filter_sample(Plane& p, int x, int y, int lvl, int dx, int dy, int size, int plane) {
-        int shift = f.loop_filter_sharpness > 4 ? 2 : f.loop_filter_sharpness > 0 ? 1 : 0;
-        int limit = f.loop_filter_sharpness > 0 ? clip3(1, 9 - f.loop_filter_sharpness, lvl >> shift)
-                                                : std::max(1, lvl >> shift);
-        int blimit = 2 * (lvl + 2) + limit, thresh = lvl >> 4;
-        auto px = [&](int k) -> uint8_t& {  // k >= 0: q_k; k < 0: p_{-k-1}
-            return p.row(y + k * dy)[x + k * dx];
+        int sh = f.loop_filter_sharpness > 4 ? 2 : f.loop_filter_sharpness > 0 ? 1 : 0;
+        int limit = f.loop_filter_sharpness > 0 ? clip3(1, 9 - f.loop_filter_sharpness, lvl >> sh)
+                                                : std::max(1, lvl >> sh);
+        int blimit = (2 * (lvl + 2) + limit) << shift, thresh = (lvl >> 4) << shift;
+        limit <<= shift;
+        const int one = 1 << shift;  // the flatness threshold
+        auto px = [&](int k) -> pixel& {  // k >= 0: q_k; k < 0: p_{-k-1}
+            return p.px<pixel>(y + k * dy)[x + k * dx];
         };
         int q0 = px(0), q1 = px(1), p0 = px(-1), p1 = px(-2);
         int hev = std::abs(p1 - p0) > thresh || std::abs(q1 - q0) > thresh;
@@ -67,29 +71,30 @@ struct Deblock {
         if (mask) return;
         int flat = 0, flat2 = 0;
         if (size >= 8) {
-            int m = std::abs(p1 - p0) > 1 || std::abs(q1 - q0) > 1 || std::abs(p2 - p0) > 1 ||
-                    std::abs(q2 - q0) > 1;
-            if (len >= 8) m |= std::abs(p3 - p0) > 1 || std::abs(q3 - q0) > 1;
+            int m = std::abs(p1 - p0) > one || std::abs(q1 - q0) > one ||
+                    std::abs(p2 - p0) > one || std::abs(q2 - q0) > one;
+            if (len >= 8) m |= std::abs(p3 - p0) > one || std::abs(q3 - q0) > one;
             flat = !m;
         }
         if (size >= 16) {
             int m = 0;
             for (int k = 4; k <= 6; k++)
-                m |= std::abs(px(-k - 1) - p0) > 1 || std::abs(px(k) - q0) > 1;
+                m |= std::abs(px(-k - 1) - p0) > one || std::abs(px(k) - q0) > one;
             flat2 = !m;
         }
         if (size == 4 || !flat) {
-            auto c4 = [](int v) { return clip3(-128, 127, v); };
-            int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+            const int half = 128 << shift;
+            auto c4 = [half](int v) { return clip3(-half, half - 1, v); };
+            int ps1 = p1 - half, ps0 = p0 - half, qs0 = q0 - half, qs1 = q1 - half;
             int filter = hev ? c4(ps1 - qs1) : 0;
             filter = c4(filter + 3 * (qs0 - ps0));
             int f1 = c4(filter + 4) >> 3, f2 = c4(filter + 3) >> 3;
-            px(0) = (uint8_t)(c4(qs0 - f1) + 128);
-            px(-1) = (uint8_t)(c4(ps0 + f2) + 128);
+            px(0) = (pixel)(c4(qs0 - f1) + half);
+            px(-1) = (pixel)(c4(ps0 + f2) + half);
             if (!hev) {
                 int fv = round2(f1, 1);
-                px(1) = (uint8_t)(c4(qs1 - fv) + 128);
-                px(-2) = (uint8_t)(c4(ps1 + fv) + 128);
+                px(1) = (pixel)(c4(qs1 - fv) + half);
+                px(-2) = (pixel)(c4(ps1 + fv) + half);
             }
             return;
         }
@@ -107,7 +112,7 @@ struct Deblock {
             }
             out[i + 8] = round2(t, log2);
         }
-        for (int i = -n; i < n; i++) px(i) = (uint8_t)out[i + 8];
+        for (int i = -n; i < n; i++) px(i) = (pixel)out[i + 8];
     }
 
     void edge(int plane, int pass, int row, int col) {
@@ -168,10 +173,12 @@ int constrain(int diff, int threshold, int damping) {
     return diff < 0 ? -val : val;
 }
 
+template <typename pixel>
 struct Cdef {
     Decoder& d;
     const SequenceHeader& s;
     const FrameHeader& f;
+    const int coeff_shift = bit_depth<pixel>(d) - 8;
     explicit Cdef(Decoder& dec) : d(dec), s(dec.seq), f(dec.fh) {}
 
     void direction(int r, int c, int& dir, int& var) {
@@ -179,9 +186,9 @@ struct Cdef {
         int x0 = c * 4, y0 = r * 4;
         const Plane& p = d.cur[0];
         for (int i = 0; i < 8; i++) {
-            const uint8_t* row = p.row(y0 + i) + x0;
+            const pixel* row = p.px<pixel>(y0 + i) + x0;
             for (int j = 0; j < 8; j++) {
-                int x = row[j] - 128;
+                int x = (row[j] >> coeff_shift) - 128;
                 partial[0][i + j] += x;
                 partial[1][i + j / 2] += x;
                 partial[2][i] += x;
@@ -232,13 +239,13 @@ struct Cdef {
             int y = y0 + i, x = x0 + j;
             int cr = (y << sy) >> 2, cc = (x << sx) >> 2;
             if (y < 0 || x < 0 || cr >= d.mi_rows || cc >= d.mi_cols) return false;
-            v = src.row(y)[x];
+            v = src.px<pixel>(y)[x];
             return true;
         };
-        int tap_set = pri & 1;
+        int tap_set = (pri >> coeff_shift) & 1;
         for (int i = 0; i < h; i++)
             for (int j = 0; j < w; j++) {
-                int x = src.row(y0 + i)[x0 + j], sum = 0, mx = x, mn = x;
+                int x = src.px<pixel>(y0 + i)[x0 + j], sum = 0, mx = x, mn = x;
                 for (int k = 0; k < 2; k++)
                     for (int sign = -1; sign <= 1; sign += 2) {
                         int v;
@@ -258,7 +265,8 @@ struct Cdef {
                             }
                         }
                     }
-                dst.row(y0 + i)[x0 + j] = (uint8_t)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
+                dst.px<pixel>(y0 + i)[x0 + j] =
+                    (pixel)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
             }
     }
 
@@ -267,17 +275,18 @@ struct Cdef {
         if (bs[0]->skip && bs[1]->skip && bs[2]->skip && bs[3]->skip) return;
         int ydir, var;
         direction(r, c, ydir, var);
-        int pri = f.cdef_y_pri[idx], sec = f.cdef_y_sec[idx];
+        int pri = f.cdef_y_pri[idx] << coeff_shift, sec = f.cdef_y_sec[idx] << coeff_shift;
         int dir = pri == 0 ? 0 : ydir;
         int var_str = (var >> 6) ? std::min(floor_log2(var >> 6), 12) : 0;
         pri = var ? (pri * (4 + var_str) + 8) >> 4 : 0;
-        filter(0, r, c, pri, sec, f.cdef_damping, dir);
+        const int damping = f.cdef_damping + coeff_shift;
+        filter(0, r, c, pri, sec, damping, dir);
         if (s.num_planes == 1) return;
-        pri = f.cdef_uv_pri[idx];
-        sec = f.cdef_uv_sec[idx];
+        pri = f.cdef_uv_pri[idx] << coeff_shift;
+        sec = f.cdef_uv_sec[idx] << coeff_shift;
         dir = pri == 0 ? 0 : kCdefUvDir[s.subsampling_x][s.subsampling_y][ydir];
-        filter(1, r, c, pri, sec, f.cdef_damping - 1, dir);
-        filter(2, r, c, pri, sec, f.cdef_damping - 1, dir);
+        filter(1, r, c, pri, sec, damping - 1, dir);
+        filter(2, r, c, pri, sec, damping - 1, dir);
     }
 
     void run() {
@@ -293,10 +302,12 @@ struct Cdef {
 
 // -- loop restoration (7.17) ------------------------------------------------------
 
+template <typename pixel>
 struct Restoration {
     Decoder& d;
     const SequenceHeader& s;
     const FrameHeader& f;
+    const int bd = bit_depth<pixel>(d), maxv = pixel_max<pixel>(d);
     int plane, stripe_start, stripe_end, plane_end_x, plane_end_y;
     explicit Restoration(Decoder& dec) : d(dec), s(dec.seq), f(dec.fh) {}
 
@@ -305,13 +316,13 @@ struct Restoration {
         y = std::max(0, std::min(plane_end_y, y));
         if (y < stripe_start) {
             y = std::max(stripe_start - 2, y);
-            return d.cur[plane].row(y)[x];
+            return d.cur[plane].px<pixel>(y)[x];
         }
         if (y > stripe_end) {
             y = std::min(stripe_end + 2, y);
-            return d.cur[plane].row(y)[x];
+            return d.cur[plane].px<pixel>(y)[x];
         }
-        return d.cdef[plane].row(y)[x];
+        return d.cdef[plane].px<pixel>(y)[x];
     }
 
     void wiener(size_t unit, int x, int y, int w, int h) {
@@ -326,7 +337,7 @@ struct Restoration {
                 fl[3] -= 2 * v;
             }
         }
-        const int round0 = 3, round1 = 11, bd = 8;
+        const int round0 = bd == 12 ? 5 : 3, round1 = bd == 12 ? 9 : 11;
         int offset = 1 << (bd + 7 - round0 - 1), limit = (1 << (bd + 1 + 7 - round0)) - 1;
         int inter[10][4];
         for (int r = 0; r < h + 6; r++)
@@ -340,7 +351,7 @@ struct Restoration {
             for (int cc = 0; cc < w; cc++) {
                 int sum = 0;
                 for (int t = 0; t < 7; t++) sum += vf[t] * inter[r + t][cc];
-                out.row(y + r)[x + cc] = (uint8_t)clip1(round2(sum, round1));
+                out.px<pixel>(y + r)[x + cc] = (pixel)clip3(0, maxv, round2(sum, round1));
             }
     }
 
@@ -357,15 +368,16 @@ struct Restoration {
                         a += cv * cv;
                         b += cv;
                     }
-                int p = std::max(0, a * n - b * b);
+                const int as = round2(a, 2 * (bd - 8)), bs = round2(b, bd - 8);
+                int p = std::max(0, as * n - bs * bs);
                 int z = (int)round2l((int64_t)p * sv, 20);
                 int a2;
                 if (z >= 255) a2 = 256;
                 else if (z == 0) a2 = 1;
                 else a2 = ((z << 8) + (z / 2)) / (z + 1);
-                int b2 = (256 - a2) * b * one_over_n;
+                int64_t b2 = (int64_t)(256 - a2) * b * one_over_n;
                 A[i + 1][j + 1] = a2;
-                B[i + 1][j + 1] = round2(b2, 12);
+                B[i + 1][j + 1] = (int)round2l(b2, 12);
             }
         for (int i = 0; i < h; i++) {
             int shift = (pass == 0 && (i & 1)) ? 4 : 5;
@@ -379,7 +391,7 @@ struct Restoration {
                         a += weight * A[i + dy + 1][j + dx + 1];
                         b += weight * B[i + dy + 1][j + dx + 1];
                     }
-                int v = a * d.cdef[plane].row(y + i)[x + j] + b;
+                int v = a * d.cdef[plane].px<pixel>(y + i)[x + j] + b;
                 F[i][j] = round2(v, 8 + shift - 4);
             }
         }
@@ -396,11 +408,11 @@ struct Restoration {
         Plane& out = d.lr[plane];
         for (int i = 0; i < h; i++)
             for (int j = 0; j < w; j++) {
-                int u = d.cdef[plane].row(y + i)[x + j] << 4;
+                int u = d.cdef[plane].px<pixel>(y + i)[x + j] << 4;
                 int v = w1 * u;
                 v += r0 ? w0 * F0[i][j] : w0 * u;
                 v += r1 ? w2 * F1[i][j] : w2 * u;
-                out.row(y + i)[x + j] = (uint8_t)clip1(round2(v, 11));
+                out.px<pixel>(y + i)[x + j] = (pixel)clip3(0, maxv, round2(v, 11));
             }
     }
 
@@ -435,8 +447,17 @@ struct Restoration {
 
 }  // namespace
 
-void loop_filter_frame(Decoder& d) { Deblock(d).run(); }
-void cdef_frame(Decoder& d) { Cdef(d).run(); }
-void lr_frame(Decoder& d) { Restoration(d).run(); }
+void loop_filter_frame(Decoder& d) {
+    if (d.seq.bit_depth > 8) Deblock<uint16_t>(d).run();
+    else Deblock<uint8_t>(d).run();
+}
+void cdef_frame(Decoder& d) {
+    if (d.seq.bit_depth > 8) Cdef<uint16_t>(d).run();
+    else Cdef<uint8_t>(d).run();
+}
+void lr_frame(Decoder& d) {
+    if (d.seq.bit_depth > 8) Restoration<uint16_t>(d).run();
+    else Restoration<uint8_t>(d).run();
+}
 
 }  // namespace av1

@@ -278,7 +278,6 @@ void sequence_header(BitReader& br, SequenceHeader& s) {
     s.enable_restoration = br.f(1);
     color_config(br, s);
     s.film_grain_params_present = br.f(1);
-    if (s.bit_depth != 8) unsupported("AV1 bit depth above 8");
 }
 
 int tile_log2(int blk, int target) {
@@ -621,11 +620,11 @@ void tile_group(Decoder& d, const uint8_t* data, size_t size, int& next_tile) {
 
 }  // namespace
 
-void alloc_plane(Plane& p, int w, int h) {
+void alloc_plane(Plane& p, int w, int h, int bytes) {
     p.width = w;
     p.height = h;
     p.stride = w + 192;
-    p.buf.assign((size_t)p.stride * (h + 160), 0);
+    p.buf.assign((size_t)p.stride * (h + 160) * bytes, 0);
 }
 
 void setup_frame(Decoder& d) {
@@ -635,7 +634,8 @@ void setup_frame(Decoder& d) {
     d.mi_cols = f.mi_cols;
     for (int p = 0; p < s.num_planes; p++) {
         int sx = p ? s.subsampling_x : 0, sy = p ? s.subsampling_y : 0;
-        alloc_plane(d.cur[p], (f.mi_cols * 4) >> sx, (f.mi_rows * 4) >> sy);
+        alloc_plane(d.cur[p], (f.mi_cols * 4) >> sx, (f.mi_rows * 4) >> sy,
+                    s.bit_depth > 8 ? 2 : 1);
     }
     size_t n = (size_t)f.mi_rows * f.mi_cols;
     d.blocks.clear();
@@ -732,7 +732,8 @@ namespace {
 // color_primaries, the luma, Cb and Cr quantizer matrix levels (15 for
 // none), apply_grain; info[12..19] = base_q_idx, delta_q_present,
 // delta_lf_present, using_qmatrix, tile_cols, tile_rows,
-// allow_screen_content_tools, tx_mode_select.
+// allow_screen_content_tools, tx_mode_select; info[20] = the bit depth and
+// info[21] the profile.
 void fill_info(const av1::Decoder& d, int32_t* info) {
     info[0] = d.fh.upscaled_width;
     info[1] = d.fh.frame_height;
@@ -754,6 +755,14 @@ void fill_info(const av1::Decoder& d, int32_t* info) {
     info[17] = d.fh.tile_rows;
     info[18] = d.fh.allow_screen_content_tools;
     info[19] = d.fh.tx_mode_select;
+    info[20] = d.seq.bit_depth;
+    info[21] = d.seq.profile;
+}
+
+template <typename pixel>
+void copy_plane(const av1::Plane& p, int w, int h, void* out) {
+    for (int r = 0; r < h; r++)
+        std::memcpy((pixel*)out + (size_t)r * w, p.px<pixel>(r), w * sizeof(pixel));
 }
 
 thread_local char g_error[256];
@@ -765,12 +774,13 @@ extern "C" {
 // Decode the first frame of an AV1 OBU stream (an AVIF item or a
 // sequence's first sample) whose frame must be width x height, into
 // planes of that size: y (w*h) and, unless monochrome, u and v
-// (((w+sx)>>sx) * ((h+sy)>>sy)). info as fill_info. Returns 0; -1 for a
-// damaged stream, -3 for a tool not supported yet, -4 when the frame's
-// size is not width x height (info filled, nothing copied); av1_error()
-// says why.
+// (((w+sx)>>sx) * ((h+sy)>>sy)), of bytes at 8 bits and of uint16_t
+// samples at 10 and 12 (each buffer holds room for the wider). info as
+// fill_info. Returns 0; -1 for a damaged stream, -3 for a tool not
+// supported yet, -4 when the frame's size is not width x height (info
+// filled, nothing copied); av1_error() says why.
 long av1_decode(const uint8_t* data, long size, long width, long height, int32_t* info,
-                uint8_t* y, uint8_t* u, uint8_t* v) {
+                void* y, void* u, void* v) {
     try {
         auto d = std::make_unique<av1::Decoder>();
         av1::decode_frame_obus(*d, data, (size_t)size);
@@ -781,14 +791,13 @@ long av1_decode(const uint8_t* data, long size, long width, long height, int32_t
                           w, h, width, height);
             return -4;
         }
-        for (int r = 0; r < h; r++) std::memcpy(y + (size_t)r * w, d->lr[0].row(r), w);
+        auto copy = d->seq.bit_depth > 8 ? copy_plane<uint16_t> : copy_plane<uint8_t>;
+        copy(d->lr[0], w, h, y);
         if (!d->seq.mono_chrome) {
             int cw = (w + d->seq.subsampling_x) >> d->seq.subsampling_x;
             int ch = (h + d->seq.subsampling_y) >> d->seq.subsampling_y;
-            for (int r = 0; r < ch; r++) {
-                std::memcpy(u + (size_t)r * cw, d->lr[1].row(r), cw);
-                std::memcpy(v + (size_t)r * cw, d->lr[2].row(r), cw);
-            }
+            copy(d->lr[1], cw, ch, u);
+            copy(d->lr[2], cw, ch, v);
         }
         return 0;
     } catch (const av1::Error& e) {

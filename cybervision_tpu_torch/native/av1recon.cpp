@@ -18,8 +18,6 @@ const uint8_t kModeToAngle[13] = {0, 90, 180, 45, 135, 113, 157, 203, 67, 0, 0, 
 const int kEdgeKernel[3][5] = {{0, 4, 8, 4, 0}, {0, 5, 6, 5, 0}, {2, 4, 4, 4, 2}};
 const int kSmOffset[7] = {0, 0, 0, 4, 12, 28, 60};  // by log2 size
 
-inline int clip1(int v) { return v < 0 ? 0 : v > 255 ? 255 : v; }
-
 // -- inverse transforms (7.13.2) ---------------------------------------------
 
 int cos128(int angle) {
@@ -274,15 +272,19 @@ void inverse_transform_1d(int kind, int log2n, int32_t* T) {
     t.run(kind, log2n);
 }
 
-void reconstruct(Decoder& d, int plane, int x0, int y0, int tx, int tx_type, int lossless,
-                 int32_t* quant, int dc_q, int ac_q, int qm_level) {
+namespace {
+
+template <typename pixel>
+void reconstruct_t(Decoder& d, int plane, int x0, int y0, int tx, int tx_type, int lossless,
+                   int32_t* quant, int dc_q, int ac_q, int qm_level) {
     int log2w = kTxWLog2[tx], log2h = kTxHLog2[tx], w = 1 << log2w, h = 1 << log2h;
     int tw = std::min(32, w), th = std::min(32, h);
     int shift = (tx == TX_32X32 || tx == TX_16X32 || tx == TX_32X16 || tx == TX_16X64 ||
                  tx == TX_64X16) ? 1
               : (tx == TX_64X64 || tx == TX_32X64 || tx == TX_64X32) ? 2 : 0;
     static thread_local int32_t res[64 * 64];
-    const int bd = 8, maxc = (1 << (7 + bd)) - 1, minc = -(1 << (7 + bd));
+    const int bd = bit_depth<pixel>(d), maxc = (1 << (7 + bd)) - 1, minc = -(1 << (7 + bd));
+    const int maxv = pixel_max<pixel>(d);
     // Dequantise into res[i * w + j], weighting by the quantizer matrix
     // where the block is not lossless and its transform is 2-D (dav1d
     // takes no matrix for the identity and 1-D types).
@@ -348,13 +350,22 @@ void reconstruct(Decoder& d, int plane, int x0, int y0, int tx, int tx_type, int
     }
     Plane& p = d.cur[plane];
     for (int i = 0; i < h; i++) {
-        uint8_t* out = p.row(y0 + (flip_ud ? h - 1 - i : i)) + x0;
+        pixel* out = p.px<pixel>(y0 + (flip_ud ? h - 1 - i : i)) + x0;
         const int32_t* r = res + i * w;
         if (flip_lr)
-            for (int j = 0; j < w; j++) out[w - 1 - j] = (uint8_t)clip1(out[w - 1 - j] + r[j]);
+            for (int j = 0; j < w; j++)
+                out[w - 1 - j] = (pixel)clip3(0, maxv, out[w - 1 - j] + r[j]);
         else
-            for (int j = 0; j < w; j++) out[j] = (uint8_t)clip1(out[j] + r[j]);
+            for (int j = 0; j < w; j++) out[j] = (pixel)clip3(0, maxv, out[j] + r[j]);
     }
+}
+
+}  // namespace
+
+void reconstruct(Decoder& d, int plane, int x0, int y0, int tx, int tx_type, int lossless,
+                 int32_t* quant, int dc_q, int ac_q, int qm_level) {
+    (d.seq.bit_depth > 8 ? reconstruct_t<uint16_t> : reconstruct_t<uint8_t>)(
+        d, plane, x0, y0, tx, tx_type, lossless, quant, dc_q, ac_q, qm_level);
 }
 
 // -- intra prediction (7.11.2) -------------------------------------------------
@@ -367,36 +378,41 @@ struct Edges {
     int* left = left_buf + 16;
 };
 
+// The above and left edges, with the base values 2^(BitDepth-1) - 1, + 1
+// and 2^(BitDepth-1) where a side is missing.
+template <typename pixel>
 void prepare_edges(Decoder& d, int plane, int x, int y, int have_left, int have_above,
                    int have_ar, int have_bl, int w, int h, Edges& e) {
     const SequenceHeader& s = d.seq;
+    const int base = 1 << (bit_depth<pixel>(d) - 1);
     int sx = plane ? s.subsampling_x : 0, sy = plane ? s.subsampling_y : 0;
     int max_x = ((d.mi_cols * 4) >> sx) - 1, max_y = ((d.mi_rows * 4) >> sy) - 1;
     Plane& p = d.cur[plane];
+    auto at = [&](int r, int c) { return (int)p.px<pixel>(r)[c]; };
     int n = w + h;
     if (!have_above && have_left) {
-        int v = p.row(y)[x - 1];
+        int v = at(y, x - 1);
         for (int i = 0; i < n; i++) e.above[i] = v;
     } else if (!have_above && !have_left) {
-        for (int i = 0; i < n; i++) e.above[i] = 127;
+        for (int i = 0; i < n; i++) e.above[i] = base - 1;
     } else {
         int limit = std::min(max_x, x + (have_ar ? 2 * w : w) - 1);
-        const uint8_t* r = p.row(y - 1);
+        const pixel* r = p.px<pixel>(y - 1);
         for (int i = 0; i < n; i++) e.above[i] = r[std::min(limit, x + i)];
     }
     if (!have_left && have_above) {
-        int v = p.row(y - 1)[x];
+        int v = at(y - 1, x);
         for (int i = 0; i < n; i++) e.left[i] = v;
     } else if (!have_left && !have_above) {
-        for (int i = 0; i < n; i++) e.left[i] = 129;
+        for (int i = 0; i < n; i++) e.left[i] = base + 1;
     } else {
         int limit = std::min(max_y, y + (have_bl ? 2 * h : h) - 1);
-        for (int i = 0; i < n; i++) e.left[i] = p.row(std::min(limit, y + i))[x - 1];
+        for (int i = 0; i < n; i++) e.left[i] = at(std::min(limit, y + i), x - 1);
     }
-    if (have_above && have_left) e.above[-1] = p.row(y - 1)[x - 1];
-    else if (have_above) e.above[-1] = p.row(y - 1)[x];
-    else if (have_left) e.above[-1] = p.row(y)[x - 1];
-    else e.above[-1] = 128;
+    if (have_above && have_left) e.above[-1] = at(y - 1, x - 1);
+    else if (have_above) e.above[-1] = at(y - 1, x);
+    else if (have_left) e.above[-1] = at(y, x - 1);
+    else e.above[-1] = base;
     e.left[-1] = e.above[-1];
 }
 
@@ -484,7 +500,7 @@ void edge_filter(int* buf, int num_px, int strength) {
     }
 }
 
-void upsample(int* buf, int num_px) {
+void upsample(int* buf, int num_px, int maxv) {
     int dup[320];
     dup[0] = buf[-1];
     for (int i = -1; i < num_px; i++) dup[i + 2] = buf[i];
@@ -492,19 +508,19 @@ void upsample(int* buf, int num_px) {
     buf[-2] = dup[0];
     for (int i = 0; i < num_px; i++) {
         int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
-        buf[2 * i - 1] = clip1(round2(s, 4));
+        buf[2 * i - 1] = clip3(0, maxv, round2(s, 4));
         buf[2 * i] = dup[i + 2];
     }
 }
 
-}  // namespace
-
-void predict_intra(Decoder& d, int plane, int x, int y, int have_left, int have_above,
-                   int have_ar, int have_bl, int mode, int log2w, int log2h, const BlockInfo& b,
-                   int avail_u, int avail_l, int mi_row, int mi_col) {
+template <typename pixel>
+void predict_intra_t(Decoder& d, int plane, int x, int y, int have_left, int have_above,
+                     int have_ar, int have_bl, int mode, int log2w, int log2h, const BlockInfo& b,
+                     int avail_u, int avail_l, int mi_row, int mi_col) {
     int w = 1 << log2w, h = 1 << log2h;
+    const int maxv = pixel_max<pixel>(d);
     Edges e;
-    prepare_edges(d, plane, x, y, have_left, have_above, have_ar, have_bl, w, h, e);
+    prepare_edges<pixel>(d, plane, x, y, have_left, have_above, have_ar, have_bl, w, h, e);
     Plane& p = d.cur[plane];
     int* above = e.above;
     int* left = e.left;
@@ -534,9 +550,9 @@ void predict_intra(Decoder& d, int plane, int x, int y, int have_left, int have_
                 }
             }
             up_above = use_upsample(w, h, type, angle - 90);
-            if (up_above) upsample(above, w + (angle < 90 ? h : 0));
+            if (up_above) upsample(above, w + (angle < 90 ? h : 0), maxv);
             up_left = use_upsample(w, h, type, angle - 180);
-            if (up_left) upsample(left, h + (angle > 180 ? w : 0));
+            if (up_left) upsample(left, h + (angle > 180 ? w : 0), maxv);
         }
         int dx = 0, dy = 0;
         if (angle < 90) dx = kDrIntraDerivative[angle];
@@ -544,7 +560,7 @@ void predict_intra(Decoder& d, int plane, int x, int y, int have_left, int have_
         if (angle > 90 && angle < 180) dy = kDrIntraDerivative[angle - 90];
         else if (angle > 180) dy = kDrIntraDerivative[270 - angle];
         for (int i = 0; i < h; i++) {
-            uint8_t* out = p.row(y + i) + x;
+            pixel* out = p.px<pixel>(y + i) + x;
             for (int j = 0; j < w; j++) {
                 int pred;
                 if (angle < 90) {
@@ -578,7 +594,7 @@ void predict_intra(Decoder& d, int plane, int x, int y, int have_left, int have_
                 } else {
                     pred = left[i];
                 }
-                out[j] = (uint8_t)pred;
+                out[j] = (pixel)pred;
             }
         }
         return;
@@ -587,7 +603,7 @@ void predict_intra(Decoder& d, int plane, int x, int y, int have_left, int have_
         const uint8_t* wx = kSmWeights + kSmOffset[log2w];
         const uint8_t* wy = kSmWeights + kSmOffset[log2h];
         for (int i = 0; i < h; i++) {
-            uint8_t* out = p.row(y + i) + x;
+            pixel* out = p.px<pixel>(y + i) + x;
             for (int j = 0; j < w; j++) {
                 int v;
                 if (mode == SMOOTH_PRED)
@@ -597,7 +613,7 @@ void predict_intra(Decoder& d, int plane, int x, int y, int have_left, int have_
                     v = round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
                 else
                     v = round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
-                out[j] = (uint8_t)v;
+                out[j] = (pixel)v;
             }
         }
         return;
@@ -612,20 +628,20 @@ void predict_intra(Decoder& d, int plane, int x, int y, int have_left, int have_
         } else if (have_left) {
             int sum = 0;
             for (int k = 0; k < h; k++) sum += left[k];
-            avg = clip1((sum + (h >> 1)) >> log2h);
+            avg = clip3(0, maxv, (sum + (h >> 1)) >> log2h);
         } else if (have_above) {
             int sum = 0;
             for (int k = 0; k < w; k++) sum += above[k];
-            avg = clip1((sum + (w >> 1)) >> log2w);
+            avg = clip3(0, maxv, (sum + (w >> 1)) >> log2w);
         } else {
-            avg = 128;
+            avg = (maxv + 1) >> 1;
         }
-        for (int i = 0; i < h; i++) std::memset(p.row(y + i) + x, avg, w);
+        for (int i = 0; i < h; i++) std::fill_n(p.px<pixel>(y + i) + x, w, (pixel)avg);
         return;
     }
     // PAETH_PRED
     for (int i = 0; i < h; i++) {
-        uint8_t* out = p.row(y + i) + x;
+        pixel* out = p.px<pixel>(y + i) + x;
         for (int j = 0; j < w; j++) {
             int base = above[j] + left[i] - above[-1];
             int pl = std::abs(base - left[i]), pt = std::abs(base - above[j]);
@@ -634,16 +650,18 @@ void predict_intra(Decoder& d, int plane, int x, int y, int have_left, int have_
             if (pl <= pt && pl <= ptl) v = left[i];
             else if (pt <= ptl) v = above[j];
             else v = above[-1];
-            out[j] = (uint8_t)v;
+            out[j] = (pixel)v;
         }
     }
 }
 
-void predict_filter_intra(Decoder& d, int plane, int x, int y, int have_left, int have_above,
-                          int have_ar, int have_bl, int log2w, int log2h, int mode) {
+template <typename pixel>
+void predict_filter_intra_t(Decoder& d, int plane, int x, int y, int have_left, int have_above,
+                            int have_ar, int have_bl, int log2w, int log2h, int mode) {
     int w = 1 << log2w, h = 1 << log2h;
+    const int maxv = pixel_max<pixel>(d);
     Edges e;
-    prepare_edges(d, plane, x, y, have_left, have_above, have_ar, have_bl, w, h, e);
+    prepare_edges<pixel>(d, plane, x, y, have_left, have_above, have_ar, have_bl, w, h, e);
     Plane& p = d.cur[plane];
     int w4 = w >> 2, h2 = h >> 1;
     for (int i2 = 0; i2 < h2; i2++)
@@ -653,17 +671,18 @@ void predict_filter_intra(Decoder& d, int plane, int x, int y, int have_left, in
                 if (i < 5) {
                     if (i2 == 0) pv[i] = e.above[(j4 << 2) + i - 1];
                     else if (j4 == 0 && i == 0) pv[i] = e.left[(i2 << 1) - 1];
-                    else pv[i] = p.row(y + (i2 << 1) - 1)[x + (j4 << 2) + i - 1];
+                    else pv[i] = p.px<pixel>(y + (i2 << 1) - 1)[x + (j4 << 2) + i - 1];
                 } else {
                     if (j4 == 0) pv[i] = e.left[(i2 << 1) + i - 5];
-                    else pv[i] = p.row(y + (i2 << 1) + i - 5)[x + (j4 << 2) - 1];
+                    else pv[i] = p.px<pixel>(y + (i2 << 1) + i - 5)[x + (j4 << 2) - 1];
                 }
             }
             for (int i = 0; i < 8; i++) {
                 int pr = 0;
                 for (int j = 0; j < 7; j++) pr += kFilterIntraTaps[mode][i][j] * pv[j];
                 int v = pr >= 0 ? round2(pr, 4) : -round2(-pr, 4);
-                p.row(y + (i2 << 1) + (i >> 2))[x + (j4 << 2) + (i & 3)] = (uint8_t)clip1(v);
+                p.px<pixel>(y + (i2 << 1) + (i >> 2))[x + (j4 << 2) + (i & 3)] =
+                    (pixel)clip3(0, maxv, v);
             }
         }
 }
@@ -671,9 +690,13 @@ void predict_filter_intra(Decoder& d, int plane, int x, int y, int have_left, in
 // An intra block copy's prediction (7.11.3.3-4): the current frame, before
 // any loop filter, read at the block's vector through the bilinear
 // filter (a whole-sample vector is a copy; subsampled chroma may land
-// half way), with the specification's rounding.
-void predict_intrabc(Decoder& d, int plane, int x, int y, int w, int h, const int16_t* mv) {
+// half way), with the specification's rounding (InterRound0 and
+// InterRound1: 3 and 11, or 5 and 9 at 12 bits).
+template <typename pixel>
+void predict_intrabc_t(Decoder& d, int plane, int x, int y, int w, int h, const int16_t* mv) {
     const SequenceHeader& s = d.seq;
+    const int round0 = bit_depth<pixel>(d) == 12 ? 5 : 3, round1 = 14 - round0;
+    const int maxv = pixel_max<pixel>(d);
     int sx = plane ? s.subsampling_x : 0, sy = plane ? s.subsampling_y : 0;
     auto start = [](int pos, int v, int sub) {
         int64_t orig = ((int64_t)pos << 4) + ((2 * v) >> sub) + 8;
@@ -688,29 +711,32 @@ void predict_intrabc(Decoder& d, int plane, int x, int y, int w, int h, const in
     int last_y = ((d.mi_rows * 4) >> sy) - 1;
     Plane& p = d.cur[plane];
     static thread_local int inter[(128 + 8) * 128];
-    static thread_local uint8_t pred[128 * 128];
+    static thread_local pixel pred[128 * 128];
     int ih = h + 7;
     for (int r = 0; r < ih; r++) {
-        const uint8_t* src = p.row(clip3(0, last_y, (start_y >> 10) + r - 3));
+        const pixel* src = p.px<pixel>(clip3(0, last_y, (start_y >> 10) + r - 3));
         for (int c = 0; c < w; c++) {
             int pos = start_x + 1024 * c, k = (pos >> 6) & 15;
             int x0 = (pos >> 10);
             int a = src[clip3(0, last_x, x0)], b = src[clip3(0, last_x, x0 + 1)];
-            inter[r * w + c] = round2((128 - 8 * k) * a + 8 * k * b, 3);
+            inter[r * w + c] = round2((128 - 8 * k) * a + 8 * k * b, round0);
         }
     }
     for (int r = 0; r < h; r++) {
         int pos = (start_y & 1023) + 1024 * r, k = (pos >> 6) & 15, r0 = (pos >> 10) + 3;
         for (int c = 0; c < w; c++) {
             int v = (128 - 8 * k) * inter[r0 * w + c] + 8 * k * inter[(r0 + 1) * w + c];
-            pred[r * w + c] = (uint8_t)clip1(round2(v, 11));
+            pred[r * w + c] = (pixel)clip3(0, maxv, round2(v, round1));
         }
     }
-    for (int r = 0; r < h; r++) std::memcpy(p.row(y + r) + x, pred + r * w, w);
+    for (int r = 0; r < h; r++)
+        std::memcpy(p.px<pixel>(y + r) + x, pred + r * w, w * sizeof(pixel));
 }
 
-void predict_cfl(Decoder& d, int plane, int x, int y, int tx, int alpha, int max_luma_w,
-                 int max_luma_h) {
+template <typename pixel>
+void predict_cfl_t(Decoder& d, int plane, int x, int y, int tx, int alpha, int max_luma_w,
+                   int max_luma_h) {
+    const int maxv = pixel_max<pixel>(d);
     const SequenceHeader& s = d.seq;
     int w = kTxW[tx], h = kTxH[tx], sx = s.subsampling_x, sy = s.subsampling_y;
     static thread_local int lum[64 * 64];
@@ -722,7 +748,7 @@ void predict_cfl(Decoder& d, int plane, int x, int y, int tx, int alpha, int max
             int lx = std::min((x << sx) + (j << sx), max_luma_w - (1 << sx));
             int t = 0;
             for (int dy = 0; dy <= sy; dy++)
-                for (int dx = 0; dx <= sx; dx++) t += luma.row(ly + dy)[lx + dx];
+                for (int dx = 0; dx <= sx; dx++) t += luma.px<pixel>(ly + dy)[lx + dx];
             int v = t << (3 - sx - sy);
             lum[i * w + j] = v;
             sum += v;
@@ -731,13 +757,40 @@ void predict_cfl(Decoder& d, int plane, int x, int y, int tx, int alpha, int max
     int avg = round2(sum, kTxWLog2[tx] + kTxHLog2[tx]);
     Plane& p = d.cur[plane];
     for (int i = 0; i < h; i++) {
-        uint8_t* out = p.row(y + i) + x;
+        pixel* out = p.px<pixel>(y + i) + x;
         for (int j = 0; j < w; j++) {
             int v = alpha * (lum[i * w + j] - avg);
             int scaled = v >= 0 ? round2(v, 6) : -round2(-v, 6);
-            out[j] = (uint8_t)clip1(out[j] + scaled);
+            out[j] = (pixel)clip3(0, maxv, out[j] + scaled);
         }
     }
+}
+
+}  // namespace
+
+void predict_intra(Decoder& d, int plane, int x, int y, int have_left, int have_above,
+                   int have_ar, int have_bl, int mode, int log2w, int log2h, const BlockInfo& b,
+                   int avail_u, int avail_l, int mi_row, int mi_col) {
+    (d.seq.bit_depth > 8 ? predict_intra_t<uint16_t> : predict_intra_t<uint8_t>)(
+        d, plane, x, y, have_left, have_above, have_ar, have_bl, mode, log2w, log2h, b, avail_u,
+        avail_l, mi_row, mi_col);
+}
+
+void predict_filter_intra(Decoder& d, int plane, int x, int y, int have_left, int have_above,
+                          int have_ar, int have_bl, int log2w, int log2h, int mode) {
+    (d.seq.bit_depth > 8 ? predict_filter_intra_t<uint16_t> : predict_filter_intra_t<uint8_t>)(
+        d, plane, x, y, have_left, have_above, have_ar, have_bl, log2w, log2h, mode);
+}
+
+void predict_intrabc(Decoder& d, int plane, int x, int y, int w, int h, const int16_t* mv) {
+    (d.seq.bit_depth > 8 ? predict_intrabc_t<uint16_t> : predict_intrabc_t<uint8_t>)(
+        d, plane, x, y, w, h, mv);
+}
+
+void predict_cfl(Decoder& d, int plane, int x, int y, int tx, int alpha, int max_luma_w,
+                 int max_luma_h) {
+    (d.seq.bit_depth > 8 ? predict_cfl_t<uint16_t> : predict_cfl_t<uint8_t>)(
+        d, plane, x, y, tx, alpha, max_luma_w, max_luma_h);
 }
 
 }  // namespace av1

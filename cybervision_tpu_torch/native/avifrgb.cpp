@@ -2,7 +2,8 @@
 // them for Pillow (avifImageYUVToRGB with AVIF_CHROMA_UPSAMPLING_AUTOMATIC).
 //
 // libavif first refuses the matrix coefficients it cannot convert (3, 10,
-// 11, 13, 14, 16 and above; YCgCo, 8, at limited range). Then it takes
+// 11, 13, 14, 17 and above; 16, YCgCo-Re, but at 10 bits full range;
+// YCgCo, 8, at limited range; identity, 0, subsampled). Then it takes
 // libyuv 1909 wherever libyuv has constants for the matrix and range:
 // BT.601 (2, 5, 6), BT.709 (1) and BT.2020 NCL (9), each at full range
 // ("JPEG", "F709", "V2020") and limited range ("I601", "H709", "2020"),
@@ -23,6 +24,22 @@
 // keep libavif's order and are built without contraction into
 // multiply-adds (Makefile). Pinned against Pillow's planes.
 //
+// 10- and 12-bit planes (uint16_t samples) go to 8-bit RGB(A) as libavif
+// 1.3 takes them. Where libyuv has the matrix's constants: 10-bit colour
+// to RGBA by libyuv's 10-bit AlphaToARGB rows (chroma upsampled at 10
+// bits, YuvPixel10_16, the alpha >> 2); 12-bit 4:2:0 to RGBA by
+// I012ToARGBMatrix (chroma repeated, YuvPixel12_16); anything else with
+// every plane first cut to 8 bits by libyuv's Convert16To8Plane
+// (clamp255(v >> (depth - 8))), the alpha too but 4:0:0's, and converted
+// as above. 4:0:0 to RGB and the matrices libyuv lacks take the float
+// paths at the planes' own depth (tables of 2^depth entries, the limited
+// range scaled by 2^(depth-8); identity included; YCgCo-Re's lifting on
+// chroma rounded back to integers). An alpha no libyuv row carries is
+// alpha_to_8, libavif's avifReformatAlpha (a float rescale).
+// avif_unpremultiply is its avifRGBImageUnpremultiplyAlpha of 8-bit RGBA,
+// which is libyuv's ARGBUnattenuate as its x86 SIMD rows compute it (see
+// there). Each route pinned against the wheel's avifImageYUVToRGB.
+//
 // The other way, avif_rgb_to_yuv is what Pillow's AVIF writer asks of
 // libavif (avifImageRGBToYUV of RGBA to 4:2:0, BT.601 at full range):
 // libyuv 1909's ABGRToJ420, Y = (77 R + 150 G + 29 B + 128) >> 8 at each
@@ -32,6 +49,7 @@
 // V = (128 R - 107 G - 21 B + 0x8000) >> 8.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -51,40 +69,52 @@ constexpr YuvConstants k2020 = {19003, -1160, 128, 12, 42, 107};
 
 inline uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
 
-inline void yuv_pixel(int y, int u, int v, const YuvConstants& k, uint8_t* rgb) {
+// libyuv's YuvPixel (8 bits: y * 0x0101), YuvPixel10_16 (y << 6 | y >> 4,
+// u and v >> 2) and YuvPixel12_16 (y << 4 | y >> 8, u and v >> 4).
+inline void yuv_pixel(int y, int u, int v, const YuvConstants& k, uint8_t* rgb, int depth = 8) {
     int bb = k.ub * 128 - k.yb, bg = k.ug * 128 + k.vg * 128 + k.yb, br = k.vr * 128 - k.yb;
-    int y1 = (int)((uint32_t)(y * 0x0101 * k.yg) >> 16);
+    uint32_t y32 = (uint32_t)y * 0x0101;
+    if (depth > 8) {
+        y32 = depth == 10 ? (uint32_t)(y << 6 | y >> 4) : (uint32_t)(y << 4 | y >> 8);
+        u = clamp255(u >> (depth - 8));
+        v = clamp255(v >> (depth - 8));
+    }
+    int y1 = (int)((y32 * (uint32_t)k.yg) >> 16);
     rgb[0] = clamp255((y1 + v * k.vr - br) >> 6);
     rgb[1] = clamp255((y1 + bg - (u * k.ug + v * k.vg)) >> 6);
     rgb[2] = clamp255((y1 + u * k.ub - bb) >> 6);
 }
 
-// libyuv's ScaleRowUp2_Linear_Any: a row of (w + 1) / 2 samples to w.
-void up_linear(const uint8_t* s, int w, uint8_t* d) {
+// libyuv's ScaleRowUp2_Linear_Any (and _16): a row of (w + 1) / 2 samples
+// to w.
+template <typename T>
+void up_linear(const T* s, int w, T* d) {
     int work = (w - 1) & ~1;
     d[0] = s[0];
     for (int x = 0; x < work / 2; x++) {
-        d[2 * x + 1] = (uint8_t)((3 * s[x] + s[x + 1] + 2) >> 2);
-        d[2 * x + 2] = (uint8_t)((s[x] + 3 * s[x + 1] + 2) >> 2);
+        d[2 * x + 1] = (T)((3 * s[x] + s[x + 1] + 2) >> 2);
+        d[2 * x + 2] = (T)((s[x] + 3 * s[x + 1] + 2) >> 2);
     }
     d[w - 1] = s[(w - 1) / 2];
 }
 
-// libyuv's ScaleRowUp2_Bilinear_Any: rows a and b to the two rows between.
-void up_bilinear(const uint8_t* a, const uint8_t* b, int w, uint8_t* da, uint8_t* db) {
+// libyuv's ScaleRowUp2_Bilinear_Any (and _16): rows a and b to the two
+// rows between.
+template <typename T>
+void up_bilinear(const T* a, const T* b, int w, T* da, T* db) {
     int work = (w - 1) & ~1;
-    da[0] = (uint8_t)((3 * a[0] + b[0] + 2) >> 2);
-    db[0] = (uint8_t)((a[0] + 3 * b[0] + 2) >> 2);
+    da[0] = (T)((3 * a[0] + b[0] + 2) >> 2);
+    db[0] = (T)((a[0] + 3 * b[0] + 2) >> 2);
     for (int x = 0; x < work / 2; x++) {
         int s0 = a[x], s1 = a[x + 1], t0 = b[x], t1 = b[x + 1];
-        da[2 * x + 1] = (uint8_t)((s0 * 9 + s1 * 3 + t0 * 3 + t1 + 8) >> 4);
-        da[2 * x + 2] = (uint8_t)((s0 * 3 + s1 * 9 + t0 + t1 * 3 + 8) >> 4);
-        db[2 * x + 1] = (uint8_t)((s0 * 3 + s1 + t0 * 9 + t1 * 3 + 8) >> 4);
-        db[2 * x + 2] = (uint8_t)((s0 + s1 * 3 + t0 * 3 + t1 * 9 + 8) >> 4);
+        da[2 * x + 1] = (T)((s0 * 9 + s1 * 3 + t0 * 3 + t1 + 8) >> 4);
+        da[2 * x + 2] = (T)((s0 * 3 + s1 * 9 + t0 + t1 * 3 + 8) >> 4);
+        db[2 * x + 1] = (T)((s0 * 3 + s1 + t0 * 9 + t1 * 3 + 8) >> 4);
+        db[2 * x + 2] = (T)((s0 + s1 * 3 + t0 * 3 + t1 * 9 + 8) >> 4);
     }
     int l = (w - 1) / 2;
-    da[w - 1] = (uint8_t)((3 * a[l] + b[l] + 2) >> 2);
-    db[w - 1] = (uint8_t)((a[l] + 3 * b[l] + 2) >> 2);
+    da[w - 1] = (T)((3 * a[l] + b[l] + 2) >> 2);
+    db[w - 1] = (T)((a[l] + 3 * b[l] + 2) >> 2);
 }
 
 // libavif's colour primaries (rx, ry, gx, gy, bx, by, wx, wy) of the codes
@@ -157,17 +187,24 @@ inline uint8_t unorm8(float c) {
     return (uint8_t)(0.5f + c * 255.0f);
 }
 
-// libavif's float path (see the file comment). mode 0 Kr/Kb coefficients,
-// 1 identity, 2 YCgCo.
-void libavif_float(const uint8_t* y, const uint8_t* u, const uint8_t* v, long w, long h, long sx,
+// libavif's float path (see the file comment) at the planes' depth. mode 0
+// Kr/Kb coefficients, 1 identity, 2 YCgCo, 3 YCgCo-Re (10 bits to 8: the
+// chroma rounded back to integers, floorf(c * 1023 + 0.5), then H.273's
+// lossless lifting, each colour clamped in turn).
+template <typename pixel>
+void libavif_float(const pixel* y, const pixel* u, const pixel* v, long w, long h, long sx,
                    long sy, long mono, long full, long channels, int mode, float kr, float kg,
-                   float kb, uint8_t* out) {
-    float ty[256], tuv[256];
-    const float bias_y = full ? 0.0f : 16.0f, range_y = full ? 255.0f : 219.0f;
-    const float range_uv = full ? 255.0f : 224.0f;
-    for (int i = 0; i < 256; i++) {
+                   float kb, int depth, uint8_t* out) {
+    const int n = 1 << depth, up = depth - 8;
+    std::vector<float> ty_(n), tuv_(n);
+    float* ty = ty_.data();
+    float* tuv = tuv_.data();
+    const float max = (float)(n - 1);
+    const float bias_y = full ? 0.0f : (float)(16 << up), range_y = full ? max : (float)(219 << up);
+    const float range_uv = full ? max : (float)(224 << up), half = (float)(n >> 1);
+    for (int i = 0; i < n; i++) {
         ty[i] = ((float)i - bias_y) / range_y;
-        tuv[i] = mode == 1 ? ty[i] : ((float)i - 128.0f) / range_uv;
+        tuv[i] = mode == 1 ? ty[i] : ((float)i - half) / range_uv;
     }
     if (mono) {
         for (long r = 0; r < h; r++)
@@ -203,6 +240,18 @@ void libavif_float(const uint8_t* y, const uint8_t* u, const uint8_t* v, long w,
                      (tuv[v[brow]] * (3.0f / 16.0f)) + (tuv[v[bboth]] * (1.0f / 16.0f));
             }
             float R, G, B;
+            if (mode == 3) {
+                const int yy = y[j * w + i];
+                const int cg = (int)std::floor(Cb * max + 0.5f);
+                const int co = (int)std::floor(Cr * max + 0.5f);
+                const int t = yy - (cg >> 1);
+                const int g = std::clamp(t + cg, 0, 255), b = std::clamp(t - (co >> 1), 0, 255);
+                uint8_t* o = out + (j * w + i) * channels;
+                o[0] = (uint8_t)std::clamp(b + co, 0, 255);
+                o[1] = (uint8_t)g;
+                o[2] = (uint8_t)b;
+                continue;
+            }
             if (mode == 1) {
                 G = Y, B = Cb, R = Cr;
             } else if (mode == 2) {
@@ -223,42 +272,13 @@ void libavif_float(const uint8_t* y, const uint8_t* u, const uint8_t* v, long w,
     }
 }
 
-}  // namespace
-
-extern "C" {
-
-// y (h x w), u and v (((h+sy)>>sy) x ((w+sx)>>sx); unused when mono) to
-// out (h x w x channels, channels 3 or 4; the alpha byte of 4 is left as
-// it is). full: the full-range flag; matrix and primaries: the CICP
-// codes. Returns 0; -1 where libavif's reformat fails (nothing written).
-long avif_yuv_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v, long w, long h,
-                     long sx, long sy, long mono, long full, long matrix, long primaries,
-                     long channels, uint8_t* out) {
-    if (matrix == 3 || matrix == 10 || matrix == 11 || matrix == 13 || matrix == 14 ||
-        matrix >= 16 || (matrix == 8 && !full))
-        return -1;
-    // A 4:0:0 image with the identity matrix takes BT.601's.
-    const int mc = (mono && matrix == 0) ? 6 : (int)matrix;
-    const YuvConstants* kp = libyuv_constants(mc, (int)primaries, (int)full);
-    if (mono && channels == 3) {  // avifImageYUV8ToRGB8Mono
-        libavif_float(y, u, v, w, h, sx, sy, 1, full, 3, 0, 0, 0, 0, out);
-        return 0;
-    }
-    if (!kp) {
-        float kr = 0, kg = 0, kb = 0;
-        int mode = mc == 0 ? 1 : mc == 8 ? 2 : 0;
-        if (!mode) coefficients(mc, (int)primaries, &kr, &kg, &kb);
-        if (mode == 1 && !sx && !sy && full) {  // avifImageIdentity8ToRGB8ColorFullRange
-            for (long i = 0; i < w * h; i++) {
-                uint8_t* o = out + i * channels;
-                o[0] = v[i], o[1] = y[i], o[2] = u[i];
-            }
-            return 0;
-        }
-        libavif_float(y, u, v, w, h, sx, sy, mono, full, channels, mode, kr, kg, kb, out);
-        return 0;
-    }
-    const YuvConstants& k = *kp;
+// libyuv's route (see the file comment), for 8-bit planes or, with depth
+// 10 or 12, its high bit depth rows; nearest: 4:2:0 chroma repeated over
+// its 2x2 pixels (I012ToARGBMatrix), not upsampled by the filter.
+template <typename T>
+void libyuv_rgb(const T* y, const T* u, const T* v, long w, long h, long sx, long sy, long mono,
+                long channels, const YuvConstants& k, uint8_t* out, int depth = 8,
+                bool nearest = false) {
     if (mono) {  // libyuv's I400ToARGBMatrix (YPixel)
         for (long r = 0; r < h; r++)
             for (long c = 0; c < w; c++) {
@@ -267,15 +287,23 @@ long avif_yuv_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v, long 
                 uint8_t* o = out + (r * w + c) * channels;
                 o[0] = o[1] = o[2] = g;
             }
-        return 0;
+        return;
     }
     long cw = (w + sx) >> sx;
-    std::vector<uint8_t> ua(w), va(w), ub(w), vb(w);
-    auto row = [&](long r, const uint8_t* ur, const uint8_t* vr) {
+    std::vector<T> ua(w), va(w), ub(w), vb(w);
+    auto row = [&](long r, const T* ur, const T* vr) {
         for (long c = 0; c < w; c++)
-            yuv_pixel(y[r * w + c], ur[c], vr[c], k, out + (r * w + c) * channels);
+            yuv_pixel(y[r * w + c], ur[c], vr[c], k, out + (r * w + c) * channels, depth);
     };
-    if (!sx) {  // 4:4:4
+    if (nearest) {
+        for (long r = 0; r < h; r++) {
+            for (long c = 0; c < w; c++) {
+                ua[c] = u[(r >> sy) * cw + (c >> sx)];
+                va[c] = v[(r >> sy) * cw + (c >> sx)];
+            }
+            row(r, ua.data(), va.data());
+        }
+    } else if (!sx) {  // 4:4:4
         for (long r = 0; r < h; r++) row(r, u + r * cw, v + r * cw);
     } else if (!sy) {  // 4:2:2
         for (long r = 0; r < h; r++) {
@@ -300,7 +328,119 @@ long avif_yuv_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v, long 
             row(h - 1, ua.data(), va.data());
         }
     }
+}
+
+// libyuv's Convert16To8Plane of a plane of n samples at `depth` bits.
+std::vector<uint8_t> to_8_bits(const uint16_t* p, long n, int depth) {
+    std::vector<uint8_t> out(n);
+    for (long i = 0; i < n; i++) out[i] = clamp255(p[i] >> (depth - 8));
+    return out;
+}
+
+// libavif's avifReformatAlpha of a 10- or 12-bit alpha plane (n samples)
+// to 8 bits: (int)(0.5 + a / (2^depth - 1) * 255) in float.
+void alpha_to_8(const uint16_t* a, long n, long depth, uint8_t* out) {
+    const float max = (float)((1 << depth) - 1);
+    for (long i = 0; i < n; i++) {
+        const int v = (int)(0.5f + ((float)a[i] / max) * 255.0f);
+        out[i] = (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// y (h x w), u and v (((h+sy)>>sy) x ((w+sx)>>sx); unused when mono) and
+// the alpha a (h x w, full range; null for none), of bytes at depth 8 and
+// uint16_t samples at 10 or 12, to out (h x w x channels, channels 3 or 4;
+// the alpha byte of 4 is 255 without a). full: the full-range flag; matrix
+// and primaries: the CICP codes. Returns 0; -1 where libavif's reformat
+// fails (nothing written).
+long avif_yuv_to_rgb(const void* y, const void* u, const void* v, const void* a, long w, long h,
+                     long sx, long sy, long mono, long full, long matrix, long primaries,
+                     long channels, long depth, uint8_t* out) {
+    if (matrix == 3 || matrix == 10 || matrix == 11 || matrix == 13 || matrix == 14 ||
+        matrix >= 17 || (matrix == 16 && (!full || depth != 10)) || (matrix == 8 && !full) ||
+        (matrix == 0 && !mono && (sx || sy)))
+        return -1;
+    // A 4:0:0 image with the identity matrix takes BT.601's.
+    const int mc = (mono && matrix == 0) ? 6 : (int)matrix;
+    const YuvConstants* kp = libyuv_constants(mc, (int)primaries, (int)full);
+    const bool wide = depth > 8, rgba = channels == 4;
+    const long n = w * h;
+    const uint16_t *y16 = (const uint16_t*)y, *u16 = (const uint16_t*)u, *v16 = (const uint16_t*)v;
+    // The route: libavif's float paths (4:0:0 to RGB, the matrices libyuv
+    // lacks), libyuv's 8-bit rows, its 10-bit AlphaToARGB rows, its
+    // I012ToARGBMatrix, or every plane cut to 8 bits for its 8-bit rows.
+    enum { kFloat, kLibyuv8, kLibyuv10, kI012, kCut } route;
+    if ((mono && !rgba) || !kp) route = kFloat;
+    else if (!wide) route = kLibyuv8;
+    else if (rgba && !mono && depth == 10) route = kLibyuv10;
+    else if (rgba && !mono && depth == 12 && sx && sy) route = kI012;
+    else route = kCut;
+    // The alpha bytes: copied at 8 bits; above, libyuv's shift where its
+    // rows carry the alpha (those that cut the planes, but 4:0:0's, and the
+    // 10-bit ones), else libavif's float rescale.
+    if (rgba) {
+        std::vector<uint8_t> a8(n, 255);
+        if (a && !wide) std::memcpy(a8.data(), a, n);
+        else if (a && (route == kLibyuv10 || (route == kCut && !mono)))
+            a8 = to_8_bits((const uint16_t*)a, n, (int)depth);
+        else if (a) alpha_to_8((const uint16_t*)a, n, depth, a8.data());
+        for (long i = 0; i < n; i++) out[i * 4 + 3] = a8[i];
+    }
+    if (route == kFloat) {
+        float kr = 0, kg = 0, kb = 0;
+        int mode = mc == 0 ? 1 : mc == 8 ? 2 : mc == 16 ? 3 : 0;
+        if (!mode && !mono) coefficients(mc, (int)primaries, &kr, &kg, &kb);
+        if (mode == 1 && !sx && !sy && full && !wide) {  // avifImageIdentity8ToRGB8ColorFullRange
+            const uint8_t *y8 = (const uint8_t*)y, *u8 = (const uint8_t*)u, *v8 = (const uint8_t*)v;
+            for (long i = 0; i < n; i++) {
+                uint8_t* o = out + i * channels;
+                o[0] = v8[i], o[1] = y8[i], o[2] = u8[i];
+            }
+        } else if (wide) {  // ...YUV16ToRGB8..., AnyToRGBAnySlow
+            libavif_float(y16, u16, v16, w, h, sx, sy, mono, full, channels, mode, kr, kg, kb,
+                          (int)depth, out);
+        } else {  // avifImageYUV8ToRGB8Mono, ...Color, AnyToRGBAnySlow
+            libavif_float((const uint8_t*)y, (const uint8_t*)u, (const uint8_t*)v, w, h, sx, sy,
+                          mono, full, channels, mode, kr, kg, kb, 8, out);
+        }
+    } else if (route == kLibyuv8) {
+        libyuv_rgb((const uint8_t*)y, (const uint8_t*)u, (const uint8_t*)v, w, h, sx, sy, mono,
+                   channels, *kp, out);
+    } else if (route == kLibyuv10) {  // I010/I210/I410AlphaToARGBMatrix(Filter)
+        libyuv_rgb(y16, u16, v16, w, h, sx, sy, mono, channels, *kp, out, 10);
+    } else if (route == kI012) {
+        libyuv_rgb(y16, u16, v16, w, h, sx, sy, mono, channels, *kp, out, 12, true);
+    } else {
+        const long cn = ((w + sx) >> sx) * ((h + sy) >> sy);
+        std::vector<uint8_t> y8 = to_8_bits(y16, n, (int)depth);
+        std::vector<uint8_t> u8 = mono ? y8 : to_8_bits(u16, cn, (int)depth);
+        std::vector<uint8_t> v8 = mono ? y8 : to_8_bits(v16, cn, (int)depth);
+        libyuv_rgb(y8.data(), u8.data(), v8.data(), w, h, sx, sy, mono, channels, *kp, out);
+    }
     return 0;
+}
+
+// libavif's avifRGBImageUnpremultiplyAlpha of n 8-bit RGBA pixels in
+// place: libyuv's ARGBUnattenuate, each colour c scaled by the 8.8 fixed
+// point inverse of its alpha a (fixed_invtbl8: 0x10000 / a, 0xffff at 1,
+// 0x100 at 255, 0 at 0) as (c * 0x101 * ia) >> 16 in 16-bit lanes, packed
+// to bytes with signed saturation, as its SSSE3 and AVX2 rows do: at
+// alpha 1 a colour of 128 or more becomes 0 (libyuv's C row clamps it to
+// 255 instead).
+void avif_unpremultiply(uint8_t* rgba, long n) {
+    for (long i = 0; i < n; i++) {
+        uint8_t* p = rgba + 4 * i;
+        const uint32_t a = p[3];
+        const uint32_t ia = a == 0 ? 0 : a == 1 ? 0xffff : a == 255 ? 0x100 : 0x10000 / a;
+        for (int c = 0; c < 3; c++) {
+            const uint32_t v = ((p[c] * 0x101u) * ia) >> 16;
+            p[c] = v >= 0x8000 ? 0 : v > 255 ? 255 : (uint8_t)v;
+        }
+    }
 }
 
 

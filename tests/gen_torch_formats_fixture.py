@@ -50,6 +50,9 @@
   quantizer matrices, film grain, damaged grids), written through the
   same library's encoder with ctypes (avif_kind_fixtures, Libavif), with
   Pillow's plane hashes or the step at which Pillow fails ("avif kinds");
+  and phase 8 (x)'s 10- and 12-bit files, Pillow's 8-bit files with their
+  AV1 sequence headers, av1C and pixi rewritten (avif_depth_fixtures,
+  high_depth), with Pillow's plane hashes ("avif depth");
 * tests/fixtures/torch_lzma_damaged.tif: a 64x256 gradient as one
   xz-compressed strip (no check) with bits flipped where liblzma fills the
   strip before it finds the damage, so that Pillow's libtiff reads it
@@ -70,6 +73,7 @@ Run from the repo root:
     python -m tests.gen_torch_formats_fixture
     python -m tests.gen_torch_formats_fixture avif   # the AVIF files alone
     python -m tests.gen_torch_formats_fixture avif-kinds   # only those of "avif kinds"
+    python -m tests.gen_torch_formats_fixture avif-depth   # only those of "avif depth"
 
 The port must decode the files to those planes and encode the arrays to
 those bytes (tests/test_torch_images.py, tests/test_torch_jpeg_encode.py,
@@ -369,16 +373,21 @@ class Libavif:
     """The encoder of the libavif in Pillow's wheel (libavif 1.3.0, aom
     3.12.1), called through ctypes: it writes grids, any CICP and aom's
     codec options (quantizer matrices, film grain), which Pillow's save
-    does not. The avifImage and avifEncoder field offsets are libavif
-    1.3.0's on a 64-bit machine, all here; the version is asserted."""
+    does not; and its YUV->RGB and un-premultiply, which Pillow's load
+    runs. The avifImage, avifRGBImage and avifEncoder field offsets are
+    libavif 1.3.0's on a 64-bit machine, all here; the version is
+    asserted."""
 
     VERSION = b"1.3.0"
     FORMATS = {"444": 1, "422": 2, "420": 3, "400": 4}  # avifPixelFormat
     # avifImage: yuvRange, yuvPlanes[3], yuvRowBytes[3], alphaPlane,
-    # alphaRowBytes, colorPrimaries / transferCharacteristics /
-    # matrixCoefficients (uint16 each).
+    # alphaRowBytes, alphaPremultiplied, colorPrimaries /
+    # transferCharacteristics / matrixCoefficients (uint16 each).
     IMAGE_RANGE, IMAGE_PLANES, IMAGE_ROW_BYTES = 16, 24, 48
-    IMAGE_ALPHA, IMAGE_ALPHA_ROW_BYTES, IMAGE_CICP = 64, 72, 104
+    IMAGE_ALPHA, IMAGE_ALPHA_ROW_BYTES, IMAGE_PREMULTIPLIED, IMAGE_CICP = 64, 72, 80, 104
+    # avifRGBImage: width, height, depth, format (RGB 0, RGBA 1), ...,
+    # maxThreads, pixels, rowBytes.
+    RGB_DEPTH, RGB_FORMAT, RGB_MAX_THREADS, RGB_PIXELS, RGB_ROW_BYTES = 8, 12, 40, 48, 56
     # avifEncoder: speed, quality, qualityAlpha.
     ENCODER_SPEED, ENCODER_QUALITY, ENCODER_QUALITY_ALPHA = 8, 32, 36
     PLANES_YUV, PLANES_ALL = 1, 0xFF
@@ -437,6 +446,67 @@ class Libavif:
                 ct.memmove(ptr + r * row_bytes, plane[r].ctypes.data, plane.shape[1])
         return im
 
+    def yuv_to_rgb(self, planes, depth: int, fmt: str, full: bool, cicp: tuple, alpha=None,
+                   premultiplied: bool = False, channels: int | None = None):
+        """avifImageYUVToRGB of the planes ([Y] or [Y, U, V], and an alpha
+        plane; uint8 at depth 8, uint16 above) to 8-bit RGB, or RGBA where
+        there is alpha or `channels` is 4, as Pillow asks for it; its
+        avifResult where it fails."""
+        ct, lib = self.ct, self.lib
+        lib.avifRGBImageSetDefaults.argtypes = [ct.c_void_p, ct.c_void_p]
+        lib.avifImageYUVToRGB.argtypes = [ct.c_void_p, ct.c_void_p]
+        lib.avifImageYUVToRGB.restype = ct.c_int
+        h, w = planes[0].shape
+        im = lib.avifImageCreate(w, h, depth, self.FORMATS[fmt])
+        try:
+            ct.c_int.from_address(im + self.IMAGE_RANGE).value = int(full)
+            ct.c_int.from_address(im + self.IMAGE_PREMULTIPLIED).value = int(premultiplied)
+            for k, code in enumerate(cicp):
+                ct.c_uint16.from_address(im + self.IMAGE_CICP + 2 * k).value = code
+            assert lib.avifImageAllocatePlanes(
+                im, self.PLANES_YUV if alpha is None else self.PLANES_ALL) == 0
+            targets = [(self.IMAGE_PLANES + 8 * k, self.IMAGE_ROW_BYTES + 4 * k, p)
+                       for k, p in enumerate(planes)]
+            if alpha is not None:
+                targets.append((self.IMAGE_ALPHA, self.IMAGE_ALPHA_ROW_BYTES, alpha))
+            dtype = np.uint16 if depth > 8 else np.uint8
+            for at, rb_at, plane in targets:
+                ptr = ct.c_void_p.from_address(im + at).value
+                row_bytes = ct.c_uint32.from_address(im + rb_at).value
+                plane = np.ascontiguousarray(plane, dtype)
+                for r in range(plane.shape[0]):
+                    ct.memmove(ptr + r * row_bytes, plane[r].ctypes.data, plane[r].nbytes)
+            channels = channels or (3 if alpha is None else 4)
+            rgb = ct.create_string_buffer(128)
+            lib.avifRGBImageSetDefaults(rgb, im)
+            base = ct.addressof(rgb)
+            ct.c_uint32.from_address(base + self.RGB_DEPTH).value = 8
+            ct.c_uint32.from_address(base + self.RGB_FORMAT).value = int(channels == 4)
+            out = np.zeros((h, w, channels), np.uint8)
+            ct.c_void_p.from_address(base + self.RGB_PIXELS).value = out.ctypes.data
+            ct.c_uint32.from_address(base + self.RGB_ROW_BYTES).value = channels * w
+            res = lib.avifImageYUVToRGB(im, rgb)
+            return out if res == 0 else res
+        finally:
+            lib.avifImageDestroy(im)
+
+    def unpremultiply(self, rgba: np.ndarray) -> np.ndarray:
+        """avifRGBImageUnpremultiplyAlpha of 8-bit RGBA, on a copy."""
+        ct, lib = self.ct, self.lib
+        lib.avifRGBImageUnpremultiplyAlpha.argtypes = [ct.c_void_p]
+        lib.avifRGBImageUnpremultiplyAlpha.restype = ct.c_int
+        out = np.array(rgba, np.uint8, order="C")
+        h, w = out.shape[:2]
+        rgb = ct.create_string_buffer(128)
+        base = ct.addressof(rgb)
+        for at, v in ((0, w), (4, h), (self.RGB_DEPTH, 8), (self.RGB_FORMAT, 1)):
+            ct.c_uint32.from_address(base + at).value = v
+        ct.c_int.from_address(base + self.RGB_MAX_THREADS).value = 1
+        ct.c_void_p.from_address(base + self.RGB_PIXELS).value = out.ctypes.data
+        ct.c_uint32.from_address(base + self.RGB_ROW_BYTES).value = 4 * w
+        assert lib.avifRGBImageUnpremultiplyAlpha(rgb) == 0
+        return out
+
     def encode(self, images: list, grid=None, options=(), quality=60, speed=6) -> bytes:
         """One image, or a (rows, cols) grid of them, at the quality (also
         the alpha's) and speed, with aom's codec options; the images are
@@ -466,6 +536,72 @@ class Libavif:
             lib.avifEncoderDestroy(enc)
             for im in images:
                 lib.avifImageDestroy(im)
+
+
+class Dav1d:
+    """The dav1d 1.5.1 linked into the wheel's libavif (its API is
+    exported), through ctypes: the YUV planes of an AV1 sample's first
+    frame as libavif gets them for Pillow (film grain applied). The
+    Dav1dSettings and Dav1dPicture field offsets are dav1d 1.5's on a
+    64-bit machine."""
+
+    SETTINGS_THREADS, SETTINGS_APPLY_GRAIN = 0, 8
+    PICTURE_DATA, PICTURE_STRIDE, PICTURE_PARAMS = 16, 40, 56  # params: w, h, layout, bpc
+
+    def __init__(self):
+        import ctypes
+        import glob
+
+        import PIL
+
+        libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+        self.ct = ctypes
+        lib = self.lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libavif-*.so*"))[0])
+        vp = ctypes.c_void_p
+        lib.dav1d_data_create.restype = vp
+        lib.dav1d_data_create.argtypes = [vp, ctypes.c_size_t]
+        lib.dav1d_open.argtypes = [ctypes.POINTER(vp), vp]
+        lib.dav1d_send_data.argtypes = [vp, vp]
+        lib.dav1d_get_picture.argtypes = [vp, vp]
+        lib.dav1d_picture_unref.argtypes = [vp]
+        lib.dav1d_close.argtypes = [ctypes.POINTER(vp)]
+        lib.dav1d_default_settings.argtypes = [vp]
+
+    def decode(self, sample: bytes) -> tuple[list, int]:
+        """([Y] or [Y, U, V] planes, uint8 at 8 bits and uint16 above, and
+        the bit depth); RuntimeError where dav1d refuses the stream."""
+        ct, lib = self.ct, self.lib
+        settings = ct.create_string_buffer(256)
+        lib.dav1d_default_settings(settings)
+        ct.c_int.from_buffer(settings, self.SETTINGS_THREADS).value = 1
+        ct.c_int.from_buffer(settings, self.SETTINGS_APPLY_GRAIN).value = 1
+        ctx = ct.c_void_p()
+        assert lib.dav1d_open(ct.byref(ctx), settings) == 0
+        try:
+            data, pic = ct.create_string_buffer(128), ct.create_string_buffer(512)
+            ct.memmove(lib.dav1d_data_create(data, len(sample)), sample, len(sample))
+            sent = lib.dav1d_send_data(ctx, data)
+            if lib.dav1d_get_picture(ctx, pic) != 0:
+                raise RuntimeError(f"dav1d refuses the stream (send {sent})")
+            w, h, layout, bpc = (ct.c_int.from_buffer(pic, self.PICTURE_PARAMS + 4 * k).value
+                                 for k in range(4))
+            ptrs = [ct.c_void_p.from_buffer(pic, self.PICTURE_DATA + 8 * k).value
+                    for k in range(3)]
+            strides = [ct.c_ssize_t.from_buffer(pic, self.PICTURE_STRIDE + 8 * k).value
+                       for k in range(2)]
+            dtype = np.dtype(np.uint16 if bpc > 8 else np.uint8)
+            sx, sy = {1: (1, 1), 2: (1, 0), 3: (0, 0)}.get(layout, (0, 0))  # I420, I422, I444
+            planes = []
+            for k in range(1 if layout == 0 else 3):
+                pw, ph = (w, h) if k == 0 else ((w + sx) >> sx, (h + sy) >> sy)
+                stride = strides[min(k, 1)]
+                rows = [np.frombuffer(ct.string_at(ptrs[k] + r * stride, pw * dtype.itemsize),
+                                      dtype) for r in range(ph)]
+                planes.append(np.stack(rows))
+            lib.dav1d_picture_unref(pic)
+            return planes, bpc
+        finally:
+            lib.dav1d_close(ct.byref(ctx))
 
 
 def yuv_field(h: int, w: int, seed: int, fmt: str) -> list:
@@ -506,6 +642,234 @@ def _grid_layout(data: bytes) -> dict:
         p += 3 + n
     return {"payload": grid.extents[0][0], "ispe": ispe + 4, "dimg": dimg, "ipma": entries,
             "primary": primary, "tiles": items[primary].refs[b"dimg"]}
+
+
+# -- high bit depth rewrites of the wheel's 8-bit files ----------------------------
+
+
+class _SeqBits:
+    """An AV1 sequence header OBU's payload as bits, parsed as far as
+    film_grain_params_present (av1obu.cpp's sequence_header), with where
+    its colour_config starts and ends."""
+
+    def __init__(self, payload: bytes):
+        self.bits = [(byte >> (7 - k)) & 1 for byte in payload for k in range(8)]
+        self.pos = 0
+        f = self.f
+        self.profile = f(3)
+        f(1)
+        reduced = f(1)
+        if reduced:
+            f(5)
+        else:
+            decoder_model = buffer_delay = 0
+            if f(1):  # timing_info_present_flag
+                f(64)
+                if f(1):  # equal_picture_interval
+                    lead = 0
+                    while not f(1):
+                        lead += 1
+                    f(lead)
+                decoder_model = f(1)
+                if decoder_model:
+                    buffer_delay = f(5) + 1
+                    f(32)
+                    f(10)
+            display_delay = f(1)
+            for _ in range(f(5) + 1):
+                f(12)
+                if f(5) > 7:
+                    f(1)
+                if decoder_model and f(1):
+                    f(2 * buffer_delay + 1)
+                if display_delay and f(1):
+                    f(4)
+        fwb, fhb = f(4) + 1, f(4) + 1
+        f(fwb + fhb)
+        if not reduced and f(1):  # frame_id_numbers_present_flag
+            f(7)
+        f(3)
+        if not reduced:
+            f(4)
+            order_hint = f(1)
+            if order_hint:
+                f(2)
+            screen = 2 if f(1) else f(1)
+            if screen > 0 and not f(1):
+                f(1)
+            if order_hint:
+                f(3)
+        f(3)  # superres, cdef, restoration
+        self.cc = self.pos
+        high = f(1)
+        depth = (12 if f(1) else 10) if self.profile == 2 and high else (10 if high else 8)
+        assert depth == 8, depth
+        self.mono = 0 if self.profile == 1 else f(1)
+        self.cicp = None
+        if f(1):
+            self.cicp = (f(8), f(8), f(8))
+        self.range = self.sub = self.csp = None
+        if self.mono:
+            self.range, self.sub = f(1), (1, 1)
+        elif self.cicp == (1, 13, 0):
+            self.sub = (0, 0)
+        else:
+            self.range = f(1)
+            self.sub = {0: (1, 1), 1: (0, 0), 2: (1, 0)}[self.profile]
+            if self.sub == (1, 1):
+                self.csp = f(2)
+        self.sep_uv = 0 if self.mono else f(1)
+        self.cc_end = self.pos
+        f(1)  # film_grain_params_present
+        self.end = self.pos
+
+    def f(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = v << 1 | self.bits[self.pos]
+            self.pos += 1
+        return v
+
+    def profile_for(self, depth: int) -> int:
+        if depth == 12:
+            return 2
+        return 0 if self.sub == (1, 1) else 1 if self.sub == (0, 0) else 2
+
+    def rewritten(self, depth: int) -> bytes:
+        """The payload at `depth` (10 or 12): the profile that carries the
+        format at that depth, high_bitdepth (and twelve_bit), the rest of
+        the header as it was, new trailing bits."""
+        profile = self.profile_for(depth)
+
+        def put(v, n):
+            return [(v >> (n - 1 - k)) & 1 for k in range(n)]
+
+        cc = [1] + (put(depth == 12, 1) if profile == 2 else [])
+        cc += put(self.mono, 1) if profile != 1 else []
+        cc += [1] + sum((put(c, 8) for c in self.cicp), []) if self.cicp else [0]
+        if self.mono:
+            cc += [self.range]
+        elif self.cicp != (1, 13, 0):
+            cc += [self.range]
+            if profile == 2 and depth == 12:
+                cc += [self.sub[0]] + ([self.sub[1]] if self.sub[0] else [])
+            if self.sub == (1, 1):
+                cc += put(self.csp, 2)
+        cc += [] if self.mono else [self.sep_uv]
+        bits = put(profile, 3) + self.bits[3:self.cc] + cc + self.bits[self.cc_end:self.end] + [1]
+        bits += [0] * (-len(bits) % 8)
+        return bytes(sum(b << (7 - k) for k, b in enumerate(bits[i:i + 8]))
+                     for i in range(0, len(bits), 8))
+
+
+def _leb128(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        out.append((v & 0x7F) | (0x80 if v >= 0x80 else 0))
+        v >>= 7
+        if not v:
+            return bytes(out)
+
+
+def _obus(data: bytes):
+    """(header bytes, payload) of each OBU of a sample (every one with a
+    size field, as aom writes them)."""
+    at = 0
+    while at < len(data):
+        hdr = data[at:at + 1 + ((data[at] >> 2) & 1)]
+        assert data[at] & 2, "an OBU without its size field"
+        at += len(hdr)
+        size = shift = 0
+        while True:
+            byte = data[at]
+            at += 1
+            size |= (byte & 0x7F) << shift
+            shift += 7
+            if not byte & 0x80:
+                break
+        yield hdr, data[at:at + size]
+        at += size
+
+
+def _high_depth_sample(data: bytes, depth: int) -> tuple[bytes, _SeqBits]:
+    out, seq = bytearray(), None
+    for hdr, payload in _obus(data):
+        if (hdr[0] >> 3) & 15 == 1:
+            seq = _SeqBits(payload)
+            payload = seq.rewritten(depth)
+        out += hdr + _leb128(len(payload)) + payload
+    assert seq is not None, "a sample without a sequence header"
+    return bytes(out), seq
+
+
+def high_depth(data: bytes, depth: int, stream: bool = True, boxes: bool = True,
+               skip: tuple = ()) -> bytes:
+    """A still AVIF file of the wheel's 8-bit av01 items (Pillow's save or
+    Libavif's) rewritten as a `depth`-bit file (10 or 12): every av01
+    item's sequence header OBU (colour, alpha and grid tiles) names the
+    profile and bit depth, av1C's profile and depth bits and the pixi
+    channel depths of every av01 and grid item follow, and iloc's extents
+    and mdat's size follow the OBUs' new lengths. The tile data is the
+    8-bit stream's, which a decoder reads at the new depth (the tile
+    syntax depends on the depth only through palette colours). For the
+    damaged kinds: `stream` or `boxes` False leaves the OBUs or the boxes
+    at 8 bits, and the items in `skip` stay 8-bit files."""
+    from cybervision_tpu_torch.imageio import avif
+
+    top = list(avif._boxes(data, 0, len(data)))
+    meta = next((s, e) for t, s, e in top if t == b"meta")
+    assert not any(t == b"moov" for t, _, _ in top), "a sequence"
+    items, _, _ = avif._parse_meta(data, *meta)
+    edits = []  # (offset, old length, new bytes)
+    for item in items.values():
+        if item.type not in (b"av01", b"grid") or item.id in skip:
+            continue
+        for typ, s, e in item.props if boxes else ():
+            if typ == b"pixi":
+                edits.append((s + 5, data[s + 4], bytes([depth] * data[s + 4])))
+        if item.type == b"grid":
+            continue
+        assert item.construction == 0 and len(item.extents) == 1
+        off, n = item.extents[0]
+        new, seq = _high_depth_sample(data[off:off + n], depth)
+        if stream:
+            edits.append((off, n, new))
+        for typ, s, e in item.props if boxes else ():
+            if typ == b"av1C":
+                profile = seq.profile_for(depth)
+                byte2 = (data[s + 2] & 0x80) | 0x40 | (0x20 if depth == 12 else 0)
+                byte2 |= seq.mono << 4 | seq.sub[0] << 3 | seq.sub[1] << 2 | (data[s + 2] & 3)
+                edits.append((s + 1, 2, bytes([profile << 5 | (data[s + 1] & 31), byte2])))
+    edits = sorted(set(edits))
+
+    def moved(at: int) -> int:
+        return at + sum(len(new) - n for o, n, new in edits if o + n <= at)
+
+    out = bytearray()
+    last = 0
+    for o, n, new in edits:
+        out += data[last:o] + new
+        last = o + n
+    out += data[last:]
+    # iloc (version 0 or 1, no base offset): each extent's new place and size.
+    iloc = next(s for t, s, e in avif._boxes(data, meta[0] + 4, meta[1]) if t == b"iloc")
+    version, sizes = data[iloc], data[iloc + 4:iloc + 6]
+    assert version in (0, 1) and sizes[0] == 0x44 and sizes[1] >> 4 == 0
+    p = iloc + 6
+    count, p = struct.unpack_from(">H", data, p)[0], p + 2
+    for _ in range(count):
+        p += 2 + (2 if version else 0) + 2
+        n_ext, p = struct.unpack_from(">H", data, p)[0], p + 2
+        for _ in range(n_ext):
+            off, n = struct.unpack_from(">II", data, p)
+            grow = sum(len(new) - m for o, m, new in edits if off <= o < off + n)
+            struct.pack_into(">II", out, moved(p), moved(off), n + grow)
+            p += 8
+    for t, s, e in top:
+        if t == b"mdat":
+            hdr = s - 8
+            struct.pack_into(">I", out, moved(hdr), moved(e) - moved(hdr))
+    return bytes(out)
 
 
 def avif_kind_fixtures() -> dict:
@@ -599,6 +963,41 @@ def avif_kind_fixtures() -> dict:
     print(chip_smoke.AVIF_DIR, sum(len(d) for d in files.values()), "bytes in", len(files),
           "new files")
     return out
+
+
+def depth_views() -> list:
+    """BASELINE #3's two views (tinted) as RGBA with a smooth alpha of
+    200-255, for phase 8 (x)'s premultiplied files."""
+    views, _, _, _ = chip_smoke.render_perspective(
+        chip_smoke.PERSP_W, chip_smoke.PERSP_H, chip_smoke.PERSP_CAMS[:1], exact_focal=True)
+    y, x = np.mgrid[0:chip_smoke.PERSP_H, 0:chip_smoke.PERSP_W]
+    alpha = np.round(227.5 + 27.5 * np.cos(x / 37.0) * np.sin(y / 23.0)).astype(np.uint8)
+    return [np.dstack([tinted(v), alpha]) for v in views]
+
+
+def avif_depth_fixtures() -> dict:
+    """Write phase 8 (x)'s AVIF files (chip_smoke.AVIF_DEPTH_*): the
+    committed 4:0:0 SEM pair (AVIF_SEM) rewritten to 10 bits, and
+    BASELINE #3's views saved by Pillow as premultiplied RGBA 4:2:0 with
+    EXIF focal 43, rewritten to 12 bits; {file name: Pillow's plane
+    hashes}. Pillow must read each."""
+    for src, path in zip(chip_smoke.AVIF_SEM, chip_smoke.AVIF_DEPTH_SEM):
+        with open(src, "rb") as fh:
+            data = high_depth(fh.read(), 10)
+        with open(path, "wb") as fh:
+            fh.write(data)
+    for rgba, path in zip(depth_views(), chip_smoke.AVIF_DEPTH_PERSP):
+        buf = io.BytesIO()
+        Image.fromarray(rgba, "RGBA").save(buf, "AVIF", alpha_premultiplied=True,
+                                           exif=focal_exif())
+        with open(path, "wb") as fh:
+            fh.write(high_depth(buf.getvalue(), 12))
+    paths = chip_smoke.AVIF_DEPTH_SEM + chip_smoke.AVIF_DEPTH_PERSP
+    for path in paths:
+        assert pillow_failure(path) is None, path
+    print(chip_smoke.AVIF_DIR, sum(os.path.getsize(p) for p in paths), "bytes in", len(paths),
+          "files")
+    return {os.path.basename(p): planes(p) for p in paths}
 
 
 def pillow_failure(path: str) -> str | None:
@@ -715,6 +1114,14 @@ def main():
             json.dump(hashes, fh, indent=1, sort_keys=True)
             fh.write("\n")
         return
+    if sys.argv[1:] == ["avif-depth"]:
+        with open(chip_smoke.FORMATS_SHA256) as fh:
+            hashes = json.load(fh)
+        hashes["avif depth"] = avif_depth_fixtures()
+        with open(chip_smoke.FORMATS_SHA256, "w") as fh:
+            json.dump(hashes, fh, indent=1, sort_keys=True)
+            fh.write("\n")
+        return
     if sys.argv[1:] in (["avif"], ["avif-kinds"]):
         # Only the AVIF files and their hashes (or only those the wheel's
         # libavif encoder writes); the other entries stay.
@@ -750,7 +1157,7 @@ def main():
                    "jpeg2000 writer": jpeg2000_writer_hashes(),
                    "webp writer": webp_writer_hashes(), "avif": avif_fixtures(),
                    "avif writer": avif_writer_fixture(),
-                   "avif kinds": avif_kind_fixtures()},
+                   "avif kinds": avif_kind_fixtures(), "avif depth": avif_depth_fixtures()},
                   fh, indent=1,
                   sort_keys=True)
         fh.write("\n")

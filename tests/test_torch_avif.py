@@ -310,18 +310,19 @@ def _frame_bits(data):
 
 
 REFUSED = {
-    "AV1 bit depth above 8": lambda d: _set_bit(d, (lambda b, w, h: b + 24 + w + h)(
-        *_seq_header_bits(d))),
     "AV1 superres": lambda d: _set_bit(_set_bit(d, (lambda b, w, h: b + 21 + w + h)(
         *_seq_header_bits(d))), _frame_bits(d) + 2),
     "AVIF item construction method 2": lambda d: _iloc_rewritten(d, 1, 2),
-    "AVIF premultiplied alpha": None,
 }
 
 # Kinds this test once refused by name, read since: a file of each is
 # read as Pillow reads it (a primary item retyped "grid" has no ImageGrid
 # payload, so both fail to open it).
 READ_SINCE = {
+    "AV1 bit depth above 8": lambda img: (lambda d: _set_bit(d, (lambda b, w, h: b + 24 + w + h)(
+        *_seq_header_bits(d))))(_avif(img, "RGB")),
+    "AVIF premultiplied alpha": lambda img: _avif(np.dstack([img, img[:, :, 0]]), "RGBA",
+                                                  alpha_premultiplied=True),
     "AV1 quantizer matrices": lambda img: _avif(img[:, :, 0], "L", subsampling="4:0:0",
                                                 advanced={"enable-qm": "1", "qm-min": "2",
                                                           "qm-max": "9"}),
@@ -343,10 +344,7 @@ def test_tools_refused_by_name(tool):
     if tool in READ_SINCE:
         _assert_as_pillow(READ_SINCE[tool](img))
         return
-    if tool == "AVIF premultiplied alpha":
-        data = _avif(np.dstack([img, img[:, :, 0]]), "RGBA", alpha_premultiplied=True)
-    else:
-        data = REFUSED[tool](_avif(img, "RGB"))
+    data = REFUSED[tool](_avif(img, "RGB"))
     with pytest.raises(UnsupportedImageError, match=f"{tool}.* not supported yet"):
         fmt, parsed = imageio.identify(data)
         imageio.ImageFile(fmt, parsed).decode()

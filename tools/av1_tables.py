@@ -10,7 +10,8 @@ dav1d hold it (32768 - cdf): N - 1 values, the 0 of 32768, and the
 adaptation counter. The mode CDFs come from dav1d's default context
 (its block-size order turned into the specification's), the
 coefficient CDFs from libaom's tables (already in the specification's
-shapes), the quantiser lookups, smooth weights, directional derivatives,
+shapes), the quantiser lookups at 8, 10 and 12 bits from dav1d's (its 8-bit
+ones held to libaom's), the smooth weights, directional derivatives,
 filter-intra taps, cosines, sines and self-guided constants from
 libaom's, the coefficient context offsets from dav1d's, the quantizer
 matrices from libaom's held to dav1d's, the film grain Gaussian
@@ -227,10 +228,18 @@ def extract() -> dict[str, tuple[str, np.ndarray]]:
         t[f"kCdfEobPt{n}"] = ("uint16_t", raw[:, :, 0])
 
     # -- libaom's other tables.
+    # The quantiser lookups at 8, 10 and 12 bits (Dc_Qlookup, Ac_Qlookup):
+    # dav1d's dq_tbl, (DC, AC) pairs in three blocks of 256, whose 8-bit
+    # block is libaom's dc_qlookup_QTX and ac_qlookup_QTX.
+    dq = b.read(b.find([4, 4, 8, 8, 8, 9, 9, 10, 10, 11], "<u2"), 3 * 256 * 2,
+                "<u2").reshape(3, 256, 2)
     dc = b.find([4, 8, 8, 9, 10, 11, 12, 12, 13, 14], "<i2")
-    t["kDcQLookup"] = ("int16_t", b.read(dc, 256, "<i2"))
     ac = b.find([4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18], "<i2")
-    t["kAcQLookup"] = ("int16_t", b.read(ac, 256, "<i2"))
+    if not ((b.read(dc, 256, "<i2") == dq[0, :, 0]).all()
+            and (b.read(ac, 256, "<i2") == dq[0, :, 1]).all()):
+        raise SystemExit("dav1d's 8-bit quantiser lookups are not libaom's")
+    t["kDcQLookup"] = ("int16_t", dq[:, :, 0])
+    t["kAcQLookup"] = ("int16_t", dq[:, :, 1])
     sm = b.find([255, 149, 85, 64, 255, 197, 146, 105], "u1")
     t["kSmWeights"] = ("uint8_t", b.read(sm, 124, "u1"))
     dr = b.find([0, 0, 0, 1023, 0, 0, 547, 0, 0, 372], "<i2")
