@@ -320,6 +320,15 @@ Phases, each of which raises on failure:
        with no --focal-length and (f)'s gates (K1 6 / K2 20 / K3 20); every
        plane to the committed SHA-256 of Pillow's ("avif depth"), the
        decode seconds of each file printed.
+   (y) with Pillow blocked as well (cli_avif_scale): (a)'s SEM pair coded
+       at 910 columns and upscaled by superres (denominator 9) -> PLY,
+       byte-equal to reconstruct's on the decoded planes (K1 8 / K2 1 /
+       K3 1); small superres files (every denominator end, subsampling
+       and depth, alpha, loop restoration, a grid) and files whose ispe
+       makes libavif scale the frame decoded to the committed SHA-256 of
+       Pillow's planes ("avif scale"), the frame libyuv cannot scale
+       refused; one in-memory run with CVTPU_PROFILE set, whose
+       torch.profiler trace must name K1's kernel.
    One JSON record per run: seconds, phases, decode seconds per file and
    plane, encode (and write) seconds per depth map, launches, the card's
    name and power limit.
@@ -2358,6 +2367,27 @@ AVIF_KINDS_FAIL = {"mc3_420_full.avif": "load", "mc10_420_full.avif": "load",
 # rewritten to 12 bits (colour and alpha).
 AVIF_DEPTH_SEM = [os.path.join(AVIF_DIR, f"sem_400_10bit_{i}.avif") for i in range(2)]
 AVIF_DEPTH_PERSP = [os.path.join(AVIF_DIR, f"persp_420_12bit_prem_v{i}.avif") for i in range(2)]
+# Phase 8 (y): superres AV1 key frames and frames scaled to their item's
+# ispe, written by tests/gen_torch_formats_fixture.py ("avif scale"):
+# phase 3's SEM pair at SIZE x SIZE, coded by the wheel's aom as 4:0:0 at
+# the 910 columns superres denominator 9 gives and rewritten as superres
+# files of SIZE columns (AVIF_SUPERRES_SEM); small superres files of each
+# denominator end, subsampling and depth, with alpha, loop restoration
+# and a grid, and files whose ispe asks libavif to scale the frame (the
+# colour item, a shared colour and alpha ispe, a grid's tiles; up, down,
+# one axis, the exact ratios, 8 and 12 bits) (AVIF_SCALE_DECODE_ONLY);
+# the sizes libavif refuses to scale, with the step Pillow fails at
+# (AVIF_SCALE_FAIL).
+AVIF_SUPERRES_SEM = [os.path.join(AVIF_DIR, f"sem_400_superres_{i}.avif") for i in range(2)]
+AVIF_SUPERRES_CODED = 910
+AVIF_SCALE_DECODE_ONLY = (
+    "superres_d9_420.avif", "superres_d12_444.avif", "superres_d16_400.avif",
+    "superres_d13_420_10bit.avif", "superres_d11_444_12bit.avif", "superres_d10_rgba.avif",
+    "superres_lr_420.avif", "superres_grid_alpha.avif", "scaled_up2_420.avif",
+    "scaled_down2_420.avif", "scaled_up_420.avif", "scaled_height_444.avif",
+    "scaled_box_444.avif", "scaled_down34_12bit.avif", "scaled_rgba_12bit.avif",
+    "scaled_grid_tiles.avif")
+AVIF_SCALE_FAIL = {"scaled_wide_refused.avif": "load"}
 TIFF_TILE = 256  # phase 8 (g)'s tiled layout
 JPEG_TIFF_ROWS = 64  # phase 8 (i)'s JPEG-in-TIFF rows per strip
 # Phase 8 (e): the decoded .jpg depth map against the RGB it encodes:
@@ -2993,6 +3023,7 @@ def phase_cli_files(counters, smi: str, texture_obj_sha: str) -> dict:
         records.update(cli_avif(cap, smi, td))
         records.update(cli_avif_writer(cap, smi, td, tifs, mem))
         records.update(cli_avif_depth(cap, smi, td))
+        records.update(cli_avif_scale(cap, smi, td))
     torch.cuda.empty_cache()
     return records
 
@@ -6550,6 +6581,113 @@ def cli_avif_depth(cap, smi: str, td: str) -> dict:
           f" {time.perf_counter() - t_phase:.1f} s")
     if pil:
         raise AssertionError("(x): Pillow was imported")
+    return records
+
+
+def cli_avif_scale(cap, smi: str, td: str) -> dict:
+    """Phase 8 (y), with every import of Pillow blocked (_NoPillow): the
+    committed superres and scaled AVIF files (AVIF_SUPERRES_SEM,
+    AVIF_SCALE_*, tests/gen_torch_formats_fixture.py "avif scale"). (y1)
+    phase 3's SEM pair coded at AVIF_SUPERRES_CODED columns and upscaled
+    by superres to SIZE -> PLY, byte-equal to reconstruct's on the decoded
+    planes, K1 8 / K2 1 / K3 1; the small superres and scaled files
+    decoded, the one whose frame libyuv cannot scale refused; every plane
+    to the committed SHA-256 of Pillow's. (y2) one in-memory run of a
+    SIZE / 4 SEM pair with CVTPU_PROFILE set (Reconstruction.run's
+    torch.profiler trace, outside the script's own profiled runs), whose
+    trace file must name K1's kernel."""
+    from cybervision_tpu_torch.config import MeshMode, ProjectionMode, ReconstructionConfig
+    from cybervision_tpu_torch.images import SourceImage
+    from cybervision_tpu_torch.ops import ncc_sweep
+    from cybervision_tpu_torch.reconstruction import reconstruct
+
+    with open(FORMATS_SHA256) as fh:
+        committed = json.load(fh)["avif scale"]
+    t_phase = time.perf_counter()
+    records = {}
+    with _NoPillow():
+        loaded, decode = {}, {}
+        for path in AVIF_SUPERRES_SEM + [os.path.join(AVIF_DIR, n)
+                                         for n in AVIF_SCALE_DECODE_ONLY]:
+            t0 = time.perf_counter()
+            src = SourceImage.load(path)
+            rgb_plane = src.load_rgb_plane()
+            want = committed[os.path.basename(path)]
+            loaded[path] = src
+            decode[os.path.basename(path)] = (round(time.perf_counter() - t0, 4),
+                                              _plane_sha(src.img) == want["l"]
+                                              and _plane_sha(rgb_plane) == want["rgb"])
+        refused = {}
+        for name in AVIF_SCALE_FAIL:
+            try:
+                SourceImage.load(os.path.join(AVIF_DIR, name)).load_rgb_plane()
+                refused[name] = "read"
+            except Exception as err:  # noqa: BLE001 - the refusal is the result
+                refused[name] = str(err)
+        print(f"(y) {len(decode)} files, (decode seconds, planes equal to Pillow's) {decode};"
+              f" refused {refused}")
+        if not all(ok for _, ok in decode.values()):
+            raise AssertionError("(y): the decoded planes are not Pillow's")
+        if any(why == "read" or "libyuv" not in why for why in refused.values()):
+            raise AssertionError("(y): a size libavif refuses to scale was read")
+
+        label = (f"(y1) superres 4:0:0 AVIF pair {SIZE}x{SIZE} coded at"
+                 f" {AVIF_SUPERRES_CODED} columns -> PLY")
+        mem = []
+        for path in AVIF_SUPERRES_SEM:
+            src = SourceImage(loaded[path].img)
+            src.load_rgb_plane = functools.partial(np.array, loaded[path].load_rgb_plane())
+            mem.append(src)
+        ref, out = os.path.join(td, "mem_y.ply"), os.path.join(td, "y.ply")
+        reconstruct(["a", "b"], ref, ReconstructionConfig(
+            projection=ProjectionMode.AFFINE, mesh=MeshMode.VERTEX_COLORS), quiet=True,
+            images=mem)
+        run = cap.main(["--projection=parallel", "--mesh=vertex-colors", *AVIF_SUPERRES_SEM, out])
+        records["avif superres ply"] = cli_record("(y1) superres 4:0:0 AVIF pair", run["seconds"],
+                                                  run["rec"].phases, run["decode"],
+                                                  run["launches"], smi)
+        got = tuple(run["launches"].get(n, 0) for n in ("ncc_sweep", "score_candidates",
+                                                         "gather_packed"))
+        same = _sha(out) == _sha(ref)
+        print(f"{label}: launches K1 / K2 / K3 {got}, expected (8, 1, 1); PLY equal to the"
+              f" in-memory run's (the decoded planes) {same}")
+        if got != (8, 1, 1) or not same:
+            raise AssertionError(f"{label}: launches {got} or the PLY differs")
+
+        label = f"(y2) CVTPU_PROFILE on a {SIZE // 4}x{SIZE // 4} SEM pair, in memory"
+        img1, img2, _ = synth_sem_pair(SIZE // 4, SIZE // 4)
+        trace_dir = os.path.join(td, "trace")
+        old = os.environ.get("CVTPU_PROFILE")
+        os.environ["CVTPU_PROFILE"] = trace_dir
+        ncc_sweep.launches = 0
+        t0 = time.perf_counter()
+        try:
+            reconstruct(["a", "b"], os.path.join(td, "profiled.ply"), ReconstructionConfig(
+                projection=ProjectionMode.AFFINE), quiet=True,
+                images=[SourceImage(im) for im in (img1, img2)])
+        finally:
+            if old is None:
+                del os.environ["CVTPU_PROFILE"]
+            else:
+                os.environ["CVTPU_PROFILE"] = old
+        seconds = time.perf_counter() - t0
+        traces = [os.path.join(trace_dir, n) for n in os.listdir(trace_dir)]
+        kernels = set()
+        for path in traces:
+            with open(path) as fh:
+                kernels |= {e.get("name", "") for e in json.load(fh)["traceEvents"]
+                            if e.get("cat") == "kernel"}
+        k1 = sorted(k for k in kernels if any(n in k for n in KERNEL_NAMES["ncc_sweep"]))
+        print(f"{label}: {seconds:.3f} s with the trace; {len(traces)} trace file(s),"
+              f" {sum(os.path.getsize(p) for p in traces)} bytes, {len(kernels)} kernel names;"
+              f" K1 launched {ncc_sweep.launches} times, its kernels in the trace {k1}")
+        if len(traces) != 1 or not k1 or not ncc_sweep.launches:
+            raise AssertionError(f"{label}: the trace does not name K1's kernel")
+        pil = any(m == "PIL" or m.startswith("PIL.") for m in sys.modules)
+    print(f"(y) Pillow imported during the runs {pil}; (y) took"
+          f" {time.perf_counter() - t_phase:.1f} s")
+    if pil:
+        raise AssertionError("(y): Pillow was imported")
     return records
 
 

@@ -7,10 +7,11 @@ box first, with a compatible brand libavif takes (avif or avis), then
 the top-level boxes up to the meta box an avif brand needs and the moov
 box an avis brand needs, each read whole (a cut one is truncated data);
 mdat is not read then. The meta box: hdlr (pict) first, pitm, iloc
-(versions 0-2, construction methods 0 and 1 with idat), iinf with infe
-versions 2 and 3, iref (auxl, cdsc) and iprp (ipco, ipma). A sequence
-whose major brand is avis is read from its tracks (moov/trak/.../stbl:
-stsd av01, stsz, stco or co64, stsc), as libavif's AUTO source does;
+(versions 0-2, construction methods 0 and 1 with idat; libavif fails
+the parse on method 2), iinf with infe versions 2 and 3, iref (auxl,
+cdsc) and iprp (ipco, ipma). A sequence whose major brand is avis is
+read from its tracks (moov/trak/tkhd for the size, .../stbl: stsd av01,
+stsz, stco or co64, stsc), as libavif's AUTO source does;
 otherwise from the primary item, an av01 item or a grid derived item
 (Grid: its ImageGrid payload and rows x cols av01 tiles named by dimg).
 The alpha is the item (or track) that names the colour one through auxl
@@ -29,8 +30,11 @@ applies neither irot nor imir to the pixels, nor clap.
 
 Loading decodes the first frame's AV1 OBUs in the native library
 (av1obu.cpp and its siblings: a key frame of 8, 10 or 12 bits, with its
-quantizer matrices and film grain), stitches a grid's tiles in YUV, and
-converts the image once to 8-bit RGB, or RGBA where there is alpha, as
+quantizer matrices, superres and film grain), scales a frame that is not
+its item's ispe size (or its track's) to it as libavif does
+(native.avif_scale: libyuv's box filter, each plane; a grid's tiles each
+to their own item's), stitches a grid's tiles in YUV, and converts the
+image once to 8-bit RGB, or RGBA where there is alpha, as
 libavif does through libyuv or its own float path, by the colr (else the
 AV1 sequence header's) matrix coefficients and colour primaries
 (avifrgb.cpp); the depth is the AV1 stream's, whatever av1C and pixi say,
@@ -51,7 +55,6 @@ from cybervision_tpu_torch.imageio.errors import (
     CorruptImageError,
     NotThisFormat,
     TruncatedImageError,
-    UnsupportedImageError,
     bomb_check,
     native_missing,
 )
@@ -288,6 +291,8 @@ def _parse_iloc(b, s, e, items):
         if v in (1, 2):
             _need(p, 2, e)
             method, p = _u16(b, p) & 15, p + 2
+            if method not in (0, 1):  # construction method 2, item offsets
+                raise _Syntax(f"iloc construction method {method} (libavif: unsupported)")
         _need(p, 2 + base_size + 2, e)
         p += 2  # data_reference_index
         base, p = _uint(b, p, base_size), p + base_size
@@ -342,6 +347,8 @@ def _parse_trak(b: bytes, s: int, e: int) -> _Track:
             raise _Syntax("tkhd version")
         _need(p, 92 if v == 1 else 80, tkhd[1])
         t.id = _u32(b, p + (16 if v == 1 else 8))
+        # The track's size (16.16), to which libavif scales its frames.
+        t.width, t.height = (_u32(b, p + (84 if v == 1 else 72) + 4 * k) >> 16 for k in range(2))
     tref = _child(b, s, e, [b"tref"])
     if tref:
         for typ, cs, ce in _boxes(b, *tref):
@@ -390,7 +397,6 @@ def _parse_trak(b: bytes, s: int, e: int) -> _Track:
             if typ == b"av01":
                 t.has_av01 = True
                 _need(cs, 78, ce)
-                t.width, t.height = _u16(b, cs + 24), _u16(b, cs + 26)
                 config = False
                 for t2, s2, e2 in _boxes(b, cs + 78, ce):
                     if t2 == b"av1C":
@@ -622,7 +628,10 @@ def _grid(b, items: dict, item: _Item, idat) -> Grid:
         extents = _sized(b, tile, idat)
         if not sum(n for _, n in extents):  # every tile's sample has data
             raise _Syntax(f"grid tile {tid} is empty")
-        tiles.append((extents, _ispe(b, tile)))
+        size = _ispe(b, tile)
+        if not size[0] or not size[1]:
+            raise CorruptImageError(f"AVIF: grid tile {tid} of no size")
+        tiles.append((extents, size))
     return Grid(rows, cols, width, height, tiles)
 
 
@@ -705,9 +714,6 @@ def _extents(b, item: _Item, idat) -> list:
         if idat is None:
             raise _Syntax("item in idat without an idat box")
         return [(idat[0] + o, n) for o, n in item.extents]
-    if item.construction != 0:
-        raise UnsupportedImageError(f"AVIF item construction method {item.construction}"
-                                    " is not supported yet")
     return list(item.extents)
 
 
@@ -723,7 +729,7 @@ def _payload(f: AvifFile, extents: list) -> bytes:
     return b"".join(out)
 
 
-def _grid_planes(f: AvifFile, grid: Grid, native) -> tuple[list, dict]:
+def _grid_planes(f: AvifFile, grid: Grid, native, alpha: bool) -> tuple[list, dict]:
     """The grid's tiles decoded and stitched in YUV, cropped to its output
     size, with the first tile's header fields, as libavif 1.3 fills a
     grid image (avifDecoderDataFillImageGrid): tiles of one size that
@@ -740,7 +746,7 @@ def _grid_planes(f: AvifFile, grid: Grid, native) -> tuple[list, dict]:
                                 " or leave a row or column out of it")
     if tw < 64 or th < 64:
         raise CorruptImageError("AVIF: invalid image grid: tiles under 64 samples a side")
-    decoded = [native.av1_decode(_payload(f, extents), tw, th) for extents, _ in grid.tiles]
+    decoded = [_decoded(f, extents, size, native, alpha) for extents, size in grid.tiles]
     fields = decoded[0][1]
     kind = ("mono", "subsampling", "full_range", "matrix", "primaries", "depth")
     if any(any(fl[k] != fields[k] for k in kind) for _, fl in decoded):
@@ -760,10 +766,22 @@ def _grid_planes(f: AvifFile, grid: Grid, native) -> tuple[list, dict]:
     return planes, fields
 
 
-def _planes(f: AvifFile, source, native) -> tuple[list, dict]:
+def _decoded(f: AvifFile, extents: list, size: tuple, native,
+             alpha: bool) -> tuple[list, dict]:
+    """An av01 item's frame, scaled to the item's ispe size where it has
+    another (libavif's avifImageScaleWithLimit after the decode); an alpha
+    frame of limited range is taken to full range before it is scaled."""
+    planes, fields = native.av1_decode(_payload(f, extents), *size)
+    if alpha and not fields["full_range"]:
+        planes = [_limited_to_full(planes[0], fields["depth"])]
+    sub = (0, 0) if fields["mono"] else fields["subsampling"]
+    return native.avif_scale(planes, sub, *size), fields
+
+
+def _planes(f: AvifFile, source, native, alpha: bool = False) -> tuple[list, dict]:
     if isinstance(source, Grid):
-        return _grid_planes(f, source, native)
-    return native.av1_decode(_payload(f, source), *f.size)
+        return _grid_planes(f, source, native, alpha)
+    return _decoded(f, source, f.size, native, alpha)
 
 
 def _limited_to_full(a: np.ndarray, depth: int) -> np.ndarray:
@@ -792,15 +810,13 @@ def decode(f: AvifFile, native) -> tuple[str, np.ndarray, None]:
                                             fields["full_range"])
     a = None
     if f.alpha:
-        alpha, afields = _planes(f, f.alpha, native)
+        alpha, afields = _planes(f, f.alpha, native, alpha=True)
         a = alpha[0]
         if a.shape != planes[0].shape:
             raise CorruptImageError("AVIF alpha of another size than its colour image")
         if afields["depth"] != depth:  # libavif fails the alpha's decode
             raise CorruptImageError(f"AVIF alpha of {afields['depth']} bits, its colour image"
                                     f" of {depth}")
-        if not afields["full_range"]:
-            a = _limited_to_full(a, depth)
     out = native.avif_yuv_to_rgb(planes, fields["subsampling"], bool(full), matrix, primaries,
                                  4 if f.alpha else 3, depth, a)
     if f.premultiplied and f.alpha:

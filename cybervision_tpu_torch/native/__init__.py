@@ -1,7 +1,8 @@
 """ctypes bindings for the native host library: the writers and meshers
 (native.cpp), the image readers' pixel loops (imagedecode.cpp and, for
 WebP, webpdecode.cpp, for block-compressed textures, bcndecode.cpp, for
-JPEG 2000, j2kdecode.cpp, for AVIF, av1*.cpp and avifrgb.cpp) and the
+JPEG 2000, j2kdecode.cpp, for AVIF, av1*.cpp, yuvscale.cpp and
+avifrgb.cpp) and the
 image writers' (imageencode.cpp and,
 for JPEG 2000, j2kencode.cpp, for WebP, webpencode.cpp).
 
@@ -16,7 +17,8 @@ BC1-BC7 blocks of DDS and FTEX and BLP's DXT blocks; j2kdecode.cpp a
 JPEG 2000 tile, as OpenJPEG decodes it; av1obu.cpp, av1entropy.cpp,
 av1recon.cpp, av1filter.cpp and av1grain.cpp (sharing av1.h and the
 generated av1tables.h) an AVIF image's AV1 key frame, as dav1d decodes
-it with its film grain, and
+it with superres and film grain, yuvscale.cpp its planes scaled to its
+item's size, as libavif scales them through libyuv, and
 avifrgb.cpp its YUV to RGB(A), as libavif converts it through libyuv
 (imageio.avif); imageencode.cpp the
 JPEG writer's scan (imageio.jpeg_encode), the QOI writer's ops
@@ -112,18 +114,20 @@ _SIGNATURES = {
     "j2k_encode_tile": ([_U8P, _L, _L, _L, _L, _U8P, _L], _L),
     "webp_vp8_encode": ([_U8P, _L, _L, _U8P, _L], _L),
     "webp_alph_encode": ([_U8P, _L, _L, _U8P, _L], _L),
-    "av1_decode": ([_U8P, _L, _L, _L, _I32P, _U8P, _U8P, _U8P], _L),
+    "av1_decode": ([_U8P, _L, _L, _I32P, _U8P, _U8P, _U8P], _L),
     "av1_error": ([], ctypes.c_char_p),
     "avif_yuv_to_rgb": ([_U8P, _U8P, _U8P, _U8P, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _U8P],
                         _L),
     "avif_unpremultiply": ([_U8P, _L], None),
     "avif_rgb_to_yuv": ([_U8P, _L, _L, _U8P, _U8P, _U8P], None),
     "av1_encode": ([_U8P, _U8P, _U8P, _L, _L, _L, _U8P, _L], _L),
+    "yuv_scale_plane": ([_U8P, _L, _L, _U8P, _L, _L, _L], None),
 }
 _SOURCES = ("native.cpp", "imagedecode.cpp", "imageencode.cpp", "webpdecode.cpp", "webpencode.cpp",
             "webpcommon.h", "bcndecode.cpp", "j2kdecode.cpp", "j2kencode.cpp", "j2kcommon.h",
             "av1.h", "av1tables.h", "av1obu.cpp", "av1entropy.cpp", "av1recon.cpp",
-            "av1filter.cpp", "av1grain.cpp", "avifrgb.cpp", "av1encode.cpp", "Makefile")
+            "av1filter.cpp", "av1grain.cpp", "avifrgb.cpp", "av1encode.cpp", "yuvscale.cpp",
+            "Makefile")
 
 
 def _stale() -> bool:
@@ -764,12 +768,13 @@ def webp_alph_decode(data: bytes, width: int, height: int) -> np.ndarray:
     return out
 
 
-def av1_decode(data: bytes, width: int, height: int) -> tuple[list[np.ndarray], dict]:
+def av1_decode(data: bytes, width: int = 0, height: int = 0) -> tuple[list[np.ndarray], dict]:
     """The first frame of an AV1 stream (av1obu.cpp's av1_decode), a key
-    frame of 8, 10 or 12 bits that must be width x height: ([Y] or [Y, U,
-    V] planes, uint8 at 8 bits and uint16 above, the sequence header's
-    colour fields, bit depth and profile, the frame's quantizer matrix
-    levels and apply_grain, and under "frame" the frame header's
+    frame of 8, 10 or 12 bits, at its own (upscaled) size, whatever
+    width x height its container gives (the buffers' first size): ([Y] or
+    [Y, U, V] planes, uint8 at 8 bits and uint16 above, the sequence
+    header's colour fields, bit depth and profile, the frame's quantizer
+    matrix levels and apply_grain, and under "frame" the frame header's
     base_q_idx, delta q and delta lf flags, quantizer matrix flag, tile
     counts, screen content tools and tx mode select)."""
     from cybervision_tpu_torch.imageio.errors import CorruptImageError, UnsupportedImageError
@@ -777,15 +782,17 @@ def av1_decode(data: bytes, width: int, height: int) -> tuple[list[np.ndarray], 
     lib = load()
     dptr, _keep = _bytes_ptr(data)
     info = np.zeros(24, np.int32)
-    n = width * height  # room for 4:4:4 at 16 bits a sample
-    y, u, v = (np.empty(n, np.uint16) for _ in range(3))
-    code = lib.av1_decode(dptr, len(data), width, height, _ptr(info, ctypes.c_int32),
-                          _ptr(y, ctypes.c_uint8), _ptr(u, ctypes.c_uint8), _ptr(v, ctypes.c_uint8))
+    n = max(width * height, 1)  # room for 4:4:4 at 16 bits a sample
+    while True:
+        y, u, v = (np.empty(n, np.uint16) for _ in range(3))
+        code = lib.av1_decode(dptr, len(data), n, _ptr(info, ctypes.c_int32),
+                              _ptr(y, ctypes.c_uint8), _ptr(u, ctypes.c_uint8),
+                              _ptr(v, ctypes.c_uint8))
+        if code != -4:
+            break
+        n = int(info[0]) * int(info[1])  # a frame larger than its container's size
     if code < 0:
         why = lib.av1_error().decode("utf-8", "replace")
-        if code == -4:  # libavif scales such a frame to the item's size
-            raise UnsupportedImageError(f"AVIF: {why}; scaling a frame to its item's size"
-                                        " is not supported yet")
         raise (UnsupportedImageError if code == -3 else CorruptImageError)(f"AV1: {why}")
     fields = dict(mono=int(info[2]), subsampling=(int(info[3]), int(info[4])),
                   matrix=int(info[5]), full_range=int(info[6]), primaries=int(info[7]),
@@ -796,6 +803,7 @@ def av1_decode(data: bytes, width: int, height: int) -> tuple[list[np.ndarray], 
                                  (int(x) for x in info[12:20]))),
                   depth=int(info[20]), profile=int(info[21]))
     wide = fields["depth"] > 8
+    width, height = int(info[0]), int(info[1])
 
     def plane(buf, w, h):
         return (buf if wide else buf.view(np.uint8))[: w * h].reshape(h, w)
@@ -806,6 +814,42 @@ def av1_decode(data: bytes, width: int, height: int) -> tuple[list[np.ndarray], 
         cw, ch = (width + sx) >> sx, (height + sy) >> sy
         planes += [plane(u, cw, ch), plane(v, cw, ch)]
     return planes, fields
+
+
+def avif_scale(planes: list[np.ndarray], subsampling: tuple[int, int], width: int,
+               height: int) -> list[np.ndarray]:
+    """A decoded frame's planes ([Y] or [Y, U, V], uint8 or uint16) scaled
+    to width x height, chroma to its subsampled size, as libavif 1.3's
+    avifImageScaleWithLimit does where a frame is not its item's ispe size
+    (yuvscale.cpp: libyuv's ScalePlane / ScalePlane_12 at kFilterBox); the
+    planes themselves at that size. A size libavif refuses raises
+    CorruptImageError with its diagnostic, as Pillow's load fails."""
+    from cybervision_tpu_torch.imageio.errors import CorruptImageError
+
+    sh, sw = planes[0].shape
+    if (sw, sh) == (width, height):
+        return planes
+    why = None
+    if not width or not height:
+        why = f"requested invalid dst dimensions [{width}x{height}]"
+    elif (1 << 28) // height < width or max(width, height) > 32768:
+        why = f"requested dst dimensions that are too large [{width}x{height}]"
+    elif sw > 16384:
+        why = f"requested invalid width scale for libyuv [{sw} -> {width}]"
+    elif sh > 16384:
+        why = f"requested invalid height scale for libyuv [{sh} -> {height}]"
+    if why:
+        raise CorruptImageError(f"AVIF: avifImageScaleWithLimit {why}")
+    out = []
+    for k, p in enumerate(planes):
+        sx, sy = subsampling if k else (0, 0)
+        w, h = (width + sx) >> sx, (height + sy) >> sy
+        src = np.ascontiguousarray(p)
+        dst = np.empty((h, w), src.dtype)
+        load().yuv_scale_plane(_ptr(src, ctypes.c_uint8), src.shape[1], src.shape[0],
+                               _ptr(dst, ctypes.c_uint8), w, h, int(src.dtype == np.uint16))
+        out.append(dst)
+    return out
 
 
 def avif_yuv_to_rgb(planes: list[np.ndarray], subsampling: tuple[int, int], full_range: bool,

@@ -1,9 +1,10 @@
 // What the AV1 key-frame decoder's sources share (av1obu.cpp: OBUs and
 // headers; av1entropy.cpp: the symbol decoder and a tile's syntax;
 // av1recon.cpp: prediction and inverse transforms; av1filter.cpp:
-// deblocking, CDEF and loop restoration; av1grain.cpp: film grain). It decodes the first frame of
-// an AV1 stream, a key frame of 8, 10 or 12 bits, as the AV1 specification
-// (2019, with errata) sets out, which is what dav1d decodes bit for bit.
+// deblocking, CDEF, superres upscaling and loop restoration; av1grain.cpp:
+// film grain). It decodes the first frame of an AV1 stream, a key frame
+// of 8, 10 or 12 bits, as the AV1 specification (2019, with errata) sets
+// out, which is what dav1d decodes bit for bit.
 // Names follow the specification's. As dav1d's 8bpc and 16bpc templates
 // do, every function that touches samples is a template of the sample
 // type (uint8_t at 8 bits, uint16_t above), so the 8-bit path keeps its
@@ -101,6 +102,9 @@ struct FrameHeader {
     int disable_cdf_update = 0, allow_screen_content_tools = 0, allow_intrabc = 0;
     int frame_width = 0, frame_height = 0, upscaled_width = 0, render_width = 0;
     int render_height = 0, mi_cols = 0, mi_rows = 0;
+    // Superres: frame_width is the coded (downscaled) width, upscaled_width
+    // the output's; the denominator over SUPERRES_NUM (8), 8 without.
+    int use_superres = 0, superres_denom = 8;
     int disable_frame_end_update_cdf = 1;
     // Tiles.
     int tile_cols = 1, tile_rows = 1, tile_cols_log2 = 0, tile_rows_log2 = 0;
@@ -217,9 +221,13 @@ void decode_tile(Decoder& d, const uint8_t* data, size_t size, int tile_row, int
 // the plane, merged ascending without repeats. Returns their count.
 int palette_cache(const Decoder& d, int mi_row, int mi_col, int avail_u, int avail_l, int plane,
                   uint16_t* cache);
-// av1filter.cpp: after every tile.
+// av1filter.cpp: after every tile, in this order.
 void loop_filter_frame(Decoder& d);
 void cdef_frame(Decoder& d);
+// The superres upscaling (7.16) of the CDEF output, and of the deblocked
+// frame that loop restoration reads across stripe edges, to the upscaled
+// width; nothing without superres.
+void superres_frame(Decoder& d);
 void lr_frame(Decoder& d);
 // av1grain.cpp: the film grain synthesis, on Decoder::lr.
 void film_grain_frame(Decoder& d);

@@ -216,9 +216,13 @@ struct Tile {
             int rows = d.lr_unit_rows[p], cols = d.lr_unit_cols[p];
             int row0 = (r * (4 >> sy) + unit - 1) / unit;
             int row1 = std::min(rows, ((r + h) * (4 >> sy) + unit - 1) / unit);
-            int num = 4 >> sx;
-            int col0 = (col * num + unit - 1) / unit;
-            int col1 = std::min(cols, ((col + w) * num + unit - 1) / unit);
+            // Units are counted at the upscaled width: with superres, a
+            // coded column is SuperresDenom / 8 upscaled ones (where the
+            // widths differ, as dav1d reads them).
+            int num = 4 >> sx, den = unit;
+            if (f.frame_width != f.upscaled_width) num *= f.superres_denom, den *= 8;
+            int col0 = (col * num + den - 1) / den;
+            int col1 = std::min(cols, ((col + w) * num + den - 1) / den);
             for (int ur = row0; ur < row1; ur++)
                 for (int uc = col0; uc < col1; uc++) read_lr_unit(p, ur * cols + uc);
         }

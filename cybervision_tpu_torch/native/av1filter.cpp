@@ -1,11 +1,12 @@
 // The in-loop filters of an AV1 key frame, in the specification's order:
 // deblocking (AV1 specification 7.14: every vertical edge of a plane,
-// then every horizontal one), CDEF (7.15, on the deblocked frame) and
-// loop restoration (7.17: Wiener and self-guided, reading the deblocked
-// frame above and below each 64-row stripe and the CDEF output within
-// it). The result is Decoder::lr. Each filter is a template of the sample
-// type; above 8 bits the thresholds, strengths and roundings shift by
-// BitDepth - 8 as the specification sets out.
+// then every horizontal one), CDEF (7.15, on the deblocked frame), the
+// superres upscaling (7.16, of both) and loop restoration (7.17: Wiener
+// and self-guided, reading the deblocked frame above and below each
+// 64-row stripe and the CDEF output within it). The result is
+// Decoder::lr. Each filter is a template of the sample type; above 8 bits
+// the thresholds, strengths and roundings shift by BitDepth - 8 as the
+// specification sets out.
 
 #include "av1.h"
 
@@ -300,6 +301,54 @@ struct Cdef {
     }
 };
 
+// -- superres upscaling (7.16) ---------------------------------------------------
+
+// A plane's rows widened from its coded width to dst_w as dav1d's resize
+// computes the specification's process: 14-bit positions from x0 by step,
+// the 8-tap Upscale_Filter at a position's 6-bit phase, the source
+// clamped to the plane's decoded width (the samples of its last
+// superblocks past the frame's edge included).
+template <typename pixel>
+void upscale_plane(const Plane& src, Plane& dst, int src_w, int step, int x0, int maxv) {
+    for (int y = 0; y < src.height; y++) {
+        const pixel* in = src.px<pixel>(y);
+        pixel* out = dst.px<pixel>(y);
+        int mx = x0, sx = -1;
+        for (int x = 0; x < dst.width; x++) {
+            const int16_t* F = kUpscaleFilter[mx >> 8];
+            int sum = 0;
+            for (int k = 0; k < 8; k++) sum += F[k] * in[clip3(0, src_w - 1, sx + k - 3)];
+            out[x] = (pixel)clip3(0, maxv, (sum + 64) >> 7);
+            mx += step;
+            sx += mx >> 14;
+            mx &= 0x3fff;
+        }
+    }
+}
+
+template <typename pixel>
+void superres(Decoder& d) {
+    const SequenceHeader& s = d.seq;
+    const FrameHeader& f = d.fh;
+    for (int p = 0; p < s.num_planes; p++) {
+        int ss = p ? s.subsampling_x : 0;
+        int in_w = (f.frame_width + ss) >> ss, out_w = (f.upscaled_width + ss) >> ss;
+        int step = ((in_w << 14) + (out_w >> 1)) / out_w;
+        int err = out_w * step - (in_w << 14);
+        int x0 = ((-((out_w - in_w) << 13) + (out_w >> 1)) / out_w + 128 - err / 2) & 0x3fff;
+        int src_w = (4 * f.mi_cols + ss) >> ss;
+        // Loop restoration reads the deblocked frame across its stripes'
+        // edges: that is upscaled too.
+        for (Plane* pl : {&d.cdef[p], &d.cur[p]}) {
+            if (pl == &d.cur[p] && !f.uses_lr) continue;
+            Plane up;
+            alloc_plane(up, out_w, pl->height, sizeof(pixel));
+            upscale_plane<pixel>(*pl, up, src_w, step, x0, pixel_max<pixel>(d));
+            *pl = std::move(up);
+        }
+    }
+}
+
 // -- loop restoration (7.17) ------------------------------------------------------
 
 template <typename pixel>
@@ -454,6 +503,13 @@ void loop_filter_frame(Decoder& d) {
 void cdef_frame(Decoder& d) {
     if (d.seq.bit_depth > 8) Cdef<uint16_t>(d).run();
     else Cdef<uint8_t>(d).run();
+}
+void superres_frame(Decoder& d) {
+    // dav1d upscales only where the widths differ (a frame of 16 samples
+    // or fewer keeps its width).
+    if (d.fh.frame_width == d.fh.upscaled_width) return;
+    if (d.seq.bit_depth > 8) superres<uint16_t>(d);
+    else superres<uint8_t>(d);
 }
 void lr_frame(Decoder& d) {
     if (d.seq.bit_depth > 8) Restoration<uint16_t>(d).run();

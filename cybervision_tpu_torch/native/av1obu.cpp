@@ -445,18 +445,28 @@ void frame_header(BitReader& br, const SequenceHeader& s, FrameHeader& f, int te
         f.frame_width = s.max_frame_width;
         f.frame_height = s.max_frame_height;
     }
-    if (s.enable_superres && br.f(1)) unsupported("AV1 superres");
+    // superres_params (5.9.8): the frame is coded at the downscaled width,
+    // at least 16 samples (or the upscaled width below that), as dav1d
+    // and libaom hold it.
     f.upscaled_width = f.frame_width;
+    f.use_superres = s.enable_superres ? br.f(1) : 0;
+    if (f.use_superres) {
+        f.superres_denom = br.f(3) + 9;
+        f.frame_width = std::max((f.upscaled_width * 8 + f.superres_denom / 2) / f.superres_denom,
+                                 std::min(16, f.upscaled_width));
+    }
     f.mi_cols = 2 * ((f.frame_width + 7) >> 3);
     f.mi_rows = 2 * ((f.frame_height + 7) >> 3);
     if (br.f(1)) {  // render_and_frame_size_different
         f.render_width = br.f(16) + 1;
         f.render_height = br.f(16) + 1;
     } else {
-        f.render_width = f.frame_width;
+        f.render_width = f.upscaled_width;
         f.render_height = f.frame_height;
     }
-    if (f.allow_screen_content_tools) f.allow_intrabc = br.f(1);
+    // dav1d reads it without superres (the specification: where the widths
+    // are equal, which superres at 16 samples or fewer leaves them).
+    if (f.allow_screen_content_tools && !f.use_superres) f.allow_intrabc = br.f(1);
     f.disable_frame_end_update_cdf =
         (s.reduced_still_picture_header || f.disable_cdf_update) ? 1 : br.f(1);
     tile_info(br, s, f);
@@ -521,7 +531,7 @@ void frame_header(BitReader& br, const SequenceHeader& s, FrameHeader& f, int te
                                 !f.delta_q_u_dc && !f.delta_q_v_ac && !f.delta_q_v_dc;
         if (!f.lossless_array[seg]) f.coded_lossless = 0;
     }
-    f.all_lossless = f.coded_lossless;
+    f.all_lossless = f.coded_lossless && f.frame_width == f.upscaled_width;
     // loop_filter_params (intra block copy turns off every loop filter)
     if (!f.coded_lossless && !f.allow_intrabc) {
         f.loop_filter_level[0] = br.f(6);
@@ -717,6 +727,7 @@ void decode_frame_obus(Decoder& d, const uint8_t* data, size_t size) {
         corrupt("AV1 stream ends before its first frame is whole");
     loop_filter_frame(d);
     cdef_frame(d);
+    superres_frame(d);
     lr_frame(d);
     film_grain_frame(d);
 }
@@ -772,23 +783,23 @@ thread_local char g_error[256];
 extern "C" {
 
 // Decode the first frame of an AV1 OBU stream (an AVIF item or a
-// sequence's first sample) whose frame must be width x height, into
-// planes of that size: y (w*h) and, unless monochrome, u and v
+// sequence's first sample) into planes of the frame's own (upscaled) size
+// w x h (info[0], info[1]): y (w*h) and, unless monochrome, u and v
 // (((w+sx)>>sx) * ((h+sy)>>sy)), of bytes at 8 bits and of uint16_t
-// samples at 10 and 12 (each buffer holds room for the wider). info as
-// fill_info. Returns 0; -1 for a damaged stream, -3 for a tool not
-// supported yet, -4 when the frame's size is not width x height (info
-// filled, nothing copied); av1_error() says why.
-long av1_decode(const uint8_t* data, long size, long width, long height, int32_t* info,
-                void* y, void* u, void* v) {
+// samples at 10 and 12; each buffer holds `capacity` samples of the
+// wider kind. info as fill_info. Returns 0; -1 for a damaged stream, -3
+// for a tool not supported yet, -4 when the frame needs buffers of more
+// than `capacity` samples (info filled, nothing copied); av1_error() says
+// why.
+long av1_decode(const uint8_t* data, long size, long capacity, int32_t* info, void* y, void* u,
+                void* v) {
     try {
         auto d = std::make_unique<av1::Decoder>();
         av1::decode_frame_obus(*d, data, (size_t)size);
         fill_info(*d, info);
         int w = info[0], h = info[1];
-        if (w != width || h != height) {
-            std::snprintf(g_error, sizeof g_error, "the AV1 frame is %dx%d, its container says %ldx%ld",
-                          w, h, width, height);
+        if ((long)w * h > capacity) {
+            std::snprintf(g_error, sizeof g_error, "the AV1 frame is %dx%d", w, h);
             return -4;
         }
         auto copy = d->seq.bit_depth > 8 ? copy_plane<uint16_t> : copy_plane<uint8_t>;

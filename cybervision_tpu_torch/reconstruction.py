@@ -19,11 +19,16 @@ RANSAC (per pair), P3P candidate scoring and every pyramid level of the
 dense correlation (resize to cross-check) shard over it, and everything
 else runs on its lead device; without one the single-device path is
 unchanged.
+
+CVTPU_PROFILE=<dir> traces a run with torch.profiler into that directory
+(_torch_trace); unset, no profiler runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import sys
 import threading
 
@@ -200,7 +205,10 @@ class Reconstruction:
 
     # -- full pipeline ----------------------------------------------------
     def run(self) -> None:
-        with self._timer("Completed reconstruction", self.quiet):
+        profile_dir = os.environ.get("CVTPU_PROFILE")
+        profiler = (_torch_trace(profile_dir, self.device) if profile_dir
+                    else contextlib.nullcontext())
+        with profiler, self._timer("Completed reconstruction", self.quiet):
             if self.cfg.projection == ProjectionMode.AFFINE:
                 self._run_affine()
             else:
@@ -538,6 +546,22 @@ class Reconstruction:
                 output_cfg=self.cfg.output,
                 texture_encoder=encoder,
             )
+
+
+@contextlib.contextmanager
+def _torch_trace(profile_dir: str, device: torch.device):
+    """The run under torch.profiler (the JAX package's _jax_trace): host
+    operators, and the card's kernels and copies where the run is on one,
+    written on exit as a Chrome trace into profile_dir
+    (<host>_<pid>.<ms>.pt.trace.json; TensorBoard's profiler plugin reads
+    the directory, Perfetto or chrome://tracing a file)."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        yield
 
 
 def _apply_hardware_mode(cfg: ReconstructionConfig) -> ReconstructionConfig:

@@ -52,7 +52,11 @@
   Pillow's plane hashes or the step at which Pillow fails ("avif kinds");
   and phase 8 (x)'s 10- and 12-bit files, Pillow's 8-bit files with their
   AV1 sequence headers, av1C and pixi rewritten (avif_depth_fixtures,
-  high_depth), with Pillow's plane hashes ("avif depth");
+  high_depth), with Pillow's plane hashes ("avif depth"); and phase 8
+  (y)'s superres files, aom's streams coded at the downscaled width with
+  their headers rewritten (superres), and files whose ispe is not their
+  frame's size (with_ispe), with Pillow's plane hashes or the step at
+  which Pillow fails (avif_scale_fixtures, "avif scale");
 * tests/fixtures/torch_lzma_damaged.tif: a 64x256 gradient as one
   xz-compressed strip (no check) with bits flipped where liblzma fills the
   strip before it finds the damage, so that Pillow's libtiff reads it
@@ -74,6 +78,7 @@ Run from the repo root:
     python -m tests.gen_torch_formats_fixture avif   # the AVIF files alone
     python -m tests.gen_torch_formats_fixture avif-kinds   # only those of "avif kinds"
     python -m tests.gen_torch_formats_fixture avif-depth   # only those of "avif depth"
+    python -m tests.gen_torch_formats_fixture avif-scale   # only those of "avif scale"
 
 The port must decode the files to those planes and encode the arrays to
 those bytes (tests/test_torch_images.py, tests/test_torch_jpeg_encode.py,
@@ -507,6 +512,49 @@ class Libavif:
         assert lib.avifRGBImageUnpremultiplyAlpha(rgb) == 0
         return out
 
+    def scale(self, planes, depth: int, fmt: str, width: int, height: int, alpha=None):
+        """avifImageScale of the planes ([Y] or [Y, U, V], and an alpha
+        plane; uint8 at depth 8, uint16 above) to width x height: the
+        scaled planes (the alpha last), or (avifResult, its diagnostic)
+        where it fails."""
+        ct, lib = self.ct, self.lib
+        lib.avifImageScale.argtypes = [ct.c_void_p, ct.c_uint32, ct.c_uint32, ct.c_void_p]
+        lib.avifImageScale.restype = ct.c_int
+        h, w = planes[0].shape
+        im = lib.avifImageCreate(w, h, depth, self.FORMATS[fmt])
+        dtype = np.dtype(np.uint16 if depth > 8 else np.uint8)
+        try:
+            assert lib.avifImageAllocatePlanes(
+                im, self.PLANES_YUV if alpha is None else self.PLANES_ALL) == 0
+            targets = [(self.IMAGE_PLANES + 8 * k, self.IMAGE_ROW_BYTES + 4 * k)
+                       for k in range(len(planes))]
+            if alpha is not None:
+                targets.append((self.IMAGE_ALPHA, self.IMAGE_ALPHA_ROW_BYTES))
+            for (at, rb_at), plane in zip(targets, [*planes] + ([alpha] if alpha is not None
+                                                                else [])):
+                ptr = ct.c_void_p.from_address(im + at).value
+                row_bytes = ct.c_uint32.from_address(im + rb_at).value
+                plane = np.ascontiguousarray(plane, dtype)
+                for r in range(plane.shape[0]):
+                    ct.memmove(ptr + r * row_bytes, plane[r].ctypes.data, plane[r].nbytes)
+            diag = ct.create_string_buffer(512)
+            res = lib.avifImageScale(im, width, height, diag)
+            if res != 0:
+                return res, diag.value.decode()
+            out = []
+            for k, (at, rb_at) in enumerate(targets):
+                ptr = ct.c_void_p.from_address(im + at).value
+                row_bytes = ct.c_uint32.from_address(im + rb_at).value
+                sx, sy = ({"420": (1, 1), "422": (1, 0)}.get(fmt, (0, 0))
+                          if 0 < k < len(planes) else (0, 0))
+                pw, ph = (width + sx) >> sx, (height + sy) >> sy
+                out.append(np.stack([np.frombuffer(ct.string_at(ptr + r * row_bytes,
+                                                                pw * dtype.itemsize), dtype)
+                                     for r in range(ph)]))
+            return out
+        finally:
+            lib.avifImageDestroy(im)
+
     def encode(self, images: list, grid=None, options=(), quality=60, speed=6) -> bytes:
         """One image, or a (rows, cols) grid of them, at the quality (also
         the alpha's) and speed, with aom's codec options; the images are
@@ -659,10 +707,10 @@ class _SeqBits:
         self.profile = f(3)
         f(1)
         reduced = f(1)
+        decoder_model = buffer_delay = 0
         if reduced:
             f(5)
         else:
-            decoder_model = buffer_delay = 0
             if f(1):  # timing_info_present_flag
                 f(64)
                 if f(1):  # equal_picture_interval
@@ -684,22 +732,29 @@ class _SeqBits:
                     f(2 * buffer_delay + 1)
                 if display_delay and f(1):
                     f(4)
-        fwb, fhb = f(4) + 1, f(4) + 1
-        f(fwb + fhb)
-        if not reduced and f(1):  # frame_id_numbers_present_flag
+        self.reduced, self.decoder_model = reduced, decoder_model
+        self.dims = self.pos
+        self.fwb, self.fhb = f(4) + 1, f(4) + 1
+        self.max_w, self.max_h = f(self.fwb) + 1, f(self.fhb) + 1
+        self.dims_end = self.pos
+        self.frame_ids = not reduced and f(1)  # frame_id_numbers_present_flag
+        if self.frame_ids:
             f(7)
-        f(3)
+        self.sb128 = f(1)
+        f(2)
+        self.screen = self.integer_mv = 2
+        self.order_hint_bits = 0
         if not reduced:
             f(4)
             order_hint = f(1)
             if order_hint:
                 f(2)
-            screen = 2 if f(1) else f(1)
-            if screen > 0 and not f(1):
-                f(1)
+            self.screen = 2 if f(1) else f(1)
+            self.integer_mv = (2 if f(1) else f(1)) if self.screen > 0 else 2
             if order_hint:
-                f(3)
-        f(3)  # superres, cdef, restoration
+                self.order_hint_bits = f(3) + 1
+        self.tools = self.pos
+        self.superres, self.cdef, self.restoration = f(1), f(1), f(1)
         self.cc = self.pos
         high = f(1)
         depth = (12 if f(1) else 10) if self.profile == 2 and high else (10 if high else 8)
@@ -720,7 +775,7 @@ class _SeqBits:
                 self.csp = f(2)
         self.sep_uv = 0 if self.mono else f(1)
         self.cc_end = self.pos
-        f(1)  # film_grain_params_present
+        self.grain = f(1)  # film_grain_params_present
         self.end = self.pos
 
     def f(self, n: int) -> int:
@@ -802,6 +857,233 @@ def _high_depth_sample(data: bytes, depth: int) -> tuple[bytes, _SeqBits]:
     return bytes(out), seq
 
 
+def _put(v: int, n: int) -> list:
+    return [(v >> (n - 1 - k)) & 1 for k in range(n)]
+
+
+def _packed(bits: list) -> bytes:
+    bits = bits + [0] * (-len(bits) % 8)
+    return bytes(sum(b << (7 - k) for k, b in enumerate(bits[i:i + 8]))
+                 for i in range(0, len(bits), 8))
+
+
+class _FrameBits:
+    """A shown key frame's uncompressed header over its sequence header
+    (a _SeqBits without a decoder model or frame ids), parsed as
+    av1obu.cpp's frame_header reads it: where superres_params sit
+    (`sr`), allow_intrabc's bit (`intrabc`, None where it is not read),
+    where the header ends (`end`), and the frame's loop restoration
+    types and unit size (`lr`, `lr_size`)."""
+
+    def __init__(self, payload: bytes, seq: _SeqBits):
+        assert not seq.decoder_model and not seq.frame_ids
+        self.bits = [(byte >> (7 - k)) & 1 for byte in payload for k in range(8)]
+        self.pos = 0
+        f = self.f
+        planes = 1 if seq.mono else 3
+        if not seq.reduced:
+            assert f(1) == 0 and f(2) == 0 and f(1) == 1, "a shown key frame"
+        no_cdf_update = f(1)
+        screen = f(1) if seq.screen == 2 else seq.screen
+        if screen and seq.integer_mv == 2:
+            f(1)
+        assert seq.reduced or f(1) == 0, "frame_size_override_flag"
+        f(seq.order_hint_bits)
+        w, h = seq.max_w, seq.max_h
+        self.sr = self.pos
+        assert not seq.superres, "a sequence header that allows superres already"
+        self.width, self.height = w, h
+        if f(1):  # render_and_frame_size_different
+            f(32)
+        self.intrabc = None
+        intrabc = 0
+        if screen:
+            self.intrabc = self.pos
+            intrabc = f(1)
+        if not seq.reduced and not no_cdf_update:
+            f(1)  # disable_frame_end_update_cdf
+        self._tile_info(seq, 2 * ((w + 7) >> 3), 2 * ((h + 7) >> 3))
+        base_q = f(8)
+        deltas = [self._delta_q()]
+        if planes > 1:
+            diff = f(1) if seq.sep_uv else 0
+            deltas += [self._delta_q(), self._delta_q()]
+            if diff:
+                deltas += [self._delta_q(), self._delta_q()]
+        if f(1):  # using_qmatrix
+            f(8 + 4 * seq.sep_uv)
+        seg_q = [base_q] * 8
+        if f(1):  # segmentation_enabled
+            bits, signed = (8, 6, 6, 6, 6, 3, 0, 0), (1, 1, 1, 1, 1, 0, 0, 0)
+            for i in range(8):
+                for j in range(8):
+                    if f(1):
+                        v = f(1 + bits[j]) if signed[j] else f(bits[j])
+                        if j == 0:
+                            v -= (v >> 8) << 9
+                            seg_q[i] = min(max(base_q + max(-255, min(255, v)), 0), 255)
+        delta_q = f(1) if base_q > 0 else 0
+        if delta_q:
+            f(2)
+            if not intrabc and f(1):
+                f(3)
+        lossless = not any(seg_q) and not any(deltas)
+        self.lossless = lossless
+        if not lossless and not intrabc:
+            levels = [f(6), f(6)]
+            if planes > 1 and any(levels):
+                f(12)
+            f(3)
+            if f(1) and f(1):  # loop_filter_delta_enabled, _update
+                for _ in range(10):
+                    if f(1):
+                        f(7)
+        if not lossless and not intrabc and seq.cdef:
+            f(2)
+            for _ in range(1 << f(2)):
+                f(6 if planes == 1 else 12)
+        self.lr, self.lr_size = [0] * planes, None
+        if not lossless and not intrabc and seq.restoration:
+            self.lr = [f(2) for _ in range(planes)]
+            if any(self.lr):
+                shift = f(1) + 1 if seq.sb128 else f(1)
+                if not seq.sb128 and shift:
+                    shift += f(1)
+                self.lr_size = 256 >> (2 - shift)
+                if seq.sub == (1, 1) and any(self.lr[1:]):
+                    f(1)
+        if not lossless:
+            f(1)  # tx_mode_select
+        f(1)  # reduced_tx_set
+        if seq.grain:
+            self._film_grain(seq)
+        self.end = self.pos
+
+    def f(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = v << 1 | self.bits[self.pos]
+            self.pos += 1
+        return v
+
+    def _delta_q(self) -> int:
+        if not self.f(1):
+            return 0
+        v = self.f(7)
+        return v - 128 if v & 64 else v
+
+    def _ns(self, n: int) -> int:
+        w = n.bit_length()
+        m = (1 << w) - n
+        v = self.f(w - 1)
+        return v if v < m else (v << 1) - m + self.f(1)
+
+    def _tile_info(self, seq, mi_cols, mi_rows):
+        f = self.f
+        shift = 5 if seq.sb128 else 4
+        sb_cols, sb_rows = -(-mi_cols >> shift), -(-mi_rows >> shift)
+        size = shift + 2
+        max_w_sb, max_area_sb = 4096 >> size, (4096 * 2304) >> (2 * size)
+
+        def tile_log2(blk, target):
+            k = 0
+            while (blk << k) < target:
+                k += 1
+            return k
+
+        min_cols = tile_log2(max_w_sb, sb_cols)
+        max_cols, max_rows = tile_log2(1, min(sb_cols, 64)), tile_log2(1, min(sb_rows, 64))
+        min_tiles = max(min_cols, tile_log2(max_area_sb, sb_rows * sb_cols))
+        if f(1):  # uniform_tile_spacing_flag
+            cols = min_cols
+            while cols < max_cols and f(1):
+                cols += 1
+            rows = max(min_tiles - cols, 0)
+            while rows < max_rows and f(1):
+                rows += 1
+            n_cols = len(range(0, sb_cols, (sb_cols + (1 << cols) - 1) >> cols))
+            n_rows = len(range(0, sb_rows, (sb_rows + (1 << rows) - 1) >> rows))
+        else:
+            widest, start, n_cols = 0, 0, 0
+            while start < sb_cols:
+                size_sb = self._ns(min(sb_cols - start, max_w_sb)) + 1
+                widest, start, n_cols = max(widest, size_sb), start + size_sb, n_cols + 1
+            area = (sb_rows * sb_cols) >> (min_tiles + 1) if min_tiles else sb_rows * sb_cols
+            start, n_rows = 0, 0
+            while start < sb_rows:
+                start += self._ns(min(sb_rows - start, max(area // widest, 1))) + 1
+                n_rows += 1
+            cols, rows = tile_log2(1, n_cols), tile_log2(1, n_rows)
+        if cols or rows:
+            f(cols + rows + 2)
+
+    def _film_grain(self, seq):
+        f = self.f
+        if not f(1):  # apply_grain
+            return
+        f(16)
+        num_y = f(4)
+        f(16 * num_y)
+        cfl = 0 if seq.mono else f(1)
+        num_uv = [0, 0]
+        if not (seq.mono or cfl or (seq.sub == (1, 1) and not num_y)):
+            for k in range(2):
+                num_uv[k] = f(4)
+                f(16 * num_uv[k])
+        f(2)
+        lag = f(2)
+        pos = 2 * lag * (lag + 1)
+        if num_y:
+            f(8 * pos)
+        for k in range(2):
+            if num_uv[k] or cfl:
+                f(8 * (pos + (1 if num_y else 0)))
+        f(4)
+        for k in range(2):
+            if num_uv[k]:
+                f(25)
+        f(2)
+
+
+def superres_stream(data: bytes, denom: int, width: int) -> bytes:
+    """An AV1 sample (OBUs with size fields, one shown key frame coded
+    without superres) rewritten as the same frame coded with superres:
+    the sequence header allows it and its frame width becomes `width`
+    (the field's bits grow where they must), and the frame header gains
+    use_superres and coded_denom (`denom` - 9) after its frame size and
+    loses allow_intrabc, which must have been 0. The coded width, the
+    downscaled one, must be what `width` and `denom` give (as dav1d
+    computes it), so the tile data reads the same; the upscaled frame is
+    what a decoder outputs."""
+    out, seq = bytearray(), None
+    for hdr, payload in _obus(data):
+        kind = (hdr[0] >> 3) & 15
+        if kind == 1:
+            seq = _SeqBits(payload)
+            fwb = max(seq.fwb, (width - 1).bit_length())
+            bits = (seq.bits[:seq.dims] + _put(fwb - 1, 4) + _put(seq.fhb - 1, 4)
+                    + _put(width - 1, fwb) + _put(seq.max_h - 1, seq.fhb)
+                    + seq.bits[seq.dims_end:seq.tools] + [1] + seq.bits[seq.tools + 1:seq.end]
+                    + [1])
+            payload = _packed(bits)
+        elif kind in (3, 6):
+            fr = _FrameBits(payload, seq)
+            coded = max((width * 8 + denom // 2) // denom, min(16, width))
+            assert coded == fr.width, (coded, fr.width, "not the coded width of", width, denom)
+            assert not (fr.lossless and seq.restoration), "lr_params would be read"
+            bits = fr.bits[:fr.sr] + [1] + _put(denom - 9, 3)
+            if fr.intrabc is None:
+                bits += fr.bits[fr.sr:fr.end]
+            else:
+                assert fr.bits[fr.intrabc] == 0, "intra block copy is on"
+                bits += fr.bits[fr.sr:fr.intrabc] + fr.bits[fr.intrabc + 1:fr.end]
+            if kind == 3:
+                bits += [1]  # trailing bits
+            payload = _packed(bits) + (payload[(fr.end + 7) // 8:] if kind == 6 else b"")
+        out += hdr + _leb128(len(payload)) + payload
+    return bytes(out)
+
+
 def high_depth(data: bytes, depth: int, stream: bool = True, boxes: bool = True,
                skip: tuple = ()) -> bytes:
     """A still AVIF file of the wheel's 8-bit av01 items (Pillow's save or
@@ -840,6 +1122,17 @@ def high_depth(data: bytes, depth: int, stream: bool = True, boxes: bool = True,
                 byte2 = (data[s + 2] & 0x80) | 0x40 | (0x20 if depth == 12 else 0)
                 byte2 |= seq.mono << 4 | seq.sub[0] << 3 | seq.sub[1] << 2 | (data[s + 2] & 3)
                 edits.append((s + 1, 2, bytes([profile << 5 | (data[s + 1] & 31), byte2])))
+    return _with_edits(data, edits)
+
+
+def _with_edits(data: bytes, edits: list) -> bytes:
+    """A still AVIF file with its bytes edited ((offset, old length, new
+    bytes), any order): iloc's extents (version 0 or 1, no base offset)
+    and mdat's size follow the edits' lengths."""
+    from cybervision_tpu_torch.imageio import avif
+
+    top = list(avif._boxes(data, 0, len(data)))
+    meta = next((s, e) for t, s, e in top if t == b"meta")
     edits = sorted(set(edits))
 
     def moved(at: int) -> int:
@@ -870,6 +1163,166 @@ def high_depth(data: bytes, depth: int, stream: bool = True, boxes: bool = True,
             hdr = s - 8
             struct.pack_into(">I", out, moved(hdr), moved(e) - moved(hdr))
     return bytes(out)
+
+
+def frame_headers(data: bytes) -> tuple:
+    """(_SeqBits, _FrameBits) of a still AVIF file's colour item (an
+    av01 item, or a grid's first tile)."""
+    from cybervision_tpu_torch.imageio import avif
+
+    f = avif.parse(data)
+    extents = f.color.tiles[0][0] if isinstance(f.color, avif.Grid) else f.color
+    seq = frame = None
+    for hdr, payload in _obus(b"".join(data[o:o + n] for o, n in extents)):
+        kind = (hdr[0] >> 3) & 15
+        if kind == 1:
+            seq = _SeqBits(payload)
+        elif kind in (3, 6):
+            frame = _FrameBits(payload, seq)
+    return seq, frame
+
+
+def superres(data: bytes, denom: int, width: int) -> bytes:
+    """A still AVIF file whose av01 items (colour, alpha, grid tiles) are
+    coded at the width that `width` and `denom` give with superres (as
+    dav1d computes it) rewritten as superres items of `width` columns:
+    each item's stream (superres_stream) and ispe, and a grid's ImageGrid
+    output width and ispe (its columns times `width`)."""
+    from cybervision_tpu_torch.imageio import avif
+
+    meta = next((s, e) for t, s, e in avif._boxes(data, 0, len(data)) if t == b"meta")
+    items, _, idat = avif._parse_meta(data, *meta)
+    edits = []
+    for item in items.values():
+        if item.type == b"av01":
+            off, n = item.extents[0]
+            edits.append((off, n, superres_stream(data[off:off + n], denom, width)))
+            new_width = width
+        elif item.type == b"grid":
+            (off, n), = avif._extents(data, item, idat)
+            cols = data[off + 3] + 1
+            new_width = cols * width
+            wide = data[off + 1] & 1
+            edits.append((off + 4, 4 if wide else 2,
+                          struct.pack(">I" if wide else ">H", new_width)))
+        else:
+            continue
+        for typ, s, e in item.props:
+            if typ == b"ispe":
+                edits.append((s + 4, 4, struct.pack(">I", new_width)))
+    return _with_edits(data, edits)
+
+
+def with_ispe(data: bytes, size: tuple, which=lambda item: True) -> bytes:
+    """The file with the ispe of every av01 or grid item `which` takes
+    (all by default) set to `size` (width, height)."""
+    from cybervision_tpu_torch.imageio import avif
+
+    meta = next((s, e) for t, s, e in avif._boxes(data, 0, len(data)) if t == b"meta")
+    items, _, _ = avif._parse_meta(data, *meta)
+    edits = {(s + 4, 8, struct.pack(">II", *size)) for item in items.values()
+             if item.type in (b"av01", b"grid") and which(item)
+             for typ, s, e in item.props if typ == b"ispe"}
+    return _with_edits(data, list(edits))
+
+
+def _superres_coded(width: int, denom: int) -> int:
+    """The width a frame of `width` columns is coded at with superres
+    denominator `denom` (dav1d's)."""
+    return max((width * 8 + denom // 2) // denom, min(16, width))
+
+
+def avif_scale_fixtures() -> dict:
+    """Write phase 8 (y)'s AVIF files (chip_smoke.AVIF_SUPERRES_SEM,
+    AVIF_SCALE_DECODE_ONLY, AVIF_SCALE_FAIL): superres files, the wheel's
+    aom streams coded at the downscaled width and rewritten (superres);
+    files whose ispe is not their frame's size (with_ispe); {file name:
+    Pillow's plane hashes, or the step Pillow fails at}."""
+    enc = Libavif()
+    files = {}
+    img1, img2, _ = chip_smoke.synth_sem_pair(chip_smoke.SIZE, chip_smoke.SIZE)
+    coded = chip_smoke.AVIF_SUPERRES_CODED
+    assert _superres_coded(chip_smoke.SIZE, 9) == coded
+    for img, path in zip((img1, img2), chip_smoke.AVIF_SUPERRES_SEM):
+        narrow = np.asarray(Image.fromarray(img).resize((coded, chip_smoke.SIZE), Image.BOX))
+        data = enc.encode([enc.image([narrow], "400", True, (1, 13, 6))], quality=50)
+        files[os.path.basename(path)] = superres(data, 9, chip_smoke.SIZE)
+
+    def coded_file(fmt, denom, w, h, seed, alpha=False, options=(), quality=60):
+        cw = _superres_coded(w, denom)
+        planes = yuv_field(h, cw, seed, fmt)
+        a = np.add.outer(np.arange(h) * 3, np.arange(cw) * 2).astype(np.uint8) if alpha else None
+        return enc.encode([enc.image(planes, fmt, True, (1, 13, 6), alpha=a)], quality=quality,
+                          options=options)
+
+    for name, (fmt, denom, w, h, depth) in {
+            "superres_d9_420.avif": ("420", 9, 97, 80, 8),
+            "superres_d12_444.avif": ("444", 12, 96, 64, 8),
+            "superres_d16_400.avif": ("400", 16, 95, 48, 8),
+            "superres_d13_420_10bit.avif": ("420", 13, 101, 72, 10),
+            "superres_d11_444_12bit.avif": ("444", 11, 90, 66, 12)}.items():
+        data = superres(coded_file(fmt, denom, w, h, denom), denom, w)
+        files[name] = data if depth == 8 else high_depth(data, depth)
+    files["superres_d10_rgba.avif"] = superres(coded_file("420", 10, 88, 56, 4, alpha=True),
+                                               10, 88)
+    # Loop restoration (Wiener on luma and chroma at aom's speed 0) and
+    # CDEF on: one restoration unit a plane at either width, so that the
+    # units' symbols are read where the superres frame reads them.
+    rng = np.random.default_rng(3)
+    cw = _superres_coded(160, 14)
+    noisy = [np.clip(p.astype(int) + rng.integers(-30, 30, p.shape), 0, 255).astype(np.uint8)
+             for p in yuv_field(80, cw, 6, "420")]
+    lr = enc.encode([enc.image(noisy, "420", True, (1, 13, 6))], quality=30, speed=0,
+                    options=[("enable-restoration", "1"), ("enable-cdef", "1")])
+    seq, frame = frame_headers(lr)
+    assert seq.cdef and frame.lr[0] and frame.lr[1] and frame.lr_size >= 160, frame.lr
+    files["superres_lr_420.avif"] = superres(lr, 14, 160)
+    # A 2x2 grid of 96x64 tiles (coded at 64 columns), with an alpha grid.
+    field = yuv_field(128, 128, 8, "420")
+    alpha = np.add.outer(np.arange(128), np.arange(128) * 2).astype(np.uint8)
+    tiles = [enc.image([p[r * 64 // s:(r + 1) * 64 // s, c * 64 // s:(c + 1) * 64 // s]
+                        for p, s in zip(field, (1, 2, 2))], "420", True, (1, 13, 6),
+                       alpha=alpha[r * 64:(r + 1) * 64, c * 64:(c + 1) * 64])
+             for r in range(2) for c in range(2)]
+    files["superres_grid_alpha.avif"] = superres(enc.encode(tiles, grid=(2, 2), quality=50),
+                                                 12, 96)
+
+    def kind(name):
+        with open(os.path.join(chip_smoke.AVIF_DIR, name), "rb") as fh:
+            return fh.read()
+
+    mc1, mc1_444 = kind("mc1_420_full.avif"), kind("mc1_444_full.avif")  # 96x80
+    files["scaled_up2_420.avif"] = with_ispe(mc1, (192, 160))
+    files["scaled_down2_420.avif"] = with_ispe(mc1, (48, 40))
+    files["scaled_up_420.avif"] = with_ispe(mc1, (112, 88))
+    files["scaled_height_444.avif"] = with_ispe(mc1_444, (96, 53))
+    files["scaled_box_444.avif"] = with_ispe(mc1_444, (30, 25))
+    files["scaled_down34_12bit.avif"] = with_ispe(high_depth(mc1, 12), (72, 60))
+    rgba = io.BytesIO()
+    Image.fromarray(depth_views()[0][64:144, 96:200], "RGBA").save(rgba, "AVIF", quality=60)
+    files["scaled_rgba_12bit.avif"] = with_ispe(high_depth(rgba.getvalue(), 12), (130, 97))
+    files["scaled_grid_tiles.avif"] = with_ispe(kind("grid_2x3_alpha.avif"), (80, 80),
+                                                lambda item: item.type == b"av01")
+    # A frame wider than libyuv's limit (16384), its ispe narrower.
+    wide = np.tile(np.arange(16400, dtype=np.uint16) % 251, (16, 1)).astype(np.uint8)
+    files["scaled_wide_refused.avif"] = with_ispe(
+        enc.encode([enc.image([wide], "400", True, (1, 13, 6))], quality=50, speed=9),
+        (16384, 16))
+    out = {}
+    for name, data in files.items():
+        path = os.path.join(chip_smoke.AVIF_DIR, name)
+        with open(path, "wb") as fh:
+            fh.write(data)
+        if name in chip_smoke.AVIF_SCALE_FAIL:
+            step = pillow_failure(path)
+            assert step == chip_smoke.AVIF_SCALE_FAIL[name], (name, step)
+            out[name] = {"fails": step}
+        else:
+            assert pillow_failure(path) is None, name
+            out[name] = planes(path)
+    print(chip_smoke.AVIF_DIR, sum(len(d) for d in files.values()), "bytes in", len(files),
+          "files")
+    return out
 
 
 def avif_kind_fixtures() -> dict:
@@ -1114,6 +1567,14 @@ def main():
             json.dump(hashes, fh, indent=1, sort_keys=True)
             fh.write("\n")
         return
+    if sys.argv[1:] == ["avif-scale"]:
+        with open(chip_smoke.FORMATS_SHA256) as fh:
+            hashes = json.load(fh)
+        hashes["avif scale"] = avif_scale_fixtures()
+        with open(chip_smoke.FORMATS_SHA256, "w") as fh:
+            json.dump(hashes, fh, indent=1, sort_keys=True)
+            fh.write("\n")
+        return
     if sys.argv[1:] == ["avif-depth"]:
         with open(chip_smoke.FORMATS_SHA256) as fh:
             hashes = json.load(fh)
@@ -1157,7 +1618,8 @@ def main():
                    "jpeg2000 writer": jpeg2000_writer_hashes(),
                    "webp writer": webp_writer_hashes(), "avif": avif_fixtures(),
                    "avif writer": avif_writer_fixture(),
-                   "avif kinds": avif_kind_fixtures(), "avif depth": avif_depth_fixtures()},
+                   "avif kinds": avif_kind_fixtures(), "avif depth": avif_depth_fixtures(),
+                   "avif scale": avif_scale_fixtures()},
                   fh, indent=1,
                   sort_keys=True)
         fh.write("\n")

@@ -277,6 +277,14 @@ def extract() -> dict[str, tuple[str, np.ndarray]]:
     if gauss.min() < -2048 or gauss.max() >= 2048 or gauss[-4:].tolist() != [288, 944, 428, -484]:
         raise SystemExit("the Gaussian sequence moved")
     t["kGaussianSequence"] = ("int16_t", gauss)
+    # dav1d's superres upscaling taps (dav1d_resize_filter, 64 phases of 8:
+    # the specification's Upscale_Filter negated), held as the
+    # specification's.
+    rf = b.find([0, 0, 0, -128, 0, 0, 0, 0, 0, 0, 1, -128, -2, 1, 0, 0], "i1")
+    up = -b.read(rf, 512, "i1").astype(np.int16).reshape(64, 8)
+    if (up.sum(axis=1) != 128).any():
+        raise SystemExit("the upscaling taps moved")
+    t["kUpscaleFilter"] = ("int16_t", up)
     return t
 
 
